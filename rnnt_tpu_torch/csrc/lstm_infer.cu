@@ -1,0 +1,272 @@
+// Projected-LSTM inference sequence kernel for Hopper (sm_90a).
+//
+// Replaces rnnt_tpu/ops/lstm_pallas.py::_fwd_infer_kernel (launched by
+// lstm_seq_infer).  For t = 0..T-1, with carried h [B, P] and c [B, H]:
+//   z   = xp[t] + bias + h @ Wh            [B, 4H], gate order i, g, f, o
+//   c   = sigmoid(f) * c + sigmoid(i) * tanh(g)
+//   hid = sigmoid(o) * tanh(c)
+//   h   = hid @ Wp                         [B, P]  -> h_seq[t]
+// xp = x @ Wx is one large product outside (plain torch.matmul), delivered in
+// the weight type.  Rounding points match the TPU kernel: h is rounded to the
+// weight type before @Wh, hid before @Wp; accumulation and c are fp32.
+//
+// Bound on the H100: each step needs all of Wh [P, 4H] and Wp [H, P], 13.1 MB
+// at the parity width in bf16, for 13.1 MFLOP at B=1.  Read from device
+// memory every step that is 3.9 us a step at 3.35 TB/s, so ~10 ms for the
+// 2560 encoder steps of a 512-frame request; the 50 MB L2 holds one layer's
+// weights, so after the first step they come from L2.  The steps are a
+// sequential chain, so at small B the real limit is latency: one step has to
+// finish everywhere before the next can start.
+//
+// Design: one persistent launch covers the whole sequence.  The grid is one
+// block per SM (checked against cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and launched with cudaLaunchCooperativeKernel, so all blocks are
+// co-resident and an oversize grid is refused instead of deadlocking at the
+// grid barrier.  Block k owns a slice of the H hidden units (their four gate
+// columns of Wh) and a slice of the P output columns of Wp.  Per step:
+//   phase A: z for its gate columns from the whole h_prev (global buffer),
+//            then c and hid for its units.  c stays in shared memory for the
+//            whole sequence; hid goes to a global buffer.
+//   grid barrier
+//   phase B: its columns of h = hid @ Wp, written to h_seq[t] and the h
+//            buffer.
+//   grid barrier
+// Within a block, the vector operand (h or hid rows) is staged in shared
+// memory, threads split each column's dot product over rows, and partial
+// sums reduce through shared memory.  Buffers written during the launch are
+// read with __ldcg (L2, not the incoherent L1).  Weights are re-read from memory
+// (L2) every step; pinning each block's Wh slice in shared memory and wgmma
+// are later work.
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 512;  // threads per block
+constexpr int BCH = 4;   // batch rows per pass
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// Grid-wide barrier on a counter zeroed before the launch.  `target` counts
+// the arrivals this block waits for; it grows by gridDim.x per barrier.
+__device__ __forceinline__ void grid_barrier(unsigned int* bar,
+                                             unsigned int& target) {
+  __threadfence();
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    atomicAdd(bar, 1u);
+    while (*(volatile unsigned int*)bar < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// out[c * BCH + bb] = sum_k src[(b0 + bb) * lds + k] * w[k * ldw + col(c)]
+// for c < ncols, bb < nb.  `src` was written during this launch: its rows
+// are staged once into shared memory `xs` with L2 loads, so the inner loop
+// issues only weight loads.
+template <typename W, typename Col>
+__device__ void block_dots(const float* src, int lds, int b0, int nb, int K,
+                           const W* __restrict__ w, int ldw, int ncols,
+                           Col col, float* xs, float* red, float* out) {
+  for (int i = threadIdx.x; i < nb * K; i += NT) {
+    const int bb = i / K, k = i - bb * K;
+    xs[bb * K + k] = __ldcg(src + (size_t)(b0 + bb) * lds + k);
+  }
+  __syncthreads();
+  for (int cbase = 0; cbase < ncols; cbase += NT) {
+    const int nc = min(NT, ncols - cbase);
+    const int n_ks = NT / nc;
+    const int c = threadIdx.x % nc, ks = threadIdx.x / nc;
+    if (ks < n_ks) {
+      float acc[BCH];
+#pragma unroll
+      for (int bb = 0; bb < BCH; ++bb) acc[bb] = 0.f;
+      const W* wc = w + col(cbase + c);
+#pragma unroll 8
+      for (int k = ks; k < K; k += n_ks) {
+        const float wv = to_float(wc[(size_t)k * ldw]);
+#pragma unroll
+        for (int bb = 0; bb < BCH; ++bb)
+          if (bb < nb) acc[bb] = fmaf(xs[bb * K + k], wv, acc[bb]);
+      }
+#pragma unroll
+      for (int bb = 0; bb < BCH; ++bb) red[(ks * nc + c) * BCH + bb] = acc[bb];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nc * BCH; i += NT) {
+      const int cc = i / BCH, bb = i - cc * BCH;
+      float sum = 0.f;
+      for (int q = 0; q < n_ks; ++q) sum += red[(q * nc + cc) * BCH + bb];
+      out[(cbase + cc) * BCH + bb] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+__host__ __device__ inline int slice_begin(int i, int n, int parts) {
+  return (int)((long long)i * n / parts);
+}
+
+// Shared memory: reduction [NT*BCH] + dot outputs [ncmax*BCH] + staged
+// vector rows [BCH*max(H,P)] + c [B*numax].
+inline size_t smem_bytes(int nblk, int B, int H, int P) {
+  const int numax = (H + nblk - 1) / nblk;
+  const int ncmax = std::max(4 * numax, (P + nblk - 1) / nblk);
+  return sizeof(float) * ((size_t)NT * BCH + (size_t)ncmax * BCH +
+                          (size_t)BCH * std::max(H, P) + (size_t)B * numax);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(NT)
+    lstm_infer_kernel(const W* __restrict__ xp,        // [T, B, 4H]
+                      const W* __restrict__ wh,        // [P, 4H]
+                      const W* __restrict__ wp,        // [H, P]
+                      const W* __restrict__ bias,      // [4H]
+                      const float* __restrict__ c0,    // [B, H]
+                      float* hbuf,    // [B, P] h rounded to W; h0 at entry
+                      float* hidbuf,  // [B, H] hid rounded to W
+                      W* __restrict__ hseq,     // [T, B, P]
+                      float* __restrict__ cfin,  // [B, H]
+                      unsigned int* bar, int T, int B, int H, int P) {
+  extern __shared__ float smem[];
+  const int nblk = gridDim.x, blk = blockIdx.x;
+  const int u0 = slice_begin(blk, H, nblk);
+  const int nu = slice_begin(blk + 1, H, nblk) - u0;
+  const int j0 = slice_begin(blk, P, nblk);
+  const int ncb = slice_begin(blk + 1, P, nblk) - j0;
+  const int numax = (H + nblk - 1) / nblk;
+  const int ncmax = max(4 * numax, (P + nblk - 1) / nblk);
+  float* red = smem;
+  float* out = red + NT * BCH;
+  float* xs = out + ncmax * BCH;
+  float* cst = xs + BCH * max(H, P);
+  const int H4 = 4 * H;
+
+  for (int i = threadIdx.x; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    cst[b * numax + u] = c0[(size_t)b * H + u0 + u];
+  }
+  __syncthreads();
+
+  // local gate column c (gate-major over own units) -> column of Wh
+  auto gate_col = [=](int c) {
+    const int g = c / nu;
+    return g * H + u0 + (c - g * nu);
+  };
+  auto out_col = [=](int c) { return j0 + c; };
+  unsigned int target = 0;
+
+  for (int t = 0; t < T; ++t) {
+    // phase A: gates, cell and hid for own units
+    for (int b0 = 0; b0 < B; b0 += BCH) {
+      const int nb = min(BCH, B - b0);
+      block_dots(hbuf, P, b0, nb, P, wh, H4, 4 * nu, gate_col, xs, red, out);
+      for (int i = threadIdx.x; i < nb * nu; i += NT) {
+        const int bb = i / nu, u = i - bb * nu, b = b0 + bb;
+        const W* xrow = xp + ((size_t)t * B + b) * H4;
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int colm = g * H + u0 + u;
+          z[g] = to_float(xrow[colm]) + to_float(bias[colm]) +
+                 out[(g * nu + u) * BCH + bb];
+        }
+        const float c = sigmoid(z[2]) * cst[b * numax + u] +
+                        sigmoid(z[0]) * tanhf(z[1]);
+        cst[b * numax + u] = c;
+        hidbuf[(size_t)b * H + u0 + u] = round_to<W>(sigmoid(z[3]) * tanhf(c));
+      }
+      __syncthreads();
+    }
+    grid_barrier(bar, target);
+
+    // phase B: own columns of h = hid @ Wp
+    for (int b0 = 0; b0 < B; b0 += BCH) {
+      const int nb = min(BCH, B - b0);
+      block_dots(hidbuf, H, b0, nb, H, wp, P, ncb, out_col, xs, red, out);
+      for (int i = threadIdx.x; i < nb * ncb; i += NT) {
+        const int bb = i / ncb, c = i - bb * ncb, b = b0 + bb;
+        const W hw = from_float<W>(out[c * BCH + bb]);
+        hseq[((size_t)t * B + b) * P + j0 + c] = hw;
+        hbuf[(size_t)b * P + j0 + c] = to_float(hw);
+      }
+      __syncthreads();
+    }
+    grid_barrier(bar, target);
+  }
+
+  for (int i = threadIdx.x; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    cfin[(size_t)b * H + u0 + u] = cst[b * numax + u];
+  }
+}
+
+template <typename W>
+int launch(const void* xp_, const void* wh_, const void* wp_,
+           const void* bias_, const float* c0, float* hbuf, float* hidbuf,
+           void* hseq_, float* cfin, unsigned int* bar, int T, int B, int H,
+           int P, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const W* xp = (const W*)xp_;
+  const W* wh = (const W*)wh_;
+  const W* wp = (const W*)wp_;
+  const W* bias = (const W*)bias_;
+  W* hseq = (W*)hseq_;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  // one block per SM keeps the grid barrier cheap; never more than H blocks
+  const int nblk = std::min(sms, H);
+  const size_t smem = smem_bytes(nblk, B, H, P);
+  auto kernel = lstm_infer_kernel<W>;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&xp, &wh, &wp, &bias, &c0, &hbuf, &hidbuf, &hseq,
+                  &cfin, &bar, &T, &B, &H, &P};
+  return launch_status(cudaLaunchCooperativeKernel(
+      (void*)kernel, dim3(nblk), dim3(NT), args, smem, stream));
+}
+
+}  // namespace
+
+// xp [T, B, 4H], wh [P, 4H], wp [H, P], bias [4H], h_seq [T, B, P] in the
+// weight type; c0 [B, H], c_fin [B, H] f32; hbuf [B, P] f32 holding h0 (rounded
+// to the weight type), hidbuf [B, H] f32 scratch, bar one uint32 scratch.
+// Returns a CUDA error code (0 = launched).
+extern "C" int lstm_infer_f32(const void* xp, const void* wh, const void* wp,
+                              const void* bias, const float* c0, float* hbuf,
+                              float* hidbuf, void* hseq, float* cfin,
+                              unsigned int* bar, int T, int B, int H, int P,
+                              void* stream) {
+  return launch<float>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq, cfin, bar, T,
+                       B, H, P, stream);
+}
+
+extern "C" int lstm_infer_bf16(const void* xp, const void* wh, const void* wp,
+                               const void* bias, const float* c0, float* hbuf,
+                               float* hidbuf, void* hseq, float* cfin,
+                               unsigned int* bar, int T, int B, int H, int P,
+                               void* stream) {
+  return launch<__nv_bfloat16>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq, cfin,
+                               bar, T, B, H, P, stream);
+}

@@ -1,0 +1,80 @@
+"""Audio encoder: input BatchNorm, then stacked projected LSTMs with
+LayerNorm, and a TimeReduction after layer `time_reduction_index`.
+
+The port of `rnnt_tpu.models.encoder` for inference.  The per-layer LSTM
+state is carried in and out, as the JAX encoder threads it.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rnnt_tpu_torch.config import RNNTConfig
+from rnnt_tpu_torch.models import lstm as L
+
+State = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class LSTMBlock(nn.Module):
+    """One projected LSTM followed by LayerNorm (`lstm`, `ln` params)."""
+
+    def __init__(self, input_size: int, hidden_size: int, proj_size: int):
+        super().__init__()
+        self.lstm = L.ProjLSTM(input_size, hidden_size, proj_size)
+        self.ln = L.LayerNorm(proj_size)
+
+    def reset_(self, rng: np.random.Generator) -> None:
+        self.lstm.reset_(rng)
+        self.ln.reset_()
+
+    def forward(self, x, state=None):
+        y, new_state = self.lstm(x, state)
+        return self.ln(y), new_state
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: RNNTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bn = L.BatchNorm(cfg.input_feat_size)
+        layers = []
+        in_size = cfg.input_feat_size
+        for i in range(cfg.encoder_layers):
+            layers.append(LSTMBlock(in_size, cfg.encoder_size,
+                                    cfg.projection_size))
+            in_size = cfg.projection_size
+            if i == cfg.time_reduction_index:
+                in_size *= cfg.time_reduction_factor
+        self.layers = nn.ModuleList(layers)
+
+    def reset_(self, rng: np.random.Generator) -> None:
+        self.bn.reset_()
+        for layer in self.layers:
+            layer.reset_(rng)
+
+    def zero_state(self, batch: int, dtype=None) -> State:
+        return [layer.lstm.zero_state(batch, dtype) for layer in self.layers]
+
+    def forward(self, mel: torch.Tensor, state: Optional[State] = None):
+        """mel [B, T, feat] -> (encoded [B, T', P], new_state), with
+        T' = ceil(T / time_reduction_factor)."""
+        x = self.bn(mel)
+        new_state = []
+        for i, layer in enumerate(self.layers):
+            x, st = layer(x, state[i] if state is not None else None)
+            new_state.append(st)
+            if i == self.cfg.time_reduction_index:
+                x = L.time_reduction(x, self.cfg.time_reduction_factor)
+        return x, new_state
+
+
+def encoded_length(cfg: RNNTConfig, spec_lengths: torch.Tensor) -> torch.Tensor:
+    """Valid encoder frames for given input frame counts; a negative
+    time_reduction_index disables the reduction."""
+    if cfg.time_reduction_index < 0:
+        return spec_lengths
+    return L.reduced_length(spec_lengths, cfg.time_reduction_factor)

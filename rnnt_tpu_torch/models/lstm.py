@@ -1,0 +1,147 @@
+"""Projected LSTM, LayerNorm, inference BatchNorm and TimeReduction.
+
+The port of `rnnt_tpu.models.lstm` for inference.  Parameters keep the JAX
+layout and gate order (torch.nn.LSTM's i, f, g, o differs):
+
+  wx [F, 4H], wh [P, 4H], bias [4H], wp [H, P]; gates i, g, f, o.
+
+The input projection x @ Wx over all timesteps is one matmul outside the
+recurrence, cast to the weight dtype as the TPU kernel receives it; the
+recurrence itself is `ops.lstm_cuda.lstm_seq_infer` (the CUDA kernel on the
+card, its plain version on the CPU).  The cell state c is fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rnnt_tpu_torch.ops import lstm_cuda
+
+
+def frozen_param(shape) -> nn.Parameter:
+    """An inference parameter (no gradient), zero until loaded or reset."""
+    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+
+def glorot_(p: torch.Tensor, rng: np.random.Generator) -> None:
+    """Glorot-uniform fill of a 2-D weight from a numpy generator."""
+    lim = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+    p.copy_(torch.from_numpy(
+        rng.uniform(-lim, lim, tuple(p.shape)).astype(np.float32)))
+
+
+def matmul_to(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """x @ w with fp32 accumulation, returned in `dtype`.  Operands of one
+    dtype multiply directly (cuBLAS accumulates bf16 in fp32 and rounds
+    once); mixed operands multiply in fp32."""
+    if x.dtype == w.dtype:
+        return torch.matmul(x, w).to(dtype)
+    return torch.matmul(x.float(), w.float()).to(dtype)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as an fp32 result (JAX's preferred_element_type=float32)."""
+    if x.dtype == w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float())
+
+
+class ProjLSTM(nn.Module):
+    """Projected LSTM over [B, T, F] -> ([B, T, P], (c [B, H], h [B, P]))."""
+
+    def __init__(self, input_size: int, hidden_size: int, proj_size: int):
+        super().__init__()
+        self.wx = frozen_param((input_size, 4 * hidden_size))
+        self.wh = frozen_param((proj_size, 4 * hidden_size))
+        self.bias = frozen_param((4 * hidden_size,))
+        self.wp = frozen_param((hidden_size, proj_size))
+
+    def reset_(self, rng: np.random.Generator) -> None:
+        """Glorot-uniform weights; zero bias with the forget gate at 1."""
+        for w in (self.wx, self.wh, self.wp):
+            glorot_(w, rng)
+        H = self.wp.shape[0]
+        self.bias.zero_()
+        self.bias[2 * H: 3 * H] = 1.0
+
+    def zero_state(self, batch: int, dtype=None, device=None):
+        """(c, h): c fp32, h in `dtype` (the weight dtype by default)."""
+        H, P = self.wp.shape
+        device = device or self.wp.device
+        return (torch.zeros((batch, H), dtype=torch.float32, device=device),
+                torch.zeros((batch, P), dtype=dtype or self.wp.dtype,
+                            device=device))
+
+    def forward(self, x: torch.Tensor,
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        B, T, F = x.shape
+        dt = self.wh.dtype
+        if state is None:
+            state = self.zero_state(B, x.dtype, x.device)
+        c0, h0 = state
+        xp = matmul_to(x.reshape(B * T, F), self.wx, dt).reshape(B, T, -1)
+        h_seq, c_fin = lstm_cuda.lstm_seq_infer(
+            xp.transpose(0, 1), self.wh, self.wp, self.bias, h0, c0)
+        return h_seq.transpose(0, 1), (c_fin, h_seq[-1].to(h0.dtype))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, eps 1e-3 (Keras), computed in fp32 and
+    returned in the input dtype."""
+
+    def __init__(self, size: int):
+        super().__init__()
+        self.scale = frozen_param((size,))
+        self.bias = frozen_param((size,))
+
+    def reset_(self) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + 1e-3)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Feature-wise BatchNorm in inference: running stats, eps 1e-3.  The
+    running mean and variance stay fp32 whatever the parameter dtype."""
+
+    def __init__(self, size: int):
+        super().__init__()
+        self.scale = frozen_param((size,))
+        self.bias = frozen_param((size,))
+        self.mean = frozen_param((size,))
+        self.var = frozen_param((size,))
+
+    def reset_(self) -> None:
+        for p, v in ((self.scale, 1.0), (self.bias, 0.0), (self.mean, 0.0),
+                     (self.var, 1.0)):
+            p.fill_(v)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.float() - self.mean.float()) * torch.rsqrt(self.var.float()
+                                                          + 1e-3)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+def time_reduction(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Concatenate `factor` adjacent frames: [B, T, F] -> [B, ceil(T/f), F*f],
+    zero-padding the tail to a multiple of `factor`."""
+    B, T, F = x.shape
+    pad = (-T) % factor
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return x.reshape(B, (T + pad) // factor, F * factor)
+
+
+def reduced_length(lengths: torch.Tensor, factor: int) -> torch.Tensor:
+    """Valid-frame count after time_reduction: ceil(len / factor)."""
+    return -(-lengths // factor)

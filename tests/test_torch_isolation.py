@@ -1,0 +1,44 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless asked for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = f"""
+import sys
+sys.path.insert(0, {REPO!r})
+assert "jax" not in sys.modules
+import rnnt_tpu_torch, rnnt_tpu_torch.serve, rnnt_tpu_torch.cli.serve
+import rnnt_tpu_torch.ops.features_cuda, rnnt_tpu_torch.ops.lstm_cuda
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    # -I: no user site and no PYTHONPATH, so nothing imports JAX for us
+    r = subprocess.run([sys.executable, "-I", "-c", _PROBE],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from rnnt_tpu_torch.serve import Server, TranscriptionService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TranscriptionService(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(str(tmp_path), http_port=0)
