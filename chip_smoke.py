@@ -19,14 +19,14 @@ tokens): the decode times are those of that worst case.
    with the kernel launch counts of that request;
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4; the
-   LSTM (K2) for one layer call in bf16 (relative error <= 2e-2), for
-   random inputs with a carried state at B=1 and B=5 (fp32 <= 1e-4, bf16
-   <= 2e-2, inputs left untouched), and for the whole encoder in fp32
-   (<= 1e-4) and bf16 (<= 2e-2); fp32 greedy argmaxes are identical at every
-   joint step up to any step whose top-2 logit margin on the plain path is
-   below 1e-4;
-5. profiles each request's encoder and greedy decode with torch.profiler
-   (device ops, device busy time, idle share);
+   LSTM (K2) for random inputs with a carried state at B=1 and B=5 (fp32
+   <= 1e-4, bf16 <= 2e-2 relative error, inputs left untouched), and for
+   the whole encoder in fp32 (<= 1e-4) and bf16 (<= 2e-2); fp32 greedy
+   argmaxes are identical at every joint step up to any step whose top-2
+   logit margin on the plain path is below 1e-4;
+5. profiles each request's encoder and greedy decode with torch.profiler:
+   wall time, device ops and device busy time of one profiled run, and the
+   idle share 1 - busy / wall from that same run;
 6. prints a `kernels` JSON line (launches on the served requests, median
    kernel time, plain and library times, the roofline bound, max error), the
    card's name and power limit, and last the line
@@ -108,27 +108,6 @@ def plain_lstm():
         lstm_cuda.lstm_seq_infer = kernel
 
 
-class JointRecorder:
-    """Records row 0's argmax and top-2 margin at every joint_step call."""
-
-    def __init__(self, model):
-        self.ids, self.margins = [], []
-        self._model, self._inner = model, model.joint_step
-        model.joint_step = self
-
-    def __call__(self, enc_t, pred_u):
-        import torch
-
-        logits = self._inner(enc_t, pred_u)
-        top2 = torch.topk(logits[0], 2)
-        self.ids.append(int(top2.indices[0]))
-        self.margins.append(float(top2.values[0] - top2.values[1]))
-        return logits
-
-    def close(self):
-        del self._model.joint_step  # back to the class's method
-
-
 def synthetic_pieces(n: int):
     """A deterministic n-piece subword vocabulary (blank, characters,
     word-start pieces, then two- and three-letter pieces)."""
@@ -192,7 +171,7 @@ def check_frontend(cfg, audios):
     import torch
 
     from rnnt_tpu_torch.ops import features as F
-    from rnnt_tpu_torch.ops.features_cuda import log_mel_frontend
+    from rnnt_tpu_torch.ops.features_cuda import dft_matrices, log_mel_frontend
 
     worst = 0.0
     for audio in audios:
@@ -209,10 +188,17 @@ def check_frontend(cfg, audios):
     a = torch.from_numpy(audios[-1]).cuda()
     n_frames = F.num_frames(a.shape[0], cfg)
     L = cfg.frame_length_samples
-    K = F.next_pow2(L) // 2 + 1
+    nfft = F.next_pow2(L)
+    K = nfft // 2 + 1
     M = cfg.mel_bins
-    flops = 2.0 * n_frames * (2 * L * K + K * M)
-    nbytes = 4.0 * (a.shape[0] + n_frames * M + 2 * L * K + K * M)
+    mel_nnz = int(np.count_nonzero(dft_matrices(cfg)[2]))
+    # the function's least work a frame: window, real FFT (2.5 N log2 N),
+    # magnitude, the sparse mel filters, log; the kernel's matrix DFT does
+    # 2 * 2LK instead of the FFT's operations
+    flops = n_frames * (L + 2.5 * nfft * np.log2(nfft) + 4 * K
+                        + 2 * mel_nnz + M)
+    kernel_flops = 2.0 * n_frames * (2 * L * K + K * M)
+    nbytes = 4.0 * (a.shape[0] + n_frames * M)  # audio in, log-mel out
     t_flops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return {
         "name": "log_mel_frontend",
@@ -226,6 +212,7 @@ def check_frontend(cfg, audios):
         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
         "library_ms": None,
         "shape": f"audio [{a.shape[0]}] -> [{n_frames},{M}] f32",
+        "kernel_matrix_dft_gflop": kernel_flops / 1e9,
     }
 
 
@@ -280,8 +267,9 @@ def check_lstm_cases(H: int, P: int) -> None:
 
 
 def check_lstm_layer(model, mel_p):
-    """K2 vs its plain version on the card for one encoder layer call at the
-    request shape (layer 0 of the 512-frame bucket, B=1, bf16)."""
+    """K2's times and bound for one encoder layer call at the request shape
+    (layer 0 of the 512-frame bucket, B=1, bf16), and its max |d h| from the
+    plain version; the bf16 accuracy gate is the whole encoder's."""
     import torch
 
     from rnnt_tpu_torch.models.lstm import matmul_to
@@ -303,7 +291,6 @@ def check_lstm_layer(model, mel_p):
     max_abs = float((h_k.float() - h_p.float()).abs().max())
     log(f"K2 lstm layer xp {tuple(xp.shape)} {dt}: rel err h {err_h:.3e} "
         f"c {err_c:.3e}, max |d h| {max_abs:.3e}")
-    require(err_h <= 2e-2 and err_c <= 2e-2, "LSTM kernel disagrees (bf16)")
     esize = torch.finfo(dt).bits // 8
     nbytes = (esize * (xp.numel() + lstm.wh.numel() + lstm.wp.numel()
                        + lstm.bias.numel() + h0.numel() + T * B * P)
@@ -315,13 +302,9 @@ def check_lstm_layer(model, mel_p):
     step_args = (xp[:1],) + args[1:]
     step_ms = cuda_ms(lambda: lstm_cuda.lstm_seq_infer(*step_args), reps=50)
     x_tb = x.transpose(0, 1).to(dt).contiguous()
-    try:
-        ref = cudnn_proj_lstm(lstm, x)
-        with torch.no_grad():
-            library_ms = cuda_ms(lambda: ref(x_tb), reps=10)
-    except RuntimeError as ex:  # the yardstick only; the port never uses it
-        log(f"library LSTM not timed: {ex}")
-        library_ms = None
+    ref = cudnn_proj_lstm(lstm, x)  # the yardstick only; the port never uses it
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: ref(x_tb), reps=10)
     entry = {
         "name": "lstm_seq_infer",
         "route": "cuda",
@@ -346,19 +329,17 @@ def check_encoder_and_greedy(model, mel_p, t, tol, exact_tokens):
     card.  Returns (encoder rel err, tokens agree)."""
     import torch
 
-    from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
+    from rnnt_tpu_torch.decode.greedy import (JointRecorder,
+                                              greedy_decode_encoded)
 
     enc_len = model.encoded_length(torch.tensor([t], device=mel_p.device))
 
     def run():
-        rec = JointRecorder(model)
-        try:
+        with JointRecorder(model) as rec:
             enc, _ = model.encode(mel_p)
             tok, n = greedy_decode_encoded(model, enc, enc_len,
                                            max_output_length=256)
-            return enc, tok[0, : int(n[0])].tolist(), rec
-        finally:
-            rec.close()
+        return enc, tok[0, : int(n[0])].tolist(), rec
 
     with torch.no_grad():
         enc_k, tok_k, rec_k = run()
@@ -384,9 +365,10 @@ def check_encoder_and_greedy(model, mel_p, t, tol, exact_tokens):
     return err, diverge is None
 
 
-def device_profile(fn):
-    """Run fn() under torch.profiler.  Returns (wall ms without the
-    profiler, device ops, device busy ms under the profiler)."""
+def device_profile(fn, kernel):
+    """Run fn() once without and once under torch.profiler.  Returns the
+    wall ms of the first run, and of the profiled run: its wall ms (profiler
+    overhead included), device ops, device busy ms and `kernel`'s launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -395,19 +377,24 @@ def device_profile(fn):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        n0 = kernel.launches
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernel.launches - n0
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.end - e.time_range.start for e in device)
-    return wall_ms, len(device), busy_us / 1e3
+    return plain_wall_ms, wall_ms, len(device), busy_us / 1e3, launches
 
 
 def profile_request(model, mel_p, t, label):
     """Device ops and idle share of the encoder and of greedy decoding for
-    one request (B=1, single stream, so busy time is the sum of op times)."""
+    one request (B=1, single stream, so busy time is the sum of op times).
+    Wall, busy time and launches all come from the one profiled run."""
     import torch
 
     from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
@@ -420,21 +407,20 @@ def profile_request(model, mel_p, t, label):
                 ("encoder", lambda: model.encode(mel_p)),
                 ("decode", lambda: greedy_decode_encoded(
                     model, enc, enc_len, max_output_length=256))):
-            n0 = lstm_cuda.lstm_seq_infer.launches
-            wall, ops, busy = device_profile(fn)
-            if ops == 0:
-                log(f"profile {label} {phase}: the profiler recorded no "
-                    "device ops")
-                continue
-            # each joint step advances the 2-layer prediction net once;
-            # the first call consumes the start token
-            calls = (lstm_cuda.lstm_seq_infer.launches - n0) // 2
-            per = (f", {calls // 2 - 1} joint steps, "
-                   f"{ops / max(1, calls // 2 - 1):.1f} device ops a step"
-                   if phase == "decode" else "")
-            log(f"profile {label} {phase}: wall {wall:.2f} ms, device busy "
-                f"{busy:.2f} ms ({ops} device ops{per}), idle share "
-                f"{max(0.0, 1 - busy / wall):.3f}")
+            plain_wall, wall, ops, busy, launches = device_profile(
+                fn, lstm_cuda.lstm_seq_infer)
+            what = f"profile {label} {phase}"
+            require(ops > 0, f"{what}: the profiler recorded no device ops")
+            require(busy <= wall, f"{what}: device busy {busy} ms exceeds "
+                    f"wall {wall} ms on one stream")
+            # in decoding, each joint step advances the 2-layer prediction
+            # net once, after one call that consumes the start token
+            steps = launches // 2 - 1
+            per = (f", {steps} joint steps, {ops / steps:.1f} device ops a "
+                   f"step" if phase == "decode" else "")
+            log(f"{what}: wall {wall:.2f} ms ({plain_wall:.2f} without the "
+                f"profiler), device busy {busy:.2f} ms ({ops} device "
+                f"ops{per}), idle share {1 - busy / wall:.3f}")
 
 
 def serve_requests(cfg, audios):

@@ -8,12 +8,17 @@
 //   out[f] = log(mag @ MEL + 1e-6)          [M mel bins]
 // The caller subtracts the per-feature mean and stacks frames.
 //
-// Bound on the H100: about 0.45 MFLOP of fp32 multiply-add per frame at the
-// parity geometry (L=400, K=257, M=80), so the work is arithmetic on the CUDA
-// cores (67 TFLOP/s fp32), not bytes: audio in and log-mel out are 4 + 0.3
-// bytes per sample.  fp32 throughout on purpose: the TPU kernel runs its
-// matmuls at HIGHEST precision because the log amplifies DFT rounding noise
-// at near-silent bins, so TF32 or bf16 tensor cores are not used here.
+// Bound on the H100: the function needs about 14 kFLOP a frame at the parity
+// geometry (L=400, nfft=512, K=257, M=80): a real 512-point FFT (~11.5 k),
+// window, magnitude, the sparse mel filters (470 weights) and the log.  At
+// 67 TFLOP/s fp32 that is below the time to move audio in and log-mel out
+// (4 + 2 bytes per sample over 3.35 TB/s), so the function is bound by bytes.
+// This kernel does the DFT as two dense products, about 0.45 MFLOP a frame,
+// some 30 times the FFT's work: simple and exact in fp32, and still far from
+// the bound (an FFT in shared memory is later work).  fp32 throughout on
+// purpose: the TPU kernel runs its matmuls at HIGHEST precision because the
+// log amplifies DFT rounding noise at near-silent bins, so TF32 or bf16
+// tensor cores are not used here.
 //
 // Design: a block takes FT consecutive frames and reads them straight from
 // `audio` by index into shared memory (overlapping frames need no chunk

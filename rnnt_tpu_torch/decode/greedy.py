@@ -63,6 +63,33 @@ def greedy_decode_encoded(model: Transducer, encoded: torch.Tensor,
     return out_tokens, out_lengths
 
 
+class JointRecorder:
+    """While in use (`with JointRecorder(model) as rec:`), wraps the model's
+    joint_step and records, at every call, row 0's argmax (`ids`) and the
+    smallest top-2 logit margin over the rows (`margins`): shows whether an
+    exact comparison of greedy tokens hinges on a near tie."""
+
+    def __init__(self, model: Transducer):
+        self.ids, self.margins = [], []
+        self._model = model
+
+    def __enter__(self):
+        self._inner = self._model.joint_step
+        self._model.joint_step = self._record
+        return self
+
+    def __exit__(self, *exc):
+        del self._model.joint_step  # back to the class's method
+
+    def _record(self, enc_t, pred_u):
+        logits = self._inner(enc_t, pred_u)
+        top2 = torch.topk(logits, 2, dim=-1)
+        self.ids.append(int(top2.indices[0, 0]))
+        self.margins.append(
+            float((top2.values[:, 0] - top2.values[:, 1]).min()))
+        return logits
+
+
 def greedy_decode(model: Transducer, mel: torch.Tensor,
                   spec_lengths: Optional[torch.Tensor] = None, *,
                   max_output_length: int = 200):

@@ -3,8 +3,9 @@
 Replaces `rnnt_tpu/ops/features_pallas.py::_frontend_kernel`.  The kernel
 computes framing -> Hann-windowed DFT (two fp32 products against the
 window-folded cos and sin matrices) -> magnitude -> mel product ->
-log(mel + 1e-6) in one launch.  Its bound on the H100 is fp32 arithmetic on
-the CUDA cores (about 0.45 MFLOP a frame); see the source note.
+log(mel + 1e-6) in one launch.  The function's bound on the H100 is moving
+the audio in and the log-mel out; the kernel's matrix DFT does some thirty
+times the operations an FFT would need; see the source note.
 
 On a CPU tensor the wrapper runs the plain version
 (`ops.features.log_mel_plain`); on a CUDA tensor it launches the kernel or
@@ -77,11 +78,12 @@ def log_mel_frontend(audio: torch.Tensor, cfg: RNNTConfig) -> torch.Tensor:
         return out
     cos, sin, mel = _device_matrices(cfg, audio.device)
     lib = _lib()
-    err = lib.frontend_log_mel(
-        audio.data_ptr(), cos.data_ptr(), sin.data_ptr(), mel.data_ptr(),
-        out.data_ptr(), n_frames, cos.shape[0], cfg.frame_step_samples,
-        cos.shape[1], mel.shape[1],
-        torch.cuda.current_stream(audio.device).cuda_stream)
+    with torch.cuda.device(audio.device):  # the launcher uses the current one
+        err = lib.frontend_log_mel(
+            audio.data_ptr(), cos.data_ptr(), sin.data_ptr(), mel.data_ptr(),
+            out.data_ptr(), n_frames, cos.shape[0], cfg.frame_step_samples,
+            cos.shape[1], mel.shape[1],
+            torch.cuda.current_stream(audio.device).cuda_stream)
     build.check(lib, err, "frontend_log_mel")
     log_mel_frontend.launches += 1
     return out

@@ -87,10 +87,12 @@ def lstm_seq_infer(xp, wh, wp, bias, h0, c0) -> Tuple[torch.Tensor,
     h_seq = torch.empty((T, B, P), dtype=dt, device=dev)
     c_fin = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib, fn = _lib(dt)
-    err = fn(xp.data_ptr(), wh.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-             c0.data_ptr(), hbuf.data_ptr(), hidbuf.data_ptr(),
-             h_seq.data_ptr(), c_fin.data_ptr(), bar.data_ptr(), T, B, H, P,
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the launcher sizes the grid for, and launches on, the current device
+    with torch.cuda.device(dev):
+        err = fn(xp.data_ptr(), wh.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                 c0.data_ptr(), hbuf.data_ptr(), hidbuf.data_ptr(),
+                 h_seq.data_ptr(), c_fin.data_ptr(), bar.data_ptr(), T, B, H,
+                 P, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, _ENTRY[dt])
     lstm_seq_infer.launches += 1
     return h_seq, c_fin

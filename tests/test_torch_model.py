@@ -13,9 +13,10 @@ from rnnt_tpu.config import tiny_config
 from rnnt_tpu.decode.greedy import greedy_decode as j_greedy
 from rnnt_tpu.models import joint as JJ
 from rnnt_tpu.models.transducer import Transducer as JTransducer
+from rnnt_tpu_torch.decode.greedy import JointRecorder
 from rnnt_tpu_torch.decode.greedy import greedy_decode as t_greedy
 from rnnt_tpu_torch.models import joint as TJ
-from tests.torch_helpers import MarginRecorder, torch_model
+from tests.torch_helpers import torch_model
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CFG = tiny_config()
@@ -91,8 +92,7 @@ def test_greedy_tokens_match_jax(models):
     lens = np.array([24, 17, 9], np.int32)
     want_tok, want_len = j_greedy(jm, params, jnp.asarray(mel),
                                   jnp.asarray(lens), max_output_length=64)
-    rec = MarginRecorder(tm)
-    with torch.no_grad():
+    with torch.no_grad(), JointRecorder(tm) as rec:
         got_tok, got_len = t_greedy(tm, torch.from_numpy(mel),
                                     torch.from_numpy(lens),
                                     max_output_length=64)

@@ -18,7 +18,8 @@ from rnnt_tpu.data.tokenizer import CharTokenizer
 from rnnt_tpu.serve import TranscriptionService as JService
 from rnnt_tpu.train import checkpoint as j_ckpt
 from rnnt_tpu.train.state import create_train_state
-from tests.torch_helpers import MarginRecorder, wav_bytes
+from rnnt_tpu_torch.decode.greedy import JointRecorder
+from tests.torch_helpers import wav_bytes
 
 torch.set_num_threads(1)
 
@@ -63,15 +64,16 @@ def _post(port, body, query=""):
 
 def test_http_text_matches_jax_service(served):
     d, srv = served
-    rec = MarginRecorder(srv.service.model)
     ref = JService(d, max_t_pad=MAX_T_PAD)
     texts = []
-    for audio in _utterances():
-        body = wav_bytes(audio, 16000)
-        status, reply = _post(srv.http_port, body)
-        assert status == 200, reply
-        texts.append(reply["text"])
-        assert reply["text"] == ref.transcribe(*j_read_wav(io.BytesIO(body)))
+    with JointRecorder(srv.service.model) as rec:
+        for audio in _utterances():
+            body = wav_bytes(audio, 16000)
+            status, reply = _post(srv.http_port, body)
+            assert status == 200, reply
+            texts.append(reply["text"])
+            assert reply["text"] == ref.transcribe(
+                *j_read_wav(io.BytesIO(body)))
     assert min(rec.margins) > 1e-3, min(rec.margins)
     assert any(texts), texts  # something was emitted
     assert srv.service.last_timings["t_pad"] == 128

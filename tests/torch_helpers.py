@@ -33,20 +33,3 @@ def wav_bytes(audio: np.ndarray, sr: int) -> bytes:
     buf = io.BytesIO()
     write_wav(buf, audio, sr)
     return buf.getvalue()
-
-
-class MarginRecorder:
-    """Wraps a model's joint_step and records each call's smallest top-2
-    logit margin over the batch rows, so a test can show that an exact
-    token comparison does not hinge on a near tie."""
-
-    def __init__(self, model):
-        self.margins = []
-        self._inner = model.joint_step
-        model.joint_step = self
-
-    def __call__(self, enc_t, pred_u):
-        logits = self._inner(enc_t, pred_u)
-        top2 = torch.topk(logits, 2, dim=-1).values
-        self.margins.append(float((top2[:, 0] - top2[:, 1]).min()))
-        return logits
