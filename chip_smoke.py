@@ -3,34 +3,53 @@
 
   python3 chip_smoke.py [--seed 0]
 
-Drives the port's serving path at the parity width (RNNTConfig(): 8x2048/640
+Drives the port's serving paths at the parity width (RNNTConfig(): 8x2048/640
 encoder, 2x2048 prediction net, joint 640, V=4096, bf16 parameters, random
 weights from --seed) through the entry points a user calls.  Random weights
-rarely predict blank, so every request decodes up to max_output_length (256
-tokens): the decode times are those of that worst case.
+rarely predict blank, so every greedy request decodes up to
+max_output_length (256 tokens): the decode times are those of that worst
+case.
 
 1. builds every CUDA kernel from rnnt_tpu_torch/csrc (one nvcc per source,
    in parallel);
 2. writes a run directory in the JAX package's on-disk layout (config.json,
    a 4096-piece encoder.subwords, checkpoint_00000000/state.npz) and starts
-   rnnt_tpu_torch.serve.Server on it, warmed up;
-3. POSTs WAVs of 2 s, 5 s and 15 s (the 128-, 256- and 512-frame buckets)
-   and prints each request's latency split into frontend, encoder and decode,
-   with the kernel launch counts of that request;
+   rnnt_tpu_torch.serve.Server on it (HTTP and TCP streaming), warmed up;
+3. drives three paths, each with every kernel's launch count set to 0 just
+   before it and read just after: POSTs of WAVs of 2 s, 5 s and 15 s (the
+   128-, 256- and 512-frame buckets) decoded greedily, the same WAVs with
+   ?beam=4 (one beam-kernel launch a request), and a TCP streaming session
+   of the 5 s WAV in 1024-sample frames; it prints each request's latency
+   split into frontend, encoder and decode with its launches, and each
+   stream chunk's reply latency (p50, p99, max);
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4; the
    LSTM (K2) for random inputs with a carried state at B=1 and B=5 (fp32
    <= 1e-4, bf16 <= 2e-2 relative error, inputs left untouched), and for
    the whole encoder in fp32 (<= 1e-4) and bf16 (<= 2e-2); fp32 greedy
    argmaxes are identical at every joint step up to any step whose top-2
-   logit margin on the plain path is below 1e-4;
-5. profiles each request's encoder and greedy decode with torch.profiler:
-   wall time, device ops and device busy time of one profiled run, and the
-   idle share 1 - busy / wall from that same run;
-6. prints a `kernels` JSON line (launches on the served requests, median
-   kernel time, plain and library times, the roofline bound, max error), the
-   card's name and power limit, and last the line
-   {"ok": true, "device": {"platform": "gpu", ...}}.
+   logit margin on the plain path is below 1e-4; the beam search (K3) at
+   each request's encoder output, a B=3 batch at the 128 bucket, the 5 s
+   request with a sharpened joint and the 15 s one capped at 8 tokens
+   (which it must reach, with merges), in fp32 and in bf16: scores finite
+   and sorted, lengths within the cap, token ids in [1, V), every live
+   score within 1e-4 (fp32) or 1e-2 (bf16) relative error, the two
+   searches' picks identical at every selection up to the first near tie
+   (a gap below 1e-4 plus twice the score drift so far), slot-0 tokens and
+   lengths identical unless such a tie precedes; the bf16 gate must reject
+   a control (the kernel reading W2 with the halves of its 16-byte groups
+   swapped); the fp32 stream through the kernels and through the plain
+   versions, greedy argmaxes identical up to a near tie (margin < 1e-4);
+5. profiles each request's encoder, greedy decode and beam decode with
+   torch.profiler: wall time, device ops and device busy time of one
+   profiled run, and the idle share 1 - busy / wall from that same run (a
+   profiled run whose records miss a launch of the profiled kernel is
+   repeated, at most 3 runs);
+6. prints a `kernels` JSON line (launches on the driven paths, median kernel
+   time, plain and library times, the roofline bound, max error; for K3 also
+   the weight traffic of re-reading the weights at every product, and its
+   time split over the phases of a search), the card's name and power
+   limit, and last the line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA card,
 or without the repository beside it, it exits 2 and prints no result.
@@ -45,7 +64,9 @@ import io
 import json
 import os
 import shutil
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -58,6 +79,7 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # CUDA cores, fp32
 PEAK_BF16_FLOPS = 989e12     # tensor cores, dense bf16
 REQUEST_SECONDS = (2.0, 5.0, 15.0)
+BEAM, MAX_TOKENS = 4, 256  # the served beam width and max_output_length
 
 
 def log(*a):
@@ -106,6 +128,39 @@ def plain_lstm():
         yield
     finally:
         lstm_cuda.lstm_seq_infer = kernel
+
+
+@contextlib.contextmanager
+def plain_frontend():
+    """Route the log-mel frontend to its plain version (comparison only)."""
+    from rnnt_tpu_torch.ops import features as F
+    from rnnt_tpu_torch.ops import features_cuda
+
+    kernel = features_cuda.log_mel_frontend
+    features_cuda.log_mel_frontend = lambda audio, cfg: F.log_mel_plain(
+        audio, cfg)
+    try:
+        yield
+    finally:
+        features_cuda.log_mel_frontend = kernel
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper by its name in the kernels line."""
+    from rnnt_tpu_torch.ops import beam_cuda, features_cuda, lstm_cuda
+
+    return {"log_mel_frontend": features_cuda.log_mel_frontend,
+            "lstm_seq_infer": lstm_cuda.lstm_seq_infer,
+            "beam_search": beam_cuda.beam_search}
+
+
+def zero_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def synthetic_pieces(n: int):
@@ -337,8 +392,8 @@ def check_encoder_and_greedy(model, mel_p, t, tol, exact_tokens):
     def run():
         with JointRecorder(model) as rec:
             enc, _ = model.encode(mel_p)
-            tok, n = greedy_decode_encoded(model, enc, enc_len,
-                                           max_output_length=256)
+            tok, n, _ = greedy_decode_encoded(model, enc, enc_len,
+                                              max_output_length=256)
         return enc, tok[0, : int(n[0])].tolist(), rec
 
     with torch.no_grad():
@@ -365,10 +420,18 @@ def check_encoder_and_greedy(model, mel_p, t, tol, exact_tokens):
     return err, diverge is None
 
 
-def device_profile(fn, kernel):
-    """Run fn() once without and once under torch.profiler.  Returns the
+def device_profile(fn, kernel, symbol, attempts=3):
+    """Run fn() once without and then under torch.profiler.  Returns the
     wall ms of the first run, and of the profiled run: its wall ms (profiler
-    overhead included), device ops, device busy ms and `kernel`'s launches."""
+    overhead included), device ops, device busy ms, `kernel`'s launches and
+    the number of profiled runs.
+
+    The profiler on the card has dropped every device record of a session
+    (a 15 s beam decode recorded 0 ops), so a profiled run is accepted only
+    when its records hold each launch of the kernel (device ops whose name
+    contains `symbol`), and is repeated otherwise, at most `attempts` times.
+    The session is opened 10 ms before fn() starts and closed 10 ms after it
+    ends, so that no record falls outside its window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -378,17 +441,30 @@ def device_profile(fn, kernel):
     fn()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        n0 = kernel.launches
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = kernel.launches - n0
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            n0 = kernel.launches
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = kernel.launches - n0
+            time.sleep(0.01)
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        recorded = sum(symbol in e.name for e in device)
+        if launches > 0 and recorded == launches:
+            break
+        log(f"profiled run {attempt}: {len(device)} device ops, {recorded} "
+            f"of {launches} {symbol} launches recorded")
+    require(launches > 0 and recorded == launches,
+            f"the profiler recorded {recorded} of {launches} {symbol} "
+            f"launches in {attempts} runs")
     busy_us = sum(e.time_range.end - e.time_range.start for e in device)
-    return plain_wall_ms, wall_ms, len(device), busy_us / 1e3, launches
+    return plain_wall_ms, wall_ms, len(device), busy_us / 1e3, launches, \
+        attempt
 
 
 def profile_request(model, mel_p, t, label):
@@ -407,10 +483,9 @@ def profile_request(model, mel_p, t, label):
                 ("encoder", lambda: model.encode(mel_p)),
                 ("decode", lambda: greedy_decode_encoded(
                     model, enc, enc_len, max_output_length=256))):
-            plain_wall, wall, ops, busy, launches = device_profile(
-                fn, lstm_cuda.lstm_seq_infer)
+            plain_wall, wall, ops, busy, launches, runs = device_profile(
+                fn, lstm_cuda.lstm_seq_infer, "lstm_infer_kernel")
             what = f"profile {label} {phase}"
-            require(ops > 0, f"{what}: the profiler recorded no device ops")
             require(busy <= wall, f"{what}: device busy {busy} ms exceeds "
                     f"wall {wall} ms on one stream")
             # in decoding, each joint step advances the 2-layer prediction
@@ -420,46 +495,391 @@ def profile_request(model, mel_p, t, label):
                    f"step" if phase == "decode" else "")
             log(f"{what}: wall {wall:.2f} ms ({plain_wall:.2f} without the "
                 f"profiler), device busy {busy:.2f} ms ({ops} device "
-                f"ops{per}), idle share {1 - busy / wall:.3f}")
+                f"ops{per}), idle share {1 - busy / wall:.3f}, profiled "
+                f"runs {runs}")
 
 
-def serve_requests(cfg, audios):
-    """Start the port's Server on the run dir and POST each WAV.  Returns
-    (server, per-request records, launch counts over all requests)."""
-    from rnnt_tpu_torch.ops import features_cuda, lstm_cuda
-    from rnnt_tpu_torch.serve import Server
-
-    t0 = time.perf_counter()
-    srv = Server(RUN_DIR, http_port=0, device="cuda", warmup=True)
-    log(f"server up in {time.perf_counter() - t0:.1f} s (warmup "
-        f"{srv.warmup_seconds:.1f} s), dtype {srv.service.model.dtype}")
-    srv.serve_background()
+def post_requests(srv, audios, query=""):
+    """POST each WAV to the running server.  Returns per-request records
+    (latency split and each kernel's launches in that request)."""
     records = []
-    frontend, lstm = features_cuda.log_mel_frontend, lstm_cuda.lstm_seq_infer
-    frontend.launches = lstm.launches = 0
     for audio in audios:
-        f0, l0 = frontend.launches, lstm.launches
+        before = read_launches()
         conn = http.client.HTTPConnection("127.0.0.1", srv.http_port,
                                           timeout=600)
         t0 = time.perf_counter()
-        conn.request("POST", "/transcribe", body=wav_bytes(audio))
+        conn.request("POST", "/transcribe" + query, body=wav_bytes(audio))
         r = conn.getresponse()
         reply = json.loads(r.read())
         ms = (time.perf_counter() - t0) * 1e3
         conn.close()
         require(r.status == 200, reply)
         require(isinstance(reply["text"], str), reply)
-        tm = dict(srv.service.last_timings)
-        rec = {"seconds": audio.shape[0] / 16000, "latency_ms": ms, **tm,
-               "frontend_launches": frontend.launches - f0,
-               "lstm_launches": lstm.launches - l0,
+        after = read_launches()
+        rec = {"seconds": audio.shape[0] / 16000, "latency_ms": ms,
+               **srv.service.last_timings,
+               "launches": {k: after[k] - before[k] for k in after},
                "text_chars": len(reply["text"])}
         records.append(rec)
-        log("request " + json.dumps(rec))
-    launches = {"log_mel_frontend": frontend.launches,
-                "lstm_seq_infer": lstm.launches}
-    require(all(v > 0 for v in launches.values()), launches)
-    return srv, records, launches
+        log(f"request{query} " + json.dumps(rec))
+    return records
+
+
+def drive_path(name, fn, expect):
+    """Run one path with every launch count set to 0 just before it and
+    read just after; each kernel in `expect` must have launched.  Returns
+    (fn's result, the path's launch counts)."""
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    launches = read_launches()
+    log(f"path {name}: {time.perf_counter() - t0:.1f} s, launches "
+        f"{json.dumps(launches)}")
+    for k in expect:
+        require(launches[k] > 0, f"path {name}: {k} never launched")
+    return out, launches
+
+
+def start_server():
+    from rnnt_tpu_torch.serve import Server
+
+    t0 = time.perf_counter()
+    srv = Server(RUN_DIR, http_port=0, stream_port=0, device="cuda",
+                 warmup=True, warmup_beams=(0, BEAM))
+    log(f"server up in {time.perf_counter() - t0:.1f} s (warmup "
+        f"{srv.warmup_seconds:.1f} s, greedy and beam {BEAM} buckets and a "
+        f"stream), dtype {srv.service.model.dtype}")
+    srv.serve_background()
+    return srv
+
+
+def tcp_session(srv, audio, chunk=1024):
+    """One streaming session over the TCP port: 1024-sample float32 frames,
+    then the end frame.  Returns (final text, per-chunk reply ms)."""
+    ms = []
+    with socket.create_connection(("127.0.0.1", srv.stream_port),
+                                  timeout=600) as conn:
+        def exchange(payload):
+            t0 = time.perf_counter()
+            conn.sendall(struct.pack("<I", len(payload)) + payload)
+            (m,) = struct.unpack("<I", conn.recv(4, socket.MSG_WAITALL))
+            reply = json.loads(conn.recv(m, socket.MSG_WAITALL))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            require("error" not in reply, reply)
+            return reply
+
+        for o in range(0, len(audio), chunk):
+            require(not exchange(audio[o: o + chunk].astype("<f4")
+                                 .tobytes())["final"], "final before the end")
+        reply = exchange(b"")
+    require(reply["final"] is True, reply)
+    q = statistics.quantiles(ms[:-1], n=100, method="inclusive")
+    log(f"stream {len(ms) - 1} chunks of {chunk} samples + flush: reply ms "
+        f"p50 {statistics.median(ms[:-1]):.2f} p99 {q[98]:.2f} max "
+        f"{max(ms[:-1]):.2f}, flush {ms[-1]:.2f}; final text "
+        f"{len(reply['text'])} chars")
+    return reply["text"], ms
+
+
+def check_stream_kernels(model32, tokenizer, audio, chunk=1024):
+    """The same stream in fp32 through the kernels (K1, K2) and through
+    their plain versions: greedy argmaxes identical up to the first step
+    whose top-2 margin on the plain path is below 1e-4."""
+    from rnnt_tpu_torch.decode.greedy import JointRecorder
+    from rnnt_tpu_torch.decode.streaming import StreamingTranscriber
+
+    def run():
+        st = StreamingTranscriber(model32, tokenizer)
+        with JointRecorder(model32) as rec:
+            for o in range(0, len(audio), chunk):
+                st.process_chunk(audio[o: o + chunk])
+            text = st.flush()
+        return text, rec
+
+    text_k, rec_k = run()
+    with plain_lstm(), plain_frontend():
+        text_p, rec_p = run()
+    diverge = next((i for i, (a, b) in enumerate(zip(rec_k.ids, rec_p.ids))
+                    if a != b), None)
+    if diverge is None and len(rec_k.ids) != len(rec_p.ids):
+        diverge = min(len(rec_k.ids), len(rec_p.ids))
+    log(f"fp32 stream kernels vs plain: {len(rec_p.ids)} joint steps, text "
+        f"{'identical' if text_k == text_p else 'differs'}, first differing "
+        f"step {diverge}, min plain margin {min(rec_p.margins):.3e}")
+    if diverge is not None:
+        require(rec_p.margins[diverge] < 1e-4,
+                "streamed tokens differ at a step that is not a near tie")
+
+
+def beam_score_err(got, want):
+    """(max |d score|, relative error, alive in the same places) over the
+    beam scores alive in both (dead hypotheses score -1e30)."""
+    live = (got > -1e29) & (want > -1e29)
+    same_live = bool(((got > -1e29) == (want > -1e29)).all())
+    if not bool(live.any()):
+        return 0.0, 0.0, same_live
+    d = (got - want).abs()[live]
+    return float(d.max()), float(d.max() / want.abs()[live].max()), same_live
+
+
+def beam_bound(model, enc, frames, K, E):
+    """The beam search's least time (bytes over the memory rate, operations
+    over the peak for their type) and the per-frame weight traffic of
+    re-reading the weights at every product, from this run's shapes."""
+    import torch
+
+    cfg, dt = model.cfg, model.dtype
+    B, _, P = enc.shape
+    N, J, V, H = B * K, cfg.joint_size, cfg.vocab_size, cfg.pred_net_size
+    esize = torch.finfo(dt).bits // 8
+    layers = model.prediction.layers
+    joint_w = sum(p.numel() for p in (model.joint.w1, model.joint.b1,
+                                      model.joint.w2, model.joint.b2))
+    layer_w = [sum(p.numel() for p in blk.parameters()) for blk in layers]
+    weights = model.prediction.embed.numel() + joint_w + sum(layer_w)
+    nbytes = esize * (weights + enc.numel()) + 4 * (B + B * MAX_TOKENS + B
+                                                    + B * K)
+    mm = 2 * B * P * J + (1 + E) * 2 * N * (P * J + J * V)
+    for blk in layers:
+        din = blk.lstm.wx.shape[0]
+        mm += E * 2 * N * ((din + P) * 4 * H + H * P)
+    elem = (1 + E) * N * V * 3  # logits' bias, exp and sum
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops = frames * (mm / peak + elem / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    frame_bytes = esize * ((1 + E) * joint_w + E * sum(layer_w))
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "frame_weight_bytes": frame_bytes,
+            "streamed_weight_ms": frames * frame_bytes / PEAK_BYTES_PER_S
+            * 1e3}
+
+
+@contextlib.contextmanager
+def sharp_joint(*models, factor=8.0):
+    """The models' joint output layer scaled by a power of two (exact in
+    either dtype, and undone after): the beam search on random weights then
+    emits a few tokens (with --seed 0 in fp32: 8 in the 5 s request's 125
+    frames, 16 in the 15 s request's 250), so its label moves, token writes
+    and merges carry real hypotheses at the parity width."""
+    import torch
+
+    with torch.no_grad():
+        for m in models:
+            m.joint.w2.mul_(factor)
+        try:
+            yield
+        finally:
+            for m in models:
+                m.joint.w2.div_(factor)
+
+
+@contextlib.contextmanager
+def swapped_w2_halves(model):
+    """The joint's W2 [J, V] with the two 4-column halves of every 8-column
+    group swapped, as a bf16 kernel that unpacked its 16-byte weight loads
+    in the wrong order would read it; undone after.  The control that the
+    beam gate must reject."""
+    import torch
+
+    w2 = model.joint.w2
+    J, V = w2.shape
+    with torch.no_grad():
+        orig = w2.clone()
+        w2.copy_(w2.reshape(J, V // 8, 2, 4).flip(2).reshape(J, V))
+        try:
+            yield
+        finally:
+            w2.copy_(orig)
+
+
+BEAM_SCORE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+NEAR_TIE = 1e-4
+
+
+def gate_beam(got, trace, want, stats, enc_len, E, V, score_tol):
+    """K3's result (tokens, lengths, scores) and trace against the plain
+    search's on the same inputs.  Returns (failures, notes, max |d score|,
+    relative score error); the kernel holds when there are no failures.
+
+    - scores finite and sorted descending, lengths within the cap, token
+      ids in [1, V);
+    - every live score within `score_tol` relative error (to the largest
+      live score), alive in the same places;
+    - where the two searches first pick otherwise
+      (`decode.beam.trace_divergence`), the plain selection's smallest gap
+      is a near tie: below NEAR_TIE plus twice the drift, the largest score
+      difference of a pick both searches made up to there (two candidates
+      closer than that can trade places);
+    - slot-0 tokens and lengths identical unless such a near tie precedes.
+    """
+    import torch
+
+    from rnnt_tpu_torch.decode.beam import trace_divergence
+
+    (tk, lk, sk), (tp, lp, sp) = got, want
+    fails, notes = [], []
+    if not bool(torch.isfinite(sk).all()):
+        fails.append("non-finite scores")
+    if not bool((sk[:, :-1] >= sk[:, 1:]).all()):
+        fails.append("beam scores not sorted")
+    if not bool(((lk >= 0) & (lk <= tk.shape[1])).all()):
+        fails.append(f"lengths out of range: {lk.tolist()}")
+    pos = torch.arange(tk.shape[1], device=tk.device)
+    ids = tk[pos < lk[:, None].to(tk.device)]
+    if not bool(((ids >= 1) & (ids < V)).all()):
+        fails.append("token ids out of range")
+    max_abs, rel, same_live = beam_score_err(sk, sp)
+    if not same_live:
+        fails.append("live scores in other places")
+    if rel > score_tol:
+        fails.append(f"score rel err {rel:.3e} > {score_tol:g}")
+    for b, (first, drift) in enumerate(trace_divergence(trace, stats,
+                                                        enc_len, E)):
+        same = int(lk[b]) == int(lp[b]) and torch.equal(
+            tk[b, : lk[b]].cpu(), tp[b, : lp[b]].cpu())
+        if first is None:
+            if not same:
+                fails.append(f"utterance {b}: tokens differ though every "
+                             "selection agreed")
+            continue
+        gap = float(stats["gap"][first, b])
+        what = (f"utterance {b}: picks first differ at selection {first} "
+                f"(frame {first // (2 * E)}, "
+                f"{'pool' if first % 2 else 'labels'}), plain gap {gap:.3e}, "
+                f"drift {drift:.3e}, tokens "
+                f"{'identical' if same else 'differ'}")
+        if gap < NEAR_TIE + 2 * drift:
+            notes.append(what + ": a near tie")
+        else:
+            fails.append(what + ": not a near tie")
+    return fails, notes, max_abs, rel
+
+
+def check_beam(model32, served, cfg, cases):
+    """K3 vs its plain version on the card for each case (label, mel_p,
+    spec lengths, sharp joint?, length cap), in fp32 and in the served bf16,
+    held by `gate_beam` (scores within 1e-4 relative error in fp32, 1e-2 in
+    bf16); a case with a cap below MAX_TOKENS must reach it and merge.  The
+    bf16 gate must reject a control: the kernel reading W2 with its 16-byte
+    groups' halves swapped, on the last capped case.  Then K3's times,
+    bound and phase split at the last uncapped B=1 case (the 512-frame
+    bucket)."""
+    import torch
+
+    from rnnt_tpu_torch.decode.beam import (beam_search_encoded_plain,
+                                            default_expansions)
+    from rnnt_tpu_torch.ops import beam_cuda
+
+    E = default_expansions(cfg)
+    worst_bf16 = 0.0
+    control = None
+    for label, mel_p, lengths, sharp, cap in cases:
+        kw = dict(beam_width=BEAM, max_output_length=cap,
+                  expansions_per_frame=E)
+        for model in (model32, served):
+            ctx = sharp_joint(model) if sharp else contextlib.nullcontext()
+            dt = str(model.dtype)[6:]
+            with torch.no_grad(), ctx:
+                enc, _ = model.encode(mel_p)
+                enc_len = model.encoded_length(lengths.to(enc.device))
+                trace, stats = {}, {}
+                got = beam_cuda.beam_search(model, enc, enc_len, trace=trace,
+                                            **kw)
+                want = beam_search_encoded_plain(model, enc, enc_len,
+                                                 stats=stats, **kw)
+                torch.cuda.synchronize()
+            fails, notes, max_abs, rel = gate_beam(
+                got, trace, want, stats, enc_len, E, cfg.vocab_size,
+                BEAM_SCORE_TOL[dt])
+            log(f"K3 beam {label} L={cap} {dt} enc {tuple(enc.shape)}: "
+                f"lengths {got[1].tolist()} (plain {want[1].tolist()}), "
+                f"scores max |d| {max_abs:.3e} rel {rel:.3e}, merges "
+                f"{stats['merges']}, {stats['idx'].shape[0]} selections "
+                + ("identical" if not notes and not fails else
+                   "; ".join(notes + fails)))
+            require(not fails, f"beam kernel {label} {dt}: {fails}")
+            if dt == "bfloat16":
+                worst_bf16 = max(worst_bf16, max_abs)
+            if cap < MAX_TOKENS:
+                require(bool((got[1] == cap).all() and (want[1] == cap).all()),
+                        f"{label} {dt}: the length cap {cap} not reached")
+                require(stats["merges"] > 0, f"{label} {dt}: no merge")
+                if model is served:
+                    control = (sharp, kw, enc, enc_len, want, stats, label)
+    require(control is not None, "no capped case for the control")
+    sharp, kw, enc, enc_len, want, stats, label = control
+    ctx = sharp_joint(served) if sharp else contextlib.nullcontext()
+    with torch.no_grad(), ctx, swapped_w2_halves(served):
+        trace = {}
+        got = beam_cuda.beam_search(served, enc, enc_len, trace=trace, **kw)
+        fails, _, _, rel = gate_beam(got, trace, want, stats, enc_len, E,
+                                     cfg.vocab_size,
+                                     BEAM_SCORE_TOL["bfloat16"])
+    log(f"K3 control ({label}, W2 halves swapped) bf16: lengths "
+        f"{got[1].tolist()}, rel err {rel:.3e}, rejected by: {fails}")
+    require(fails, "the bf16 beam gate let the swapped-W2 control through")
+    # times, bound and phases at the 512-frame request in bf16
+    _, mel_p, lengths, _, _ = [c for c in cases if c[1].shape[0] == 1
+                               and c[4] == MAX_TOKENS][-1]
+    kw = dict(beam_width=BEAM, max_output_length=MAX_TOKENS,
+              expansions_per_frame=E)
+    with torch.no_grad():
+        enc, _ = served.encode(mel_p)
+        enc_len = served.encoded_length(lengths.to(enc.device))
+        frames = min(enc.shape[1], int(enc_len.max()))
+        ms = cuda_ms(lambda: beam_cuda.beam_search(served, enc, enc_len, **kw),
+                     reps=5)
+        plain_ms = cuda_ms(lambda: beam_search_encoded_plain(
+            served, enc, enc_len, **kw), reps=1, warmup=0)
+        phase_ns = torch.zeros(len(beam_cuda.PHASES), dtype=torch.int64,
+                               device=enc.device)
+        beam_cuda.beam_search(served, enc, enc_len, phase_ns=phase_ns, **kw)
+    torch.cuda.synchronize()
+    phases = {n: v / 1e6 for n, v in zip(beam_cuda.PHASES, phase_ns.tolist())}
+    log("K3 phases of block 0 (ms): " + json.dumps(phases))
+    entry = {
+        "name": "beam_search",
+        "route": "cuda",
+        "source": "rnnt_tpu_torch/csrc/beam_search.cu",
+        "replaces": "rnnt_tpu/ops/beam_pallas.py:161",
+        "max_abs_err": worst_bf16,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **beam_bound(served, enc, frames, BEAM, E),
+        "library_ms": None,
+        "shape": f"enc [{enc.shape[1]},1,{enc.shape[2]}] "
+                 f"{str(served.dtype)[6:]}, {frames} frames, K={BEAM} E={E} "
+                 f"L={MAX_TOKENS}",
+        "phase_ms": phases,
+    }
+    return entry
+
+
+def profile_beam(served, mel_p, t, label):
+    """Device ops and idle share of one beam decode (the search after the
+    encoder), from one profiled run, beside greedy's."""
+    import torch
+
+    from rnnt_tpu_torch.decode.beam import default_expansions
+    from rnnt_tpu_torch.ops import beam_cuda
+
+    enc_len = served.encoded_length(torch.tensor([t], device=mel_p.device))
+    with torch.no_grad():
+        enc, _ = served.encode(mel_p)
+        plain_wall, wall, ops, busy, launches, runs = device_profile(
+            lambda: beam_cuda.beam_search(
+                served, enc, enc_len, beam_width=BEAM,
+                max_output_length=MAX_TOKENS,
+                expansions_per_frame=default_expansions(served.cfg)),
+            beam_cuda.beam_search, "beam_kernel")
+    what = f"profile {label} beam decode"
+    require(launches == 1, f"{what}: {launches} beam launches")
+    require(busy <= wall, f"{what}: busy {busy} ms exceeds wall {wall} ms")
+    log(f"{what}: wall {wall:.2f} ms ({plain_wall:.2f} without the "
+        f"profiler), device busy {busy:.2f} ms ({ops} device ops, "
+        f"{launches} beam launch), idle share {1 - busy / wall:.3f}, "
+        f"profiled runs {runs}")
 
 
 def main(argv=None) -> int:
@@ -514,8 +934,22 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         write_run_dir(model32, cfg, RUN_DIR)
         log(f"run dir written in {time.perf_counter() - t0:.1f} s")
-        srv, records, launches = serve_requests(cfg, audios)
+        srv = start_server()
         served = srv.service.model
+        paths = {}
+        records, paths["greedy_http"] = drive_path(
+            "greedy HTTP", lambda: post_requests(srv, audios),
+            ("log_mel_frontend", "lstm_seq_infer"))
+        beam_records, paths["beam_http"] = drive_path(
+            f"beam {BEAM} HTTP", lambda: post_requests(srv, audios,
+                                                       f"?beam={BEAM}"),
+            ("log_mel_frontend", "lstm_seq_infer", "beam_search"))
+        require(all(r["launches"]["beam_search"] == 1 for r in beam_records),
+                "one beam launch a request")
+        _, paths["stream_tcp"] = drive_path(
+            "stream TCP", lambda: tcp_session(srv, audios[1]),
+            ("log_mel_frontend", "lstm_seq_infer"))
+        t_phase = time.perf_counter()
 
         k1 = check_frontend(cfg, audios)
         mel_long, t_long = padded_mel(audios[-1])
@@ -523,27 +957,63 @@ def main(argv=None) -> int:
         check_lstm_cases(cfg.encoder_size, cfg.projection_size)
         for audio, secs in zip(audios, REQUEST_SECONDS):
             profile_request(served, *padded_mel(audio), f"{secs:g} s bf16")
+            profile_beam(served, *padded_mel(audio), f"{secs:g} s bf16")
+        log(f"phase K1/K2 checks and profiles: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         model32 = model32.cuda()
         for audio in audios:
             mel_p, t = padded_mel(audio)
             check_encoder_and_greedy(model32, mel_p, t, 1e-4, True)
             check_encoder_and_greedy(served, mel_p, t, 2e-2, False)
-        n_req = len(records)
-        for k in (k1, k2):
-            k["launches"] = launches[k["name"]]
-            k["launches_per_request"] = [
-                r["frontend_launches" if k is k1 else "lstm_launches"]
-                for r in records]
-            log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, "
+        log(f"phase encoder and greedy checks: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        # three utterances of up to 2 s in the 128-frame bucket
+        short = [audios[0], audios[1][: 16000 * 3 // 2], audios[2][:16000]]
+        mels = [padded_mel(a) for a in short]
+        batch = torch.zeros((3, 128, cfg.input_feat_size), device="cuda")
+        for i, (m, t) in enumerate(mels):
+            batch[i, :t] = m[0, :t]
+        cases = [("B=3 128-bucket", batch,
+                  torch.tensor([t for _, t in mels]), False, MAX_TOKENS)]
+        mel_p, t = padded_mel(audios[1])
+        cases.append(("5 s, joint x8", mel_p, torch.tensor([t]), True,
+                      MAX_TOKENS))
+        # with --seed 0 the sharp joint emits 6 tokens in the 15 s request's
+        # first 60 frames and 16 in all 250 (fp32): a cap of 8 is reached
+        # well before the end, then only blanks settle
+        mel_p, t = padded_mel(audios[2])
+        cases.append(("15 s, joint x8", mel_p, torch.tensor([t]), True, 8))
+        for audio, secs in zip(audios, REQUEST_SECONDS):
+            mel_p, t = padded_mel(audio)
+            cases.append((f"{secs:g} s", mel_p, torch.tensor([t]), False,
+                          MAX_TOKENS))
+        k3 = check_beam(model32, served, cfg, cases)
+        log(f"phase beam checks and times: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        check_stream_kernels(model32, srv.service.tokenizer, audios[1])
+        log(f"phase stream kernels vs plain: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        per_request = {"greedy_http": records, "beam_http": beam_records}
+        for k in (k1, k2, k3):
+            name = k["name"]
+            k["launches"] = sum(p[name] for p in paths.values())
+            k["launches_by_path"] = {path: counts[name]
+                                     for path, counts in paths.items()}
+            k["launches_per_request"] = {
+                path: [r["launches"][name] for r in recs]
+                for path, recs in per_request.items()}
+            log(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, "
                 f"bound {k['bound_ms']:.5f} by {k['bound_by']}, library "
-                f"{k['library_ms']}), {k['launches'] / n_req:.1f} launches "
-                f"per request")
+                f"{k['library_ms']}), launches {k['launches_by_path']}")
     finally:
         if srv is not None:
             srv.shutdown()
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

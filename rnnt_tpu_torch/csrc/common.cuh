@@ -34,3 +34,81 @@ static inline int launch_status(cudaError_t launch) {
   if (launch != cudaSuccess) return static_cast<int>(launch);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- persistent cooperative kernels (lstm_infer.cu, beam_search.cu) ----
+
+constexpr int NT = 512;  // threads per block
+constexpr int BCH = 4;   // vector rows per pass of block_dots
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// Grid-wide barrier on a counter zeroed before the launch.  `target` counts
+// the arrivals this block waits for; it grows by gridDim.x per barrier.  A
+// wait of more than 2^35 clock cycles (over 10 s) can only be a fault, so it
+// traps: the launch then fails with an error instead of hanging the card.
+__device__ __forceinline__ void grid_barrier(unsigned int* bar,
+                                             unsigned int& target) {
+  __threadfence();
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    atomicAdd(bar, 1u);
+    const long long t0 = clock64();
+    while (*(volatile unsigned int*)bar < target) {
+      if (clock64() - t0 > (1LL << 35)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// out[c * BCH + bb] = sum_k src[(b0 + bb) * lds + k] * w[k * ldw + col(c)]
+// for c < ncols, bb < nb.  `src` was written during this launch: its rows
+// are staged once into shared memory `xs` with L2 loads, so the inner loop
+// issues only weight loads.  Threads split each column's dot product over k,
+// and the partial sums reduce through shared memory `red` [NT * BCH].
+template <typename W, typename Col>
+__device__ void block_dots(const float* src, int lds, int b0, int nb, int K,
+                           const W* __restrict__ w, int ldw, int ncols,
+                           Col col, float* xs, float* red, float* out) {
+  for (int i = threadIdx.x; i < nb * K; i += NT) {
+    const int bb = i / K, k = i - bb * K;
+    xs[bb * K + k] = __ldcg(src + (size_t)(b0 + bb) * lds + k);
+  }
+  __syncthreads();
+  for (int cbase = 0; cbase < ncols; cbase += NT) {
+    const int nc = min(NT, ncols - cbase);
+    const int n_ks = NT / nc;
+    const int c = threadIdx.x % nc, ks = threadIdx.x / nc;
+    if (ks < n_ks) {
+      float acc[BCH];
+#pragma unroll
+      for (int bb = 0; bb < BCH; ++bb) acc[bb] = 0.f;
+      const W* wc = w + col(cbase + c);
+#pragma unroll 8
+      for (int k = ks; k < K; k += n_ks) {
+        const float wv = to_float(wc[(size_t)k * ldw]);
+#pragma unroll
+        for (int bb = 0; bb < BCH; ++bb)
+          if (bb < nb) acc[bb] = fmaf(xs[bb * K + k], wv, acc[bb]);
+      }
+#pragma unroll
+      for (int bb = 0; bb < BCH; ++bb) red[(ks * nc + c) * BCH + bb] = acc[bb];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nc * BCH; i += NT) {
+      const int cc = i / BCH, bb = i - cc * BCH;
+      float sum = 0.f;
+      for (int q = 0; q < n_ks; ++q) sum += red[(q * nc + cc) * BCH + bb];
+      out[(cbase + cc) * BCH + bb] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// First index of part i when n items are cut into `parts` near-equal parts.
+__host__ __device__ inline int slice_begin(int i, int n, int parts) {
+  return (int)((long long)i * n / parts);
+}

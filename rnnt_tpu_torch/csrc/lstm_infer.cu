@@ -44,76 +44,6 @@
 
 namespace {
 
-constexpr int NT = 512;  // threads per block
-constexpr int BCH = 4;   // batch rows per pass
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// Grid-wide barrier on a counter zeroed before the launch.  `target` counts
-// the arrivals this block waits for; it grows by gridDim.x per barrier.
-__device__ __forceinline__ void grid_barrier(unsigned int* bar,
-                                             unsigned int& target) {
-  __threadfence();
-  __syncthreads();
-  target += gridDim.x;
-  if (threadIdx.x == 0) {
-    atomicAdd(bar, 1u);
-    while (*(volatile unsigned int*)bar < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// out[c * BCH + bb] = sum_k src[(b0 + bb) * lds + k] * w[k * ldw + col(c)]
-// for c < ncols, bb < nb.  `src` was written during this launch: its rows
-// are staged once into shared memory `xs` with L2 loads, so the inner loop
-// issues only weight loads.
-template <typename W, typename Col>
-__device__ void block_dots(const float* src, int lds, int b0, int nb, int K,
-                           const W* __restrict__ w, int ldw, int ncols,
-                           Col col, float* xs, float* red, float* out) {
-  for (int i = threadIdx.x; i < nb * K; i += NT) {
-    const int bb = i / K, k = i - bb * K;
-    xs[bb * K + k] = __ldcg(src + (size_t)(b0 + bb) * lds + k);
-  }
-  __syncthreads();
-  for (int cbase = 0; cbase < ncols; cbase += NT) {
-    const int nc = min(NT, ncols - cbase);
-    const int n_ks = NT / nc;
-    const int c = threadIdx.x % nc, ks = threadIdx.x / nc;
-    if (ks < n_ks) {
-      float acc[BCH];
-#pragma unroll
-      for (int bb = 0; bb < BCH; ++bb) acc[bb] = 0.f;
-      const W* wc = w + col(cbase + c);
-#pragma unroll 8
-      for (int k = ks; k < K; k += n_ks) {
-        const float wv = to_float(wc[(size_t)k * ldw]);
-#pragma unroll
-        for (int bb = 0; bb < BCH; ++bb)
-          if (bb < nb) acc[bb] = fmaf(xs[bb * K + k], wv, acc[bb]);
-      }
-#pragma unroll
-      for (int bb = 0; bb < BCH; ++bb) red[(ks * nc + c) * BCH + bb] = acc[bb];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nc * BCH; i += NT) {
-      const int cc = i / BCH, bb = i - cc * BCH;
-      float sum = 0.f;
-      for (int q = 0; q < n_ks; ++q) sum += red[(q * nc + cc) * BCH + bb];
-      out[(cbase + cc) * BCH + bb] = sum;
-    }
-    __syncthreads();
-  }
-}
-
-__host__ __device__ inline int slice_begin(int i, int n, int parts) {
-  return (int)((long long)i * n / parts);
-}
-
 // Shared memory: reduction [NT*BCH] + dot outputs [ncmax*BCH] + staged
 // vector rows [BCH*max(H,P)] + c [B*numax].
 inline size_t smem_bytes(int nblk, int B, int H, int P) {

@@ -40,6 +40,15 @@ def read_wav(path) -> Tuple[np.ndarray, int]:
     return data, framerate
 
 
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """Read an audio file by its extension.  Only WAV is ported: FLAC
+    raises until its decoder is."""
+    if path.lower().endswith(".flac"):
+        raise ValueError(f"{path}: FLAC input is not supported by the "
+                         "PyTorch port yet; convert it to WAV")
+    return read_wav(path)
+
+
 def write_wav(path, samples: np.ndarray, sample_rate: int) -> None:
     """Write mono float32 [-1, 1] samples as 16-bit PCM WAV (a path or a
     binary file-like object)."""

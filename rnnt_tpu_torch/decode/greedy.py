@@ -22,16 +22,21 @@ from rnnt_tpu_torch.models.transducer import Transducer
 
 def greedy_decode_encoded(model: Transducer, encoded: torch.Tensor,
                           enc_lengths: torch.Tensor, *,
-                          max_output_length: int = 200):
+                          max_output_length: int = 200, carry=None):
     """Greedy decode from encoder output [B, T', P] and lengths [B].
-    Returns (tokens [B, max_output_length] int32, lengths [B] int32)."""
+    Returns (tokens [B, max_output_length] int32, lengths [B] int32, carry);
+    pass the carry (pred_out, pred_state) back in to continue across
+    streaming chunks."""
     B, T, _ = encoded.shape
     dev = encoded.device
     max_sym = model.cfg.max_symbols_per_frame
-    state0 = model.prediction_zero_state(B, encoded.dtype)
-    # consume the start token 0
-    pred_out, pred_state = model.predict_step(
-        torch.zeros((B,), dtype=torch.long, device=dev), state0)
+    if carry is None:
+        state0 = model.prediction_zero_state(B, encoded.dtype)
+        # consume the start token 0
+        pred_out, pred_state = model.predict_step(
+            torch.zeros((B,), dtype=torch.long, device=dev), state0)
+    else:
+        pred_out, pred_state = carry
     out_tokens = torch.zeros((B, max_output_length), dtype=torch.int32,
                              device=dev)
     out_lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -60,7 +65,7 @@ def greedy_decode_encoded(model: Transducer, encoded: torch.Tensor,
                 for new_st, old_st in zip(new_state, pred_state)]
             active = emit
             n += 1
-    return out_tokens, out_lengths
+    return out_tokens, out_lengths, (pred_out, pred_state)
 
 
 class JointRecorder:
@@ -99,5 +104,6 @@ def greedy_decode(model: Transducer, mel: torch.Tensor,
         spec_lengths = torch.full((B,), T, dtype=torch.int32)
     encoded, _ = model.encode(mel)
     enc_lengths = model.encoded_length(spec_lengths.to(mel.device))
-    return greedy_decode_encoded(model, encoded, enc_lengths,
-                                 max_output_length=max_output_length)
+    tokens, lengths, _ = greedy_decode_encoded(
+        model, encoded, enc_lengths, max_output_length=max_output_length)
+    return tokens, lengths

@@ -94,13 +94,16 @@ def subtract_mean(log_mel: torch.Tensor) -> torch.Tensor:
     return log_mel - (log_mel.mean(dim=0) + 1e-8)
 
 
-def log_mel_spectrogram(audio: torch.Tensor, cfg: RNNTConfig) -> torch.Tensor:
+def log_mel_spectrogram(audio: torch.Tensor, cfg: RNNTConfig,
+                        mean_subtract: bool = True) -> torch.Tensor:
     """Audio [N] float32 in [-1, 1] -> log-mel [num_frames, mel_bins],
     per-feature mean-subtracted.  Runs the frontend kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor.  mean_subtract=False returns the raw
+    log-mels: streaming owns its normalization (a causal running mean)."""
     from rnnt_tpu_torch.ops.features_cuda import log_mel_frontend
 
-    return subtract_mean(log_mel_frontend(audio, cfg))
+    log_mel = log_mel_frontend(audio, cfg)
+    return subtract_mean(log_mel) if mean_subtract else log_mel
 
 
 def stack_frames(spec: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,44 +1,65 @@
-"""Transcription serving over HTTP, on the card.
+"""Transcription serving on the card: HTTP requests and TCP streams.
 
-The port of the HTTP half of `rnnt_tpu.serve`, with the standard library's
-http.server:
+The port of `rnnt_tpu.serve`, with the standard library's http.server and
+socketserver:
 
-- `POST /transcribe`: WAV body -> {"text": ...} by greedy decoding.  Features
-  are padded to power-of-two frame buckets floored at 64 frames, as the JAX
-  service does; an utterance above the largest bucket (`max_t_pad`) gets 413.
-  `?beam=K` with K > 0 gets 400: beam search is not ported yet.
+- `POST /transcribe`: WAV body -> {"text": ...}, by greedy decoding or, with
+  `?beam=K`, by a K-beam search (the beam kernel, one launch a request).
+  Features are padded to power-of-two frame buckets floored at 64 frames, as
+  the JAX service does; an utterance above the largest bucket (`max_t_pad`)
+  gets 413.
 - `GET /healthz`, `GET /info`: liveness and model metadata.
-- Bodies above `max_http_body` get 413 before they are read.
+- TCP streaming port, one connection per stream: the client sends
+  `u32 n | n bytes of float32 PCM` frames (little-endian), an empty frame
+  (n = 0) ends the stream; after every frame the server replies
+  `u32 m | m bytes of UTF-8 JSON {"text": ..., "final": bool}`, or
+  `{"error": ..., "final": true}` on a protocol violation, then closes.
+  Each connection gets its own `StreamingTranscriber`.
 
-The TCP streaming port of the JAX server is not served yet.  One lock
-serializes device work across request threads; each request runs the
-frontend kernel, the encoder (one LSTM kernel launch per layer) and the
-greedy loop (two LSTM kernel launches per prediction-net step) under it.
+Resource caps, as in the JAX server: HTTP bodies above `max_http_body` get
+413 before they are read; a TCP frame above `max_stream_frame`, or not a
+whole number of float32 samples, gets an error frame and a close; the first
+data frame of a session fixes its chunk size, later frames must match it
+(one smaller final data frame is allowed).
+
+One lock serializes device work across HTTP requests and every stream.  A
+request runs the frontend kernel, the encoder (one LSTM kernel launch per
+layer) and greedy decoding (two LSTM kernel launches per prediction-net
+step) or the beam kernel under it; a stream chunk the frontend, the encoder
+at chunk shapes and greedy decoding with the carried state.
 """
 
 from __future__ import annotations
 
 import json
+import socket
+import socketserver
+import struct
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from io import BytesIO
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from rnnt_tpu_torch.data.audio_io import read_wav
 from rnnt_tpu_torch.data.tokenizer import SUBWORD_FILENAME, get_tokenizer
+from rnnt_tpu_torch.decode.beam import default_expansions
 from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
+from rnnt_tpu_torch.decode.streaming import StreamingTranscriber
 from rnnt_tpu_torch.device import resolve_device
 from rnnt_tpu_torch.models.transducer import Transducer
 from rnnt_tpu_torch.ops import features as F
+from rnnt_tpu_torch.ops.beam_cuda import beam_search
 from rnnt_tpu_torch.train import checkpoint as ckpt_mod
 
 MAX_OUTPUT_LENGTH = 256
-# 64 MiB of WAV is ~35 min of 16 kHz s16 mono
+# 64 MiB of WAV is ~35 min of 16 kHz s16 mono; 8 MiB of float32 PCM is ~2 min
+# of audio in one streaming frame
 MAX_HTTP_BODY = 64 << 20
+MAX_STREAM_FRAME = 8 << 20
 
 
 class AudioTooLongError(ValueError):
@@ -46,7 +67,7 @@ class AudioTooLongError(ValueError):
 
 
 class TranscriptionService:
-    """Checkpoint -> greedy transcription on one device.
+    """Checkpoint -> transcription (greedy, beam, streaming) on one device.
 
     dtype: parameter dtype; None means bfloat16 on the card (as the JAX
     service picks on a TPU) and float32 on the CPU.  max_t_pad: largest
@@ -84,9 +105,12 @@ class TranscriptionService:
             | {1 << p for p in range(7, self.max_t_pad.bit_length())
                if (1 << p) <= self.max_t_pad})
 
-    def warmup(self, t_pads=None) -> float:
-        """Build the CUDA kernels and run every greedy bucket once, so that
-        no request pays the build under the device lock.  Returns seconds."""
+    def warmup(self, t_pads=None, beams=(0, 4),
+               stream_chunk: int = 1024) -> float:
+        """Build the CUDA kernels, run every (beam, bucket) pair once and
+        drive a short stream of `stream_chunk`-sample chunks (0 skips it), so
+        that no request pays a build or a first call under the device lock.
+        Returns seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from rnnt_tpu_torch.kernels import build
@@ -96,30 +120,42 @@ class TranscriptionService:
             F.preprocess_audio(torch.zeros(self.cfg.sample_rate,
                                            device=self.device), self.cfg)
         feat = self.cfg.input_feat_size
-        for t_pad in t_pads or self.default_warmup_buckets():
-            mel = torch.zeros((1, t_pad, feat), device=self.device)
-            with self._lock, torch.no_grad():
-                self._decode(mel, t_pad)
-                self._sync()
+        for beam in beams:
+            for t_pad in t_pads or self.default_warmup_buckets():
+                mel = torch.zeros((1, t_pad, feat), device=self.device)
+                with self._lock, torch.no_grad():
+                    self._decode(mel, t_pad, beam)
+                    self._sync()
+        if stream_chunk:
+            st = self.new_stream()
+            # past the priming, to the steady chunk shapes, and the flush
+            for _ in range(max(st.prime_samples // stream_chunk + 4, 8)):
+                st.process_chunk(np.zeros(stream_chunk, np.float32))
+            st.flush()
         return time.perf_counter() - t0
 
-    def _decode(self, mel_p: torch.Tensor, t: int):
-        """Encoder, then greedy decoding of the first t frames' output."""
+    def _decode(self, mel_p: torch.Tensor, t: int, beam: int = 0):
+        """Encoder, then greedy decoding or a `beam`-wide search of the
+        first t frames' output.  Returns (token ids, time the encoder was
+        done)."""
         encoded, _ = self.model.encode(mel_p)
         self._sync()
         t_enc = time.perf_counter()
         enc_lengths = self.model.encoded_length(
             torch.tensor([t], dtype=torch.int32, device=self.device))
-        tokens, lengths = greedy_decode_encoded(
-            self.model, encoded, enc_lengths,
-            max_output_length=MAX_OUTPUT_LENGTH)
+        if beam > 0:  # as the JAX service, beam <= 0 is greedy
+            tokens, lengths, _ = beam_search(
+                self.model, encoded, enc_lengths, beam_width=beam,
+                max_output_length=MAX_OUTPUT_LENGTH,
+                expansions_per_frame=default_expansions(self.cfg))
+        else:
+            tokens, lengths, _ = greedy_decode_encoded(
+                self.model, encoded, enc_lengths,
+                max_output_length=MAX_OUTPUT_LENGTH)
         return tokens[0, : int(lengths[0])].tolist(), t_enc
 
     def transcribe(self, audio: np.ndarray, sample_rate: int,
                    beam: int = 0) -> str:
-        if beam:
-            raise ValueError("beam search (?beam=K) is not supported by the "
-                             "PyTorch port yet; use greedy (beam=0)")
         if sample_rate != self.cfg.sample_rate:
             raise ValueError(f"expected {self.cfg.sample_rate} Hz audio, "
                              f"got {sample_rate}")
@@ -141,14 +177,20 @@ class TranscriptionService:
             mel_p[0, : mel.shape[0]] = mel
             self._sync()
             t1 = time.perf_counter()
-            ids, t2 = self._decode(mel_p, t)
+            ids, t2 = self._decode(mel_p, t, beam)
             t3 = time.perf_counter()
             self.last_timings = {
-                "frames": t, "t_pad": t_pad,
+                "frames": t, "t_pad": t_pad, "beam": beam,
                 "frontend_ms": (t1 - t0) * 1e3,
                 "encoder_ms": (t2 - t1) * 1e3,
                 "decode_ms": (t3 - t2) * 1e3}
         return self.tokenizer.decode(ids)
+
+    def new_stream(self) -> StreamingTranscriber:
+        """A streaming session on this service's model; it shares the device
+        lock with HTTP requests and every other stream."""
+        return StreamingTranscriber(self.model, self.tokenizer,
+                                    device_lock=self._lock)
 
     def info(self) -> dict:
         return {
@@ -215,32 +257,118 @@ def _http_handler(service: TranscriptionService,
     return Handler
 
 
+def _recv_exact(conn: socket.socket, n: int) -> Optional[bytes]:
+    buf = b""
+    while len(buf) < n:
+        part = conn.recv(n - len(buf))
+        if not part:
+            return None
+        buf += part
+    return buf
+
+
+def _stream_handler(service: TranscriptionService,
+                    max_frame: int = MAX_STREAM_FRAME):
+    class Handler(socketserver.BaseRequestHandler):
+        def _error(self, conn, msg: str) -> None:
+            reply = json.dumps({"error": msg, "final": True}).encode()
+            conn.sendall(struct.pack("<I", len(reply)) + reply)
+
+        def handle(self):
+            st = service.new_stream()
+            conn = self.request
+            chunk_bytes = None   # fixed by the first data frame
+            tail_seen = False    # one smaller final data frame allowed
+            while True:
+                hdr = _recv_exact(conn, 4)
+                if hdr is None:
+                    return  # the client went away
+                (n,) = struct.unpack("<I", hdr)
+                if n == 0:
+                    text, final = st.flush(), True
+                else:
+                    if n > max_frame:
+                        # never allocate a hostile length
+                        self._error(conn, f"frame {n} bytes exceeds cap "
+                                          f"{max_frame}")
+                        return
+                    if n % 4:
+                        self._error(conn, f"frame {n} bytes is not a whole "
+                                          "number of float32 samples")
+                        return
+                    # chunk-size contract: the first data frame fixes the
+                    # size; later frames match it, except one smaller final
+                    # frame before the terminator
+                    if chunk_bytes is None:
+                        chunk_bytes = n
+                    elif tail_seen or n > chunk_bytes:
+                        self._error(conn, f"chunk size {n} violates session "
+                                          f"size {chunk_bytes}")
+                        return
+                    elif n < chunk_bytes:
+                        tail_seen = True
+                    payload = _recv_exact(conn, n)
+                    if payload is None:
+                        return
+                    samples = np.frombuffer(payload, dtype="<f4")
+                    text, final = st.process_chunk(samples), False
+                reply = json.dumps({"text": text, "final": final}).encode()
+                conn.sendall(struct.pack("<I", len(reply)) + reply)
+                if final:
+                    return
+
+    return Handler
+
+
 class Server:
-    """HTTP server around one TranscriptionService."""
+    """HTTP and streaming-TCP servers sharing one TranscriptionService."""
 
     def __init__(self, checkpoint_dir: str, host: str = "127.0.0.1",
-                 http_port: int = 8080, device="cuda",
-                 warmup: bool = False, max_http_body: int = MAX_HTTP_BODY,
+                 http_port: int = 8080, stream_port: int = 8081,
+                 device="cuda", warmup: bool = False, warmup_beams=(0, 4),
+                 max_http_body: int = MAX_HTTP_BODY,
+                 max_stream_frame: int = MAX_STREAM_FRAME,
                  max_t_pad: int = 512):
         self.service = TranscriptionService(checkpoint_dir, device=device,
                                             max_t_pad=max_t_pad)
-        self.warmup_seconds = self.service.warmup() if warmup else 0.0
+        self.warmup_seconds = (self.service.warmup(beams=warmup_beams)
+                               if warmup else 0.0)
         self.http = ThreadingHTTPServer(
             (host, http_port),
             _http_handler(self.service, max_body=max_http_body))
+        self.stream = socketserver.ThreadingTCPServer(
+            (host, stream_port),
+            _stream_handler(self.service, max_frame=max_stream_frame),
+            bind_and_activate=False)
+        self.stream.daemon_threads = True
+        self.stream.allow_reuse_address = True
+        try:
+            self.stream.server_bind()
+            self.stream.server_activate()
+        except OSError:
+            self.http.server_close()
+            self.stream.server_close()
+            raise
         self.http_port = self.http.server_address[1]
-        self._thread = None
+        self.stream_port = self.stream.server_address[1]
+        self._threads = []
 
     def serve_background(self) -> None:
-        self._thread = threading.Thread(target=self.http.serve_forever,
-                                        daemon=True)
-        self._thread.start()
+        for srv in (self.http, self.stream):
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            self._threads.append(th)
 
     def serve_forever(self) -> None:
-        self.http.serve_forever()
+        self.serve_background()
+        for th in self._threads:
+            th.join()
 
     def shutdown(self) -> None:
-        if self._thread is not None:
+        if self._threads:  # shutdown() waits for a running serve_forever
             self.http.shutdown()
-            self._thread.join(timeout=30)
+            self.stream.shutdown()
+            for th in self._threads:
+                th.join(timeout=30)
         self.http.server_close()
+        self.stream.server_close()

@@ -18,6 +18,10 @@ sys.path.insert(0, {REPO!r})
 assert "jax" not in sys.modules
 import rnnt_tpu_torch, rnnt_tpu_torch.serve, rnnt_tpu_torch.cli.serve
 import rnnt_tpu_torch.ops.features_cuda, rnnt_tpu_torch.ops.lstm_cuda
+import rnnt_tpu_torch.decode.beam, rnnt_tpu_torch.ops.beam_cuda
+import rnnt_tpu_torch.decode.streaming
+import rnnt_tpu_torch.cli.transcribe_file
+import rnnt_tpu_torch.cli.streaming_transcribe
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
@@ -35,10 +39,16 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from rnnt_tpu_torch.cli import streaming_transcribe, transcribe_file
     from rnnt_tpu_torch.serve import Server, TranscriptionService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TranscriptionService(str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Server(str(tmp_path), http_port=0)
+        Server(str(tmp_path), http_port=0, stream_port=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transcribe_file.main(["--checkpoint", str(tmp_path), "-i", "a.wav"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        streaming_transcribe.main(["--checkpoint", str(tmp_path),
+                                   "--simulate_file", "a.wav"])

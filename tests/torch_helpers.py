@@ -27,6 +27,24 @@ def torch_model(cfg, params) -> TorchTransducer:
     return model.eval()
 
 
+def sharpen_joint(params, factor: float = 8.0):
+    """The params with the joint's output layer scaled by `factor`.  A
+    random tiny model's joint is so flat that blank wins every frame and
+    every search decodes to nothing; a sharp one emits a few tokens per
+    utterance, so that the parity tests compare real hypotheses."""
+    params = jax.tree_util.tree_map(lambda x: x, params)
+    params["joint"] = dict(params["joint"], w2=params["joint"]["w2"] * factor)
+    return params
+
+
+def sharp_train_state(cfg, seed: int, factor: float = 8.0):
+    """A JAX TrainState (for checkpoints) whose joint is sharpened."""
+    from rnnt_tpu.train.state import create_train_state
+
+    state = create_train_state(jax.random.PRNGKey(seed), cfg)
+    return state._replace(params=sharpen_joint(state.params, factor))
+
+
 def wav_bytes(audio: np.ndarray, sr: int) -> bytes:
     from rnnt_tpu_torch.data.audio_io import write_wav
 
