@@ -3,23 +3,32 @@
 
   python3 chip_smoke.py [--seed 0]
 
-Drives the port's serving paths at the parity width (RNNTConfig(): 8x2048/640
-encoder, 2x2048 prediction net, joint 640, V=4096, bf16 parameters, random
-weights from --seed) through the entry points a user calls.  Random weights
-rarely predict blank, so every greedy request decodes up to
-max_output_length (256 tokens): the decode times are those of that worst
-case.
+Drives the port's serving and training paths at the parity width
+(RNNTConfig(): 8x2048/640 encoder, 2x2048 prediction net, joint 640, V=4096,
+bf16 parameters, random weights from --seed) through the entry points a user
+calls.  Random weights rarely predict blank, so every greedy request decodes
+up to max_output_length (256 tokens): the decode times are those of that
+worst case.
 
 1. builds every CUDA kernel from rnnt_tpu_torch/csrc (one nvcc per source,
    in parallel);
 2. writes a run directory in the JAX package's on-disk layout (config.json,
    a 4096-piece encoder.subwords, checkpoint_00000000/state.npz) and starts
    rnnt_tpu_torch.serve.Server on it (HTTP and TCP streaming), warmed up;
-3. drives three paths, each with every kernel's launch count set to 0 just
+3. drives five paths, each with every kernel's launch count set to 0 just
    before it and read just after: POSTs of WAVs of 2 s, 5 s and 15 s (the
    128-, 256- and 512-frame buckets) decoded greedily, the same WAVs with
-   ?beam=4 (one beam-kernel launch a request), and a TCP streaming session
-   of the 5 s WAV in 1024-sample frames; it prints each request's latency
+   ?beam=4 (one beam-kernel launch a request), a TCP streaming session of
+   the 5 s WAV in 1024-sample frames, then training through
+   rnnt_tpu_torch.cli.run_rnnt on synthetic .rnr shards written by the
+   port's writer (random-normal 240-wide features, 200-256 frames, 40-64
+   labels): `train_cli`, 3 steps at batch 32 in bf16 with the fused loss and
+   one eval batch of the dev split, and `train_pallas_loss`, one step with
+   --loss_impl pallas (materialised logits, the lattice kernel); each run
+   must log finite losses and an eval line and leave a checkpoint that the
+   port's restore reads back at its step, and launch per train step the
+   LSTM forward (K4) and backward (K5) 10 times each, the lattice (K7) once
+   and, fused, the plane kernel (K6) once; it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
    stream chunk's reply latency (p50, p99, max);
 4. holds each kernel against its plain PyTorch version on the card at the
@@ -40,16 +49,30 @@ case.
    a control (the kernel reading W2 with the halves of its 16-byte groups
    swapped); the fp32 stream through the kernels and through the plain
    versions, greedy argmaxes identical up to a near tie (margin < 1e-4);
+   and at the train shapes: K4 (h, z, c, c_fin) and K5 (dz, dh_total, dh0,
+   dc0, fed the same residuals) at B=32, T=256 and T=128, relative error
+   <= 1e-4 in fp32 and <= 2e-2 in bf16, inputs untouched; K6 (denom, blank,
+   emit) at B=32, T'=128, U+1=65, <= 1e-4 in fp32 and <= PLANES_BF16_TOL in
+   bf16; K7 (alpha and beta over the valid cells, ll) from those planes,
+   <= 1e-5; and one whole fp32 train step at the parity width (B=32,
+   T=256, U=64) through K4-K7 on the card against the same step on the CPU
+   (every wrapper's plain version): loss <= 1e-4 and every gradient <= 1e-3
+   relative error;
 5. profiles each request's encoder, greedy decode and beam decode with
-   torch.profiler: wall time, device ops and device busy time of one
-   profiled run, and the idle share 1 - busy / wall from that same run (a
-   profiled run whose records miss a launch of the profiled kernel is
-   repeated, at most 3 runs);
-6. prints a `kernels` JSON line (launches on the driven paths, median kernel
-   time, plain and library times, the roofline bound, max error; for K3 also
-   the weight traffic of re-reading the weights at every product, and its
-   time split over the phases of a search), the card's name and power
-   limit, and last the line {"ok": true, "device": {"platform": "gpu", ...}}.
+   torch.profiler: wall time (CUDA events around the run), device ops and
+   device busy time (the union of the ops' intervals) of one profiled run,
+   and the idle share 1 - busy / wall from that same run (a profiled run
+   whose records miss a launch of the profiled kernel is repeated, at most
+   3 runs); and times a train step at bench.py's geometry
+   (B=96, T=256, U=64, bf16, fused; one warm-up and 5 timed steps) as
+   audio-s/s, with one profiled step's idle share and device time by
+   kernel;
+6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
+   median kernel time, plain and library times, the roofline bound, max
+   error; for K3 also the weight traffic of re-reading the weights at every
+   product, and its time split over the phases of a search), the card's
+   name and power limit, and last the line
+   {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA card,
 or without the repository beside it, it exits 2 and prints no result.
@@ -75,6 +98,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, ".smoke_run")  # listed in .gitignore
+TRAIN_DIR = os.path.join(REPO, ".smoke_train")  # shards and runs; ignored
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # CUDA cores, fp32
 PEAK_BF16_FLOPS = 989e12     # tensor cores, dense bf16
@@ -147,11 +171,16 @@ def plain_frontend():
 
 def kernel_wrappers():
     """Each kernel's wrapper by its name in the kernels line."""
-    from rnnt_tpu_torch.ops import beam_cuda, features_cuda, lstm_cuda
+    from rnnt_tpu_torch.ops import (beam_cuda, features_cuda, lattice_cuda,
+                                    lstm_cuda, planes_cuda)
 
     return {"log_mel_frontend": features_cuda.log_mel_frontend,
             "lstm_seq_infer": lstm_cuda.lstm_seq_infer,
-            "beam_search": beam_cuda.beam_search}
+            "beam_search": beam_cuda.beam_search,
+            "lstm_fwd": lstm_cuda.lstm_fwd,
+            "lstm_bwd": lstm_cuda.lstm_bwd,
+            "joint_planes": planes_cuda.joint_planes,
+            "lattice_scan": lattice_cuda.lattice_scan}
 
 
 def zero_launches() -> None:
@@ -420,11 +449,32 @@ def check_encoder_and_greedy(model, mel_p, t, tol, exact_tokens):
     return err, diverge is None
 
 
-def device_profile(fn, kernel, symbol, attempts=3):
+def busy_ms(device_events) -> float:
+    """Device busy time: the union of the ops' intervals (overlapping or
+    repeated records count once)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_events)
+    total, cur_start, cur_end = 0.0, None, None
+    for s, e in spans:
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total / 1e3
+
+
+def device_profile(fn, kernel, symbol, attempts=3, events=None):
     """Run fn() once without and then under torch.profiler.  Returns the
-    wall ms of the first run, and of the profiled run: its wall ms (profiler
-    overhead included), device ops, device busy ms, `kernel`'s launches and
-    the number of profiled runs.
+    host wall ms of the first run, and of the profiled run: its wall ms on
+    the device's clock (CUDA events recorded on the stream just before and
+    after fn(); profiler overhead included), device ops, device busy ms
+    (`busy_ms`, the same clock), `kernel`'s launches and the number of
+    profiled runs; `events`, a list, receives the accepted run's device
+    ops.
 
     The profiler on the card has dropped every device record of a session
     (a 15 s beam decode recorded 0 ops), so a profiled run is accepted only
@@ -446,10 +496,13 @@ def device_profile(fn, kernel, symbol, attempts=3):
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(0.01)
             n0 = kernel.launches
-            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            wall_ms = start.elapsed_time(end)
             launches = kernel.launches - n0
             time.sleep(0.01)
         device = [e for e in prof.events()
@@ -462,15 +515,16 @@ def device_profile(fn, kernel, symbol, attempts=3):
     require(launches > 0 and recorded == launches,
             f"the profiler recorded {recorded} of {launches} {symbol} "
             f"launches in {attempts} runs")
-    busy_us = sum(e.time_range.end - e.time_range.start for e in device)
-    return plain_wall_ms, wall_ms, len(device), busy_us / 1e3, launches, \
+    if events is not None:
+        events.extend(device)
+    return plain_wall_ms, wall_ms, len(device), busy_ms(device), launches, \
         attempt
 
 
 def profile_request(model, mel_p, t, label):
     """Device ops and idle share of the encoder and of greedy decoding for
-    one request (B=1, single stream, so busy time is the sum of op times).
-    Wall, busy time and launches all come from the one profiled run."""
+    one request (B=1, one stream).  Wall, busy time and launches all come
+    from the one profiled run."""
     import torch
 
     from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
@@ -882,6 +936,434 @@ def profile_beam(served, mel_p, t, label):
         f"profiled runs {runs}")
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_BATCH, TRAIN_STEPS = 32, 3           # the train_cli path's run
+BENCH_B, BENCH_T, BENCH_U = 96, 256, 64    # bench.py's geometry
+PLANES_BF16_TOL = 1e-5  # K6 vs plain in bf16: ~100x the readings (PERF.md)
+LATTICE_TOL = 1e-5      # K7 vs plain, fp32
+
+
+def write_train_data(cfg, path, n_train, n_dev, seed):
+    """Synthetic .rnr shards written by the port's writer: random-normal
+    stacked mel features, 200-256 frames, 40-64 labels in [1, V); the
+    config and a V-piece encoder.subwords beside them."""
+    from rnnt_tpu_torch.data.records import write_shards
+    from rnnt_tpu_torch.data.tokenizer import SubwordTokenizer
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    cfg.save(path)
+    SubwordTokenizer(synthetic_pieces(cfg.vocab_size)).save(path)
+
+    def examples(n):
+        for _ in range(n):
+            t, u = int(rng.integers(200, 257)), int(rng.integers(40, 65))
+            labels = rng.integers(1, cfg.vocab_size, u).astype(np.int32)
+            yield {"mel_specs": rng.standard_normal(
+                       (t, cfg.input_feat_size)).astype(np.float32),
+                   "pred_inp": np.concatenate([[0], labels]).astype(np.int32),
+                   "labels": labels, "spec_lengths": np.int32(t),
+                   "label_lengths": np.int32(u)}
+
+    write_shards(examples(n_train), os.path.join(path, "train-{shard:05d}.rnr"),
+                 2)
+    write_shards(examples(n_dev), os.path.join(path, "dev-{shard:05d}.rnr"), 1)
+
+
+def run_train_cli(data_dir, out_dir, loss_impl, steps, device="cuda"):
+    """One training run through rnnt_tpu_torch.cli.run_rnnt (bf16, batch 32,
+    one epoch, a log line every step, one eval batch at the end, the
+    256-frame / 64-label bucket).  Requires `steps` finite train losses, one
+    eval line and a checkpoint that the port's restore reads back at the
+    same step.  Returns (train losses, eval metrics)."""
+    import torch
+
+    from rnnt_tpu_torch.cli import run_rnnt
+    from rnnt_tpu_torch.config import RNNTConfig
+    from rnnt_tpu_torch.train.checkpoint import restore_checkpoint
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run_rnnt.main(["--mode", "train", "--data_dir", data_dir,
+                   "--output_dir", out_dir, "--batch_size", str(TRAIN_BATCH),
+                   "--n_epochs", "1", "--steps_per_log", "1",
+                   "--eval_size", "1", "--pad_frames", "256",
+                   "--pad_tokens", "64", "--loss_impl", loss_impl,
+                   "--device", device])
+    with open(os.path.join(out_dir, "tb", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    evals = [r for r in recs if "eval_loss" in r]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"train_{loss_impl}: train losses {losses}, want {steps} finite")
+    require(len(evals) == 1 and np.isfinite(evals[0]["eval_loss"]),
+            f"train_{loss_impl}: eval lines {evals}")
+    state = restore_checkpoint(out_dir, RNNTConfig.load(out_dir),
+                               torch.bfloat16, device)
+    require(state.step == steps, f"restored step {state.step} != {steps}")
+    log(f"train {loss_impl}: losses {losses}, eval {json.dumps(evals[0])}, "
+        f"checkpoint restored at step {state.step}")
+    return losses, evals[0]
+
+
+def require_train_launches(name, launches, steps, eval_batches, pallas):
+    """Per train step: K4 10 and K5 10 (8 encoder + 2 prediction LSTMs),
+    and one K7; K6 once a step on the fused path, never on the pallas one.
+    The eval batches add one K6 (fused) and one K7 each."""
+    want = {"lstm_fwd": 10 * steps, "lstm_bwd": 10 * steps,
+            "joint_planes": 0 if pallas else steps + eval_batches,
+            "lattice_scan": steps + eval_batches}
+    for k, n in want.items():
+        require(launches[k] == n, f"path {name}: {k} launched {launches[k]} "
+                f"times, want {n}")
+
+
+def lstm_cost(T, B, H, P, esize, backward):
+    """(bytes, operations) of one LSTM sequence call: each input read once,
+    each output written once; the recurrent products' operations."""
+    weights = esize * (P * 4 * H + H * P)
+    if backward:  # z, c, dout, Wh^T, Wp^T, c0 in; dz, dh_total, dh0, dc0 out
+        nbytes = (weights + esize * 2 * T * B * (4 * H + P + H // 2)
+                  + 4 * 2 * B * H + 4 * B * P)
+    else:  # xp, Wh, Wp, bias, h0, c0 in; h, z, c, c_fin out
+        nbytes = (weights + esize * (4 * H + B * P)
+                  + esize * T * B * (2 * 4 * H + P + H) + 4 * 2 * B * H)
+    return nbytes, 2.0 * T * B * (P * 4 * H + H * P)
+
+
+def bound_of(nbytes, flops, peak):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
+    """K4 and K5 vs their plain versions at the train shapes: B=32 and
+    T=256 (encoder layers 0-1) and T=128 (after the time reduction), in
+    fp32 (relative error <= 1e-4) and bf16 (<= 2e-2); K5 is fed the plain
+    forward's residuals and a random output gradient; neither kernel may
+    write into its inputs.  Returns the K4 and K5 entries (times at layer
+    0's shape in bf16)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def rand(shape, scale):
+        return (torch.rand(shape, generator=g, device=device) - 0.5) * scale
+
+    worst = {}
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for T in (256, 128):
+            fwd_args = (rand((T, B, 4 * H), 4.0).to(dt),
+                        rand((P, 4 * H), 0.05).to(dt), rand((H, P), 0.1).to(dt),
+                        rand((4 * H,), 1.0).to(dt), rand((B, P), 0.5).to(dt),
+                        rand((B, H), 0.5))
+            before = [a.clone() for a in fwd_args]
+            got = lstm_cuda.lstm_fwd(*fwd_args)
+            want = lstm_cuda.lstm_fwd_plain(*fwd_args)
+            require(all(torch.equal(a, b) for a, b in zip(fwd_args, before)),
+                    "K4 wrote into its inputs")
+            err_f = max(rel_err(a, b) for a, b in zip(got, want))
+            abs_f = float((got[0].float() - want[0].float()).abs().max())
+            whT = fwd_args[1].t().contiguous()
+            wpT = fwd_args[2].t().contiguous()
+            bwd_args = (want[1], want[2], fwd_args[5],
+                        rand((T, B, P), 1.0).to(dt), whT, wpT)
+            before = [a.clone() for a in bwd_args]
+            got_b = lstm_cuda.lstm_bwd(*bwd_args)
+            want_b = lstm_cuda.lstm_bwd_plain(*bwd_args)
+            require(all(torch.equal(a, b) for a, b in zip(bwd_args, before)),
+                    "K5 wrote into its inputs")
+            err_b = max(rel_err(a, b) for a, b in zip(got_b, want_b))
+            abs_b = float((got_b[0].float() - want_b[0].float()).abs().max())
+            name = str(dt)[6:]
+            log(f"K4 lstm_fwd T={T} B={B} {name}: rel err {err_f:.3e} (h, z, "
+                f"c, c_fin); K5 lstm_bwd: rel err {err_b:.3e} (dz, dh_total, "
+                f"dh0, dc0)")
+            require(err_f <= tol, f"K4 disagrees: {err_f}")
+            require(err_b <= tol, f"K5 disagrees: {err_b}")
+            worst[name, "fwd"] = max(worst.get((name, "fwd"), 0.0), abs_f)
+            worst[name, "bwd"] = max(worst.get((name, "bwd"), 0.0), abs_b)
+    # times at layer 0's shape (T=256, F=240) in bf16
+    T, F_in, dt = 256, 240, torch.bfloat16
+    fwd_args = (rand((T, B, 4 * H), 4.0).to(dt), rand((P, 4 * H), 0.05).to(dt),
+                rand((H, P), 0.1).to(dt), rand((4 * H,), 1.0).to(dt),
+                torch.zeros((B, P), dtype=dt, device=device),
+                torch.zeros((B, H), device=device))
+    _, z, c, _ = lstm_cuda.lstm_fwd_plain(*fwd_args)
+    bwd_args = (z, c, fwd_args[5], rand((T, B, P), 1.0).to(dt),
+                fwd_args[1].t().contiguous(), fwd_args[2].t().contiguous())
+    # cuDNN's projected LSTM in training mode on the same widths, for the
+    # library times only (it also computes the input projection x @ Wx)
+    ref = torch.nn.LSTM(F_in, H, proj_size=P).to(device, dt)
+    x = rand((T, B, F_in), 2.0).to(dt).requires_grad_()
+    dy = rand((T, B, P), 1.0).to(dt)
+
+    def lib_fwd():
+        return ref(x)[0]
+
+    def lib_fwd_bwd():
+        torch.autograd.backward(ref(x)[0], dy)
+
+    lib_f = cuda_ms(lib_fwd, reps=5)
+    lib_fb = cuda_ms(lib_fwd_bwd, reps=5)
+    entries = []
+    for kind, fn, plain, args, src, line in (
+            ("lstm_fwd", lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_plain,
+             fwd_args, "lstm_infer.cu", 62),
+            ("lstm_bwd", lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+             bwd_args, "lstm_bwd.cu", 215)):
+        nbytes, flops = lstm_cost(T, B, H, P, 2, kind == "lstm_bwd")
+        entries.append({
+            "name": kind, "route": "cuda",
+            "source": f"rnnt_tpu_torch/csrc/{src}",
+            "replaces": f"rnnt_tpu/ops/lstm_pallas.py:{line}",
+            "max_abs_err": worst["bfloat16", kind[5:]],
+            "ms": cuda_ms(lambda: fn(*args), reps=10),
+            "plain_ms": cuda_ms(lambda: plain(*args), reps=2, warmup=1),
+            **bound_of(nbytes, flops, PEAK_BF16_FLOPS),
+            "library_ms": lib_f if kind == "lstm_fwd" else lib_fb - lib_f,
+            "library": (f"torch.nn.LSTM(proj_size={P}) (cuDNN), training mode, "
+                        + ("forward" if kind == "lstm_fwd" else
+                           "backward (forward + backward less forward)")),
+            "shape": f"T={T} B={B} H={H} P={P} bf16",
+            "max_abs_err_fp32": worst["float32", kind[5:]]})
+    return entries
+
+
+def planes_inputs(cfg, B, T, U1, device, seed):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    J, V = cfg.joint_size, cfg.vocab_size
+    lim = (6.0 / (J + V)) ** 0.5
+
+    def rand(shape, scale):
+        return (torch.rand(shape, generator=g, device=device) * 2 - 1) * scale
+
+    y = torch.randint(1, V, (B, U1), generator=g, device=device)
+    y[:, -1] = 0
+    return (rand((B, T, J), 1.0), rand((B, U1, J), 1.0), y, rand((J,), 0.1),
+            rand((J, V), lim), rand((V,), 0.1))
+
+
+def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
+    """K6 vs its plain version on denom, blank and emit at the train shape
+    (B=32, T'=128, U+1=65, J=640, V=4096): relative error <= 1e-4 in fp32,
+    <= PLANES_BF16_TOL in bf16.  Returns (K6 entry, the fp32 planes)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import planes_cuda
+
+    f, gg, y, b1, w2, b2 = planes_inputs(cfg, B, T, U1, device, 4)
+    errs, planes32 = {}, None
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, PLANES_BF16_TOL)):
+        args = (f.to(dt), gg.to(dt), y, b1.to(dt), w2.to(dt), b2.to(dt))
+        before = [a.clone() for a in args]
+        got = planes_cuda.joint_planes(*args)
+        want = planes_cuda.joint_planes_plain(*args)
+        require(all(torch.equal(a, b) for a, b in zip(args, before)),
+                "K6 wrote into its inputs")
+        rel = [rel_err(a, b) for a, b in zip(got, want)]
+        max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        name = str(dt)[6:]
+        log(f"K6 joint_planes B={B} T={T} U+1={U1} {name}: rel err denom "
+            f"{rel[0]:.3e} blank {rel[1]:.3e} emit {rel[2]:.3e}, max |d| "
+            f"{max_abs:.3e}")
+        require(max(rel) <= tol, f"K6 {name} disagrees: {rel}")
+        errs[name] = max_abs
+        if dt == torch.float32:
+            planes32 = want
+    dt = torch.bfloat16
+    args = (f.to(dt), gg.to(dt), y, b1.to(dt), w2.to(dt), b2.to(dt))
+    C, J, V = B * T * U1, cfg.joint_size, cfg.vocab_size
+    h2d = torch.randn((C, J), device=device).to(dt)  # the library's operands
+    nbytes = 2 * (B * T * J + B * U1 * J + J * V + J + V) + 4 * B * U1 \
+        + 3 * 4 * C
+    entry = {
+        "name": "joint_planes", "route": "cuda",
+        "source": "rnnt_tpu_torch/csrc/joint_planes.cu",
+        "replaces": "rnnt_tpu/ops/joint_loss_fused.py:61",
+        "max_abs_err": errs["bfloat16"],
+        "ms": cuda_ms(lambda: planes_cuda.joint_planes(*args), reps=5),
+        "plain_ms": cuda_ms(lambda: planes_cuda.joint_planes_plain(*args),
+                            reps=2, warmup=1),
+        **bound_of(nbytes, 2.0 * C * J * V, PEAK_BF16_FLOPS),
+        "library_ms": cuda_ms(lambda: torch.mm(h2d, args[4]), reps=5),
+        "library": "cuBLAS bf16 [C,J]x[J,V] product alone (torch.mm), "
+                   "without the tanh tile and the logsumexp",
+        "shape": f"B={B} T'={T} U+1={U1} J={J} V={V} bf16 ({C} cells)",
+        "max_abs_err_fp32": errs["float32"]}
+    return entry, planes32
+
+
+def check_lattice(planes32, device="cuda", seed=5):
+    """K7 vs its plain version from the fp32 planes of check_planes (b =
+    blank - denom, e = emit - denom masked from u = U_b on), with random
+    frame and label lengths: alpha and beta over the valid cells and ll
+    within LATTICE_TOL relative error.  Returns the K7 entry."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lattice_cuda, rnnt_loss_ref
+
+    denom, blank, emit = planes32
+    B, T, U1 = denom.shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    fl = torch.randint(max(1, T - 28), T + 1, (B,), generator=g, device=device)
+    yl = torch.randint(max(0, U1 - 26), U1, (B,), generator=g, device=device)
+    u_idx = torch.arange(U1, device=device)[None, None, :]
+    b = blank - denom
+    e = torch.where(u_idx < yl[:, None, None], emit - denom, rnnt_loss_ref.NEG)
+    args = (b, e, fl, yl)
+    before = [a.clone() for a in args]
+    got = lattice_cuda.lattice_scan(*args)
+    want = rnnt_loss_ref.lattice_scan_plain(*args)
+    require(all(torch.equal(a, c) for a, c in zip(args, before)),
+            "K7 wrote into its inputs")
+    t_idx = torch.arange(T, device=device)[None, :, None]
+    valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
+    rel = [rel_err(got[i][valid], want[i][valid]) for i in (0, 1)]
+    rel.append(rel_err(got[2], want[2]))
+    max_abs = max(float((got[i][valid] - want[i][valid]).abs().max())
+                  for i in (0, 1))
+    log(f"K7 lattice B={B} T={T} U+1={U1}: rel err alpha {rel[0]:.3e} beta "
+        f"{rel[1]:.3e} ll {rel[2]:.3e}; max |d| {max_abs:.3e}")
+    require(max(rel) <= LATTICE_TOL, f"K7 disagrees: {rel}")
+    cells = B * T * U1
+    # two directions a cell: a logaddexp of two terms (~10 fp32 operations)
+    return {
+        "name": "lattice_scan", "route": "cuda",
+        "source": "rnnt_tpu_torch/csrc/rnnt_lattice.cu",
+        "replaces": "rnnt_tpu/ops/rnnt_loss_pallas.py:76",
+        "max_abs_err": max_abs,
+        "ms": cuda_ms(lambda: lattice_cuda.lattice_scan(*args), reps=20),
+        "plain_ms": cuda_ms(lambda: rnnt_loss_ref.lattice_scan_plain(*args),
+                            reps=2, warmup=1),
+        **bound_of(4 * 4 * cells + 4 * 3 * B, 2 * 10.0 * cells,
+                   PEAK_FP32_FLOPS),
+        "library_ms": None,
+        "shape": f"B={B} T'={T} U+1={U1} fp32"}
+
+
+def random_batch(cfg, B, T, U, device, seed):
+    """A training batch at (B, T frames, U labels), every row full length."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    labels = torch.randint(1, cfg.vocab_size, (B, U), generator=g,
+                           device=device)
+    return {"mel_specs": torch.randn((B, T, cfg.input_feat_size),
+                                     generator=g, device=device),
+            "pred_inp": torch.cat([torch.zeros((B, 1), dtype=labels.dtype,
+                                               device=device), labels], 1),
+            "labels": labels,
+            "spec_lengths": torch.full((B,), T, device=device),
+            "label_lengths": torch.full((B,), U, device=device)}
+
+
+def check_train_step_fp32(cfg, seed, B=TRAIN_BATCH, device="cuda"):
+    """One whole fp32 train step's loss and gradients through the kernels
+    (K4-K7, on the card) against the plain versions (the same step on the
+    CPU, where every wrapper runs its plain version), at the parity width
+    and depth and the train_cli path's B=32, T=256, U=64: loss within 1e-4
+    and every gradient within 1e-3 relative error (to its largest
+    element)."""
+    import torch
+
+    from rnnt_tpu_torch.train.state import create_train_state, trainable_names
+    from rnnt_tpu_torch.train.steps import batch_loss
+
+    batch = random_batch(cfg, B, 256, 64, device, seed)
+    runs = []
+    for dev in (device, "cpu"):
+        model = create_train_state(cfg, torch.float32, dev, seed).model
+        t0 = time.perf_counter()
+        loss, _ = batch_loss(model, cfg, {k: v.to(dev) for k, v in
+                                          batch.items()},
+                             training=True, loss_impl="fused")
+        loss.backward()
+        params = dict(model.named_parameters())
+        grads = {n: params[n].grad.cpu() for n in trainable_names(model)}
+        runs.append((float(loss.detach()), grads, time.perf_counter() - t0))
+        del model, params, loss
+    (loss_k, grads_k, secs_k), (loss_p, grads_p, secs_p) = runs
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    errs = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_p}
+    worst = max(errs, key=errs.get)
+    log(f"fp32 train step B={B} T=256 U=64 kernels ({secs_k:.2f} s) vs plain "
+        f"on the CPU ({secs_p:.2f} s, {torch.get_num_threads()} threads): "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst "
+        f"gradient {worst} rel err {errs[worst]:.3e}")
+    require(loss_rel <= 1e-4, f"fp32 train-step loss disagrees: {loss_rel}")
+    require(errs[worst] <= 1e-3, f"fp32 gradient {worst} disagrees: "
+            f"{errs[worst]}")
+
+
+def step_split(events):
+    """Device ms of a train step's ops by kernel."""
+    groups = (("K4 lstm_fwd", "lstm_infer_kernel"),
+              ("K5 lstm_bwd", "lstm_bwd_kernel"),
+              ("K6 joint_planes", "plane_kernel"),
+              ("K7 lattice", "lattice_kernel"),
+              ("cuBLAS products", ("gemm", "Gemm", "nvjet", "xmma",
+                                   "cutlass", "cublas")))
+    split = {}
+    for e in events:
+        key = next((k for k, pat in groups
+                    if any(p in e.name for p in (
+                        pat if isinstance(pat, tuple) else (pat,)))),
+                   "other (elementwise, reductions, copies)")
+        split[key] = split.get(key, 0.0) + (e.time_range.end
+                                            - e.time_range.start) / 1e3
+    return {k: round(v, 3) for k, v in sorted(split.items())}
+
+
+def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
+                     U=BENCH_U, timed=5):
+    """bench.py's geometry (B=96, T=256 stacked frames, U=64, bf16, fused
+    loss, random weights): one warm-up step, then `timed` steps on the host
+    clock, synchronised at the end; audio-s/s counts B x T x 0.03 s a step.
+    Then one profiled step: device busy time, idle share and the split by
+    kernel."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lstm_cuda
+    from rnnt_tpu_torch.train.state import create_train_state
+    from rnnt_tpu_torch.train.steps import make_train_step
+
+    state = create_train_state(cfg, torch.bfloat16, device, seed)
+    batch = random_batch(cfg, B, T, U, device, seed)
+    step = make_train_step(cfg, loss_impl="fused")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    losses = [float(step(state, batch, gen)["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    require(all(np.isfinite(losses)), f"bench train losses {losses}")
+    events = []
+    plain_wall, wall, ops, busy, launches, runs = device_profile(
+        lambda: step(state, batch, gen), lstm_cuda.lstm_bwd,
+        "lstm_bwd_kernel", events=events)
+    require(launches == 10, f"profiled train step: {launches} K5 launches")
+    result = {"B": B, "T": T, "U": U, "dtype": "bfloat16", "loss": "fused",
+              "step_ms": secs / timed * 1e3,
+              "audio_s_per_s": B * T * 0.03 * timed / secs,
+              "profiled_step_wall_ms": wall, "unprofiled_step_ms": plain_wall,
+              "device_busy_ms": busy, "device_ops": ops,
+              "idle_share": 1 - busy / wall, "profiled_runs": runs,
+              "split_ms": step_split(events), "losses": losses,
+              "card": smi}
+    log("bench-geometry train step " + json.dumps(result))
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -996,8 +1478,43 @@ def main(argv=None) -> int:
         check_stream_kernels(model32, srv.service.tokenizer, audios[1])
         log(f"phase stream kernels vs plain: "
             f"{time.perf_counter() - t_phase:.1f} s")
+        del model32
+        t_phase = time.perf_counter()
+        train_kernels = ("lstm_fwd", "lstm_bwd", "lattice_scan")
+        data = os.path.join(TRAIN_DIR, "data")
+        write_train_data(cfg, data, TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                         args.seed)
+        _, paths["train_cli"] = drive_path(
+            "train_cli (fused loss)", lambda: run_train_cli(
+                data, os.path.join(TRAIN_DIR, "run_fused"), "fused",
+                TRAIN_STEPS),
+            train_kernels + ("joint_planes", "lstm_seq_infer"))
+        require_train_launches("train_cli", paths["train_cli"], TRAIN_STEPS,
+                               1, pallas=False)
+        data = os.path.join(TRAIN_DIR, "data_pallas")
+        write_train_data(cfg, data, TRAIN_BATCH, TRAIN_BATCH, args.seed + 1)
+        _, paths["train_pallas_loss"] = drive_path(
+            "train_pallas_loss", lambda: run_train_cli(
+                data, os.path.join(TRAIN_DIR, "run_pallas"), "pallas", 1),
+            train_kernels)
+        require_train_launches("train_pallas_loss", paths["train_pallas_loss"],
+                               1, 1, pallas=True)
+        log(f"phase training paths: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)
+        k6, planes32 = check_planes(cfg)
+        k7 = check_lattice(planes32)
+        del planes32
+        check_train_step_fp32(cfg, args.seed)
+        log(f"phase K4-K7 checks and times: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        bench_train_step(cfg, args.seed, smi)
+        log(f"phase bench-geometry train step: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        kernels = [k1, k2, k3, *k45, k6, k7]
         per_request = {"greedy_http": records, "beam_http": beam_records}
-        for k in (k1, k2, k3):
+        for k in kernels:
             name = k["name"]
             k["launches"] = sum(p[name] for p in paths.values())
             k["launches_by_path"] = {path: counts[name]
@@ -1012,8 +1529,9 @@ def main(argv=None) -> int:
         if srv is not None:
             srv.shutdown()
         shutil.rmtree(RUN_DIR, ignore_errors=True)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -64,18 +64,20 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar,
   __syncthreads();
 }
 
-// out[c * BCH + bb] = sum_k src[(b0 + bb) * lds + k] * w[k * ldw + col(c)]
-// for c < ncols, bb < nb.  `src` was written during this launch: its rows
-// are staged once into shared memory `xs` with L2 loads, so the inner loop
-// issues only weight loads.  Threads split each column's dot product over k,
-// and the partial sums reduce through shared memory `red` [NT * BCH].
-template <typename W, typename Col>
+// out[c * R + bb] = sum_k src[(b0 + bb) * lds + k] * w[k * ldw + col(c)]
+// for c < ncols, bb < nb <= R (R rows a pass, BCH unless a kernel asks for
+// more).  `src` was written during this launch: its rows are staged once
+// into shared memory `xs` (of type X: float, or the weight type when the
+// rows hold values already rounded to it) with L2 loads, so the inner loop
+// issues only weight loads.  Threads split each column's dot product over
+// k, and the partial sums reduce through shared memory `red` [NT * R].
+template <int R = BCH, typename W, typename Col, typename X>
 __device__ void block_dots(const float* src, int lds, int b0, int nb, int K,
                            const W* __restrict__ w, int ldw, int ncols,
-                           Col col, float* xs, float* red, float* out) {
+                           Col col, X* xs, float* red, float* out) {
   for (int i = threadIdx.x; i < nb * K; i += NT) {
     const int bb = i / K, k = i - bb * K;
-    xs[bb * K + k] = __ldcg(src + (size_t)(b0 + bb) * lds + k);
+    xs[bb * K + k] = from_float<X>(__ldcg(src + (size_t)(b0 + bb) * lds + k));
   }
   __syncthreads();
   for (int cbase = 0; cbase < ncols; cbase += NT) {
@@ -83,29 +85,36 @@ __device__ void block_dots(const float* src, int lds, int b0, int nb, int K,
     const int n_ks = NT / nc;
     const int c = threadIdx.x % nc, ks = threadIdx.x / nc;
     if (ks < n_ks) {
-      float acc[BCH];
+      float acc[R];
 #pragma unroll
-      for (int bb = 0; bb < BCH; ++bb) acc[bb] = 0.f;
+      for (int bb = 0; bb < R; ++bb) acc[bb] = 0.f;
       const W* wc = w + col(cbase + c);
 #pragma unroll 8
       for (int k = ks; k < K; k += n_ks) {
         const float wv = to_float(wc[(size_t)k * ldw]);
 #pragma unroll
-        for (int bb = 0; bb < BCH; ++bb)
-          if (bb < nb) acc[bb] = fmaf(xs[bb * K + k], wv, acc[bb]);
+        for (int bb = 0; bb < R; ++bb)
+          if (bb < nb) acc[bb] = fmaf(to_float(xs[bb * K + k]), wv, acc[bb]);
       }
 #pragma unroll
-      for (int bb = 0; bb < BCH; ++bb) red[(ks * nc + c) * BCH + bb] = acc[bb];
+      for (int bb = 0; bb < R; ++bb) red[(ks * nc + c) * R + bb] = acc[bb];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < nc * BCH; i += NT) {
-      const int cc = i / BCH, bb = i - cc * BCH;
+    for (int i = threadIdx.x; i < nc * R; i += NT) {
+      const int cc = i / R, bb = i - cc * R;
       float sum = 0.f;
-      for (int q = 0; q < n_ks; ++q) sum += red[(q * nc + cc) * BCH + bb];
-      out[(cbase + cc) * BCH + bb] = sum;
+      for (int q = 0; q < n_ks; ++q) sum += red[(q * nc + cc) * R + bb];
+      out[(cbase + cc) * R + bb] = sum;
     }
     __syncthreads();
   }
+}
+
+// Rows a block_dots pass takes in the training LSTM kernels (K4, K5): 8 in
+// bf16, whose staged rows are half the bytes; BCH in fp32.
+template <typename W>
+__host__ __device__ constexpr int train_rows() {
+  return sizeof(W) == 2 ? 2 * BCH : BCH;
 }
 
 // First index of part i when n items are cut into `parts` near-equal parts.

@@ -1,7 +1,11 @@
-// Projected-LSTM inference sequence kernel for Hopper (sm_90a).
+// Projected-LSTM sequence kernels for Hopper (sm_90a): inference (K2) and
+// the training forward with residuals (K4), one template.
 //
 // Replaces rnnt_tpu/ops/lstm_pallas.py::_fwd_infer_kernel (launched by
-// lstm_seq_infer).  For t = 0..T-1, with carried h [B, P] and c [B, H]:
+// lstm_seq_infer) and, with RES = true, ::_fwd_kernel (launched by
+// _fwd_call from lstm_seq), which also writes the residuals the backward
+// needs: z_seq [T, B, 4H] and c_seq [T, B, H], both rounded to the weight
+// type.  For t = 0..T-1, with carried h [B, P] and c [B, H]:
 //   z   = xp[t] + bias + h @ Wh            [B, 4H], gate order i, g, f, o
 //   c   = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //   hid = sigmoid(o) * tanh(c)
@@ -33,10 +37,12 @@
 //   grid barrier
 // Within a block, the vector operand (h or hid rows) is staged in shared
 // memory, threads split each column's dot product over rows, and partial
-// sums reduce through shared memory.  Buffers written during the launch are
-// read with __ldcg (L2, not the incoherent L1).  Weights are re-read from memory
-// (L2) every step; pinning each block's Wh slice in shared memory and wgmma
-// are later work.
+// sums reduce through shared memory.  A pass takes 4 batch rows (BCH); the
+// training forward in bf16 takes 8 (train_rows), halving the passes, and so
+// the weight re-reads, of a step at B >= 8.  Buffers written during the
+// launch are read with __ldcg (L2, not the incoherent L1).  Weights are
+// re-read from memory (L2) every pass; pinning each block's Wh slice in
+// shared memory and wgmma are later work.
 
 #include <algorithm>
 
@@ -44,16 +50,22 @@
 
 namespace {
 
-// Shared memory: reduction [NT*BCH] + dot outputs [ncmax*BCH] + staged
-// vector rows [BCH*max(H,P)] + c [B*numax].
-inline size_t smem_bytes(int nblk, int B, int H, int P) {
-  const int numax = (H + nblk - 1) / nblk;
-  const int ncmax = std::max(4 * numax, (P + nblk - 1) / nblk);
-  return sizeof(float) * ((size_t)NT * BCH + (size_t)ncmax * BCH +
-                          (size_t)BCH * std::max(H, P) + (size_t)B * numax);
+// Batch rows a block_dots pass takes: BCH, or train_rows<W>() for K4.
+template <typename W, bool RES>
+__host__ __device__ constexpr int rows() {
+  return RES ? train_rows<W>() : BCH;
 }
 
-template <typename W>
+// Shared memory: reduction [NT*R] + dot outputs [ncmax*R] + staged vector
+// rows [R*max(H,P)] + c [B*numax].
+inline size_t smem_bytes(int nblk, int B, int H, int P, int R) {
+  const int numax = (H + nblk - 1) / nblk;
+  const int ncmax = std::max(4 * numax, (P + nblk - 1) / nblk);
+  return sizeof(float) * ((size_t)NT * R + (size_t)ncmax * R +
+                          (size_t)R * std::max(H, P) + (size_t)B * numax);
+}
+
+template <typename W, bool RES>
 __global__ void __launch_bounds__(NT)
     lstm_infer_kernel(const W* __restrict__ xp,        // [T, B, 4H]
                       const W* __restrict__ wh,        // [P, 4H]
@@ -64,7 +76,10 @@ __global__ void __launch_bounds__(NT)
                       float* hidbuf,  // [B, H] hid rounded to W
                       W* __restrict__ hseq,     // [T, B, P]
                       float* __restrict__ cfin,  // [B, H]
+                      W* __restrict__ zseq,     // [T, B, 4H] (RES only)
+                      W* __restrict__ cseq,     // [T, B, H] (RES only)
                       unsigned int* bar, int T, int B, int H, int P) {
+  constexpr int R = rows<W, RES>();
   extern __shared__ float smem[];
   const int nblk = gridDim.x, blk = blockIdx.x;
   const int u0 = slice_begin(blk, H, nblk);
@@ -74,9 +89,9 @@ __global__ void __launch_bounds__(NT)
   const int numax = (H + nblk - 1) / nblk;
   const int ncmax = max(4 * numax, (P + nblk - 1) / nblk);
   float* red = smem;
-  float* out = red + NT * BCH;
-  float* xs = out + ncmax * BCH;
-  float* cst = xs + BCH * max(H, P);
+  float* out = red + NT * R;
+  float* xs = out + ncmax * R;
+  float* cst = xs + R * max(H, P);
   const int H4 = 4 * H;
 
   for (int i = threadIdx.x; i < B * nu; i += NT) {
@@ -95,9 +110,10 @@ __global__ void __launch_bounds__(NT)
 
   for (int t = 0; t < T; ++t) {
     // phase A: gates, cell and hid for own units
-    for (int b0 = 0; b0 < B; b0 += BCH) {
-      const int nb = min(BCH, B - b0);
-      block_dots(hbuf, P, b0, nb, P, wh, H4, 4 * nu, gate_col, xs, red, out);
+    for (int b0 = 0; b0 < B; b0 += R) {
+      const int nb = min(R, B - b0);
+      block_dots<R>(hbuf, P, b0, nb, P, wh, H4, 4 * nu, gate_col, xs, red,
+                    out);
       for (int i = threadIdx.x; i < nb * nu; i += NT) {
         const int bb = i / nu, u = i - bb * nu, b = b0 + bb;
         const W* xrow = xp + ((size_t)t * B + b) * H4;
@@ -106,11 +122,17 @@ __global__ void __launch_bounds__(NT)
         for (int g = 0; g < 4; ++g) {
           const int colm = g * H + u0 + u;
           z[g] = to_float(xrow[colm]) + to_float(bias[colm]) +
-                 out[(g * nu + u) * BCH + bb];
+                 out[(g * nu + u) * R + bb];
         }
         const float c = sigmoid(z[2]) * cst[b * numax + u] +
                         sigmoid(z[0]) * tanhf(z[1]);
         cst[b * numax + u] = c;
+        if constexpr (RES) {
+          W* zrow = zseq + ((size_t)t * B + b) * H4;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) zrow[g * H + u0 + u] = from_float<W>(z[g]);
+          cseq[((size_t)t * B + b) * H + u0 + u] = from_float<W>(c);
+        }
         hidbuf[(size_t)b * H + u0 + u] = round_to<W>(sigmoid(z[3]) * tanhf(c));
       }
       __syncthreads();
@@ -118,12 +140,12 @@ __global__ void __launch_bounds__(NT)
     grid_barrier(bar, target);
 
     // phase B: own columns of h = hid @ Wp
-    for (int b0 = 0; b0 < B; b0 += BCH) {
-      const int nb = min(BCH, B - b0);
-      block_dots(hidbuf, H, b0, nb, H, wp, P, ncb, out_col, xs, red, out);
+    for (int b0 = 0; b0 < B; b0 += R) {
+      const int nb = min(R, B - b0);
+      block_dots<R>(hidbuf, H, b0, nb, H, wp, P, ncb, out_col, xs, red, out);
       for (int i = threadIdx.x; i < nb * ncb; i += NT) {
         const int bb = i / ncb, c = i - bb * ncb, b = b0 + bb;
-        const W hw = from_float<W>(out[c * BCH + bb]);
+        const W hw = from_float<W>(out[c * R + bb]);
         hseq[((size_t)t * B + b) * P + j0 + c] = hw;
         hbuf[(size_t)b * P + j0 + c] = to_float(hw);
       }
@@ -138,17 +160,19 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename W>
+template <typename W, bool RES>
 int launch(const void* xp_, const void* wh_, const void* wp_,
            const void* bias_, const float* c0, float* hbuf, float* hidbuf,
-           void* hseq_, float* cfin, unsigned int* bar, int T, int B, int H,
-           int P, void* stream_) {
+           void* hseq_, float* cfin, void* zseq_, void* cseq_,
+           unsigned int* bar, int T, int B, int H, int P, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const W* xp = (const W*)xp_;
   const W* wh = (const W*)wh_;
   const W* wp = (const W*)wp_;
   const W* bias = (const W*)bias_;
   W* hseq = (W*)hseq_;
+  W* zseq = (W*)zseq_;
+  W* cseq = (W*)cseq_;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -159,8 +183,8 @@ int launch(const void* xp_, const void* wh_, const void* wp_,
   if (!coop) return (int)cudaErrorNotSupported;
   // one block per SM keeps the grid barrier cheap; never more than H blocks
   const int nblk = std::min(sms, H);
-  const size_t smem = smem_bytes(nblk, B, H, P);
-  auto kernel = lstm_infer_kernel<W>;
+  const size_t smem = smem_bytes(nblk, B, H, P, rows<W, RES>());
+  auto kernel = lstm_infer_kernel<W, RES>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -171,8 +195,8 @@ int launch(const void* xp_, const void* wh_, const void* wp_,
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {&xp, &wh, &wp, &bias, &c0, &hbuf, &hidbuf, &hseq,
-                  &cfin, &bar, &T, &B, &H, &P};
+  void* args[] = {&xp,   &wh,   &wp,   &bias, &c0, &hbuf, &hidbuf, &hseq,
+                  &cfin, &zseq, &cseq, &bar, &T,  &B,    &H,      &P};
   return launch_status(cudaLaunchCooperativeKernel(
       (void*)kernel, dim3(nblk), dim3(NT), args, smem, stream));
 }
@@ -188,8 +212,8 @@ extern "C" int lstm_infer_f32(const void* xp, const void* wh, const void* wp,
                               float* hidbuf, void* hseq, float* cfin,
                               unsigned int* bar, int T, int B, int H, int P,
                               void* stream) {
-  return launch<float>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq, cfin, bar, T,
-                       B, H, P, stream);
+  return launch<float, false>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq, cfin,
+                              nullptr, nullptr, bar, T, B, H, P, stream);
 }
 
 extern "C" int lstm_infer_bf16(const void* xp, const void* wh, const void* wp,
@@ -197,6 +221,28 @@ extern "C" int lstm_infer_bf16(const void* xp, const void* wh, const void* wp,
                                float* hidbuf, void* hseq, float* cfin,
                                unsigned int* bar, int T, int B, int H, int P,
                                void* stream) {
-  return launch<__nv_bfloat16>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq, cfin,
-                               bar, T, B, H, P, stream);
+  return launch<__nv_bfloat16, false>(xp, wh, wp, bias, c0, hbuf, hidbuf,
+                                      hseq, cfin, nullptr, nullptr, bar, T, B,
+                                      H, P, stream);
+}
+
+// The training forward (K4): as above, and also z_seq [T, B, 4H] and c_seq
+// [T, B, H] in the weight type.
+extern "C" int lstm_fwd_f32(const void* xp, const void* wh, const void* wp,
+                            const void* bias, const float* c0, float* hbuf,
+                            float* hidbuf, void* hseq, float* cfin, void* zseq,
+                            void* cseq, unsigned int* bar, int T, int B, int H,
+                            int P, void* stream) {
+  return launch<float, true>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq, cfin,
+                             zseq, cseq, bar, T, B, H, P, stream);
+}
+
+extern "C" int lstm_fwd_bf16(const void* xp, const void* wh, const void* wp,
+                             const void* bias, const float* c0, float* hbuf,
+                             float* hidbuf, void* hseq, float* cfin,
+                             void* zseq, void* cseq, unsigned int* bar, int T,
+                             int B, int H, int P, void* stream) {
+  return launch<__nv_bfloat16, true>(xp, wh, wp, bias, c0, hbuf, hidbuf, hseq,
+                                     cfin, zseq, cseq, bar, T, B, H, P,
+                                     stream);
 }

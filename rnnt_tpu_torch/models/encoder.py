@@ -1,8 +1,11 @@
 """Audio encoder: input BatchNorm, then stacked projected LSTMs with
-LayerNorm, and a TimeReduction after layer `time_reduction_index`.
+dropout and LayerNorm, and a TimeReduction after layer
+`time_reduction_index`.
 
-The port of `rnnt_tpu.models.encoder` for inference.  The per-layer LSTM
-state is carried in and out, as the JAX encoder threads it.
+The port of `rnnt_tpu.models.encoder`.  The per-layer LSTM state is carried
+in and out, as the JAX encoder threads it.  In training the BatchNorm uses
+the batch statistics and returns the updated running ones, and dropout
+draws from the caller's generator.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ class LSTMBlock(nn.Module):
         self.lstm.reset_(rng)
         self.ln.reset_()
 
-    def forward(self, x, state=None):
-        y, new_state = self.lstm(x, state)
+    def forward(self, x, state=None, *, training: bool = False,
+                dropout: float = 0.0, generator=None):
+        y, new_state = self.lstm(x, state, training=training)
+        if training:
+            y = L.dropout(y, dropout, generator)
         return self.ln(y), new_state
 
 
@@ -62,10 +68,20 @@ class Encoder(nn.Module):
     def forward(self, mel: torch.Tensor, state: Optional[State] = None):
         """mel [B, T, feat] -> (encoded [B, T', P], new_state), with
         T' = ceil(T / time_reduction_factor)."""
-        x = self.bn(mel)
+        return self._layers(self.bn(mel), state, False, None)
+
+    def forward_train(self, mel: torch.Tensor, generator=None):
+        """The training forward from a zero state: (encoded, (new BatchNorm
+        mean, var))."""
+        x, bn_stats = self.bn.forward_train(mel)
+        return self._layers(x, None, True, generator)[0], bn_stats
+
+    def _layers(self, x, state, training, generator):
         new_state = []
         for i, layer in enumerate(self.layers):
-            x, st = layer(x, state[i] if state is not None else None)
+            x, st = layer(x, state[i] if state is not None else None,
+                          training=training, dropout=self.cfg.dropout,
+                          generator=generator)
             new_state.append(st)
             if i == self.cfg.time_reduction_index:
                 x = L.time_reduction(x, self.cfg.time_reduction_factor)

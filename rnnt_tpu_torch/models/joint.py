@@ -1,7 +1,9 @@
 """Additive joint network: Dense(joint_size, tanh) over enc + pred, then
 Dense(vocab).  The port of `rnnt_tpu.models.joint`.  The products are plain
-torch.matmul with fp32 results, as XLA computes them outside any kernel on
-the TPU."""
+cuBLAS products with fp32 results (`ops.matmul`), as XLA computes them
+outside any kernel on the TPU.  `joint_logits` materialises the [B, T, U+1, V] lattice for the
+"ref" and "pallas" losses; the fused loss (`ops.joint_loss_fused`) never
+does."""
 
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ import torch
 from torch import nn
 
 from rnnt_tpu_torch.config import RNNTConfig
-from rnnt_tpu_torch.models.lstm import frozen_param, glorot_, matmul_f32
+from rnnt_tpu_torch.models.lstm import frozen_param, glorot_
+from rnnt_tpu_torch.ops.matmul import matmul_f32
 
 
 class Joint(nn.Module):

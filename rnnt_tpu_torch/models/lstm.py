@@ -1,14 +1,19 @@
-"""Projected LSTM, LayerNorm, inference BatchNorm and TimeReduction.
+"""Projected LSTM, LayerNorm, BatchNorm, dropout and TimeReduction.
 
-The port of `rnnt_tpu.models.lstm` for inference.  Parameters keep the JAX
-layout and gate order (torch.nn.LSTM's i, f, g, o differs):
+The port of `rnnt_tpu.models.lstm`.  Parameters keep the JAX layout and gate
+order (torch.nn.LSTM's i, f, g, o differs):
 
   wx [F, 4H], wh [P, 4H], bias [4H], wp [H, P]; gates i, g, f, o.
 
 The input projection x @ Wx over all timesteps is one matmul outside the
 recurrence, cast to the weight dtype as the TPU kernel receives it; the
-recurrence itself is `ops.lstm_cuda.lstm_seq_infer` (the CUDA kernel on the
-card, its plain version on the CPU).  The cell state c is fp32.
+recurrence itself is `ops.lstm_cuda.lstm_seq_infer` in inference and the
+differentiable `ops.lstm_cuda.lstm_seq` in training (the CUDA kernels on the
+card, their plain versions on the CPU).  The cell state c is fp32.
+
+Parameters are created frozen (serving needs no gradients);
+`models.transducer.Transducer.make_trainable_` turns training on for all but
+the BatchNorm running statistics.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from torch import nn
 
 from rnnt_tpu_torch.ops import lstm_cuda
+from rnnt_tpu_torch.ops.matmul import matmul_to
 
 
 def frozen_param(shape) -> nn.Parameter:
@@ -32,22 +38,6 @@ def glorot_(p: torch.Tensor, rng: np.random.Generator) -> None:
     lim = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
     p.copy_(torch.from_numpy(
         rng.uniform(-lim, lim, tuple(p.shape)).astype(np.float32)))
-
-
-def matmul_to(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-    """x @ w with fp32 accumulation, returned in `dtype`.  Operands of one
-    dtype multiply directly (cuBLAS accumulates bf16 in fp32 and rounds
-    once); mixed operands multiply in fp32."""
-    if x.dtype == w.dtype:
-        return torch.matmul(x, w).to(dtype)
-    return torch.matmul(x.float(), w.float()).to(dtype)
-
-
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w as an fp32 result (JAX's preferred_element_type=float32)."""
-    if x.dtype == w.dtype == torch.float32:
-        return torch.matmul(x, w)
-    return torch.matmul(x.float(), w.float())
 
 
 class ProjLSTM(nn.Module):
@@ -77,12 +67,16 @@ class ProjLSTM(nn.Module):
                             device=device))
 
     def forward(self, x: torch.Tensor,
-                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                training: bool = False):
         B, T, F = x.shape
         dt = self.wh.dtype
         if state is None:
             state = self.zero_state(B, x.dtype, x.device)
         c0, h0 = state
+        if training:
+            return lstm_cuda.lstm_seq(x, self.wx, self.wh, self.bias, self.wp,
+                                      c0, h0)
         xp = matmul_to(x.reshape(B * T, F), self.wx, dt).reshape(B, T, -1)
         h_seq, c_fin = lstm_cuda.lstm_seq_infer(
             xp.transpose(0, 1), self.wh, self.wp, self.bias, h0, c0)
@@ -111,8 +105,10 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Feature-wise BatchNorm in inference: running stats, eps 1e-3.  The
-    running mean and variance stay fp32 whatever the parameter dtype."""
+    """Feature-wise BatchNorm over [B, T, F], eps 1e-3.  In inference it
+    reads the running statistics; `forward_train` normalises with the
+    batch's.  The running mean and variance stay fp32 whatever the
+    parameter dtype."""
 
     def __init__(self, size: int):
         super().__init__()
@@ -127,9 +123,25 @@ class BatchNorm(nn.Module):
             p.fill_(v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.mean.float()) * torch.rsqrt(self.var.float()
-                                                          + 1e-3)
+        return self._normalize(x, self.mean.float(), self.var.float())
+
+    def _normalize(self, x, mean, var):
+        y = (x.float() - mean) * torch.rsqrt(var + 1e-3)
         return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+    def forward_train(self, x: torch.Tensor):
+        """Normalise with the batch statistics over (B, T), padded frames
+        included, biased variance.  Returns (y, (new_mean, new_var)) with
+        new = 0.99 * running + 0.01 * batch (Keras' momentum); the running
+        statistics are not changed here (the train step writes them)."""
+        momentum = 0.99
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1))
+        var = xf.var(dim=(0, 1), unbiased=False)
+        with torch.no_grad():
+            new = (momentum * self.mean.float() + (1 - momentum) * mean,
+                   momentum * self.var.float() + (1 - momentum) * var)
+        return self._normalize(x, mean, var), new
 
 
 def time_reduction(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -145,3 +157,16 @@ def time_reduction(x: torch.Tensor, factor: int) -> torch.Tensor:
 def reduced_length(lengths: torch.Tensor, factor: int) -> torch.Tensor:
     """Valid-frame count after time_reduction: ceil(len / factor)."""
     return -(-lengths // factor)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the caller's generator (on x's device): keep
+    each element with probability 1 - rate, scaled by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (
+        1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device)
+                       ).to(x.dtype)

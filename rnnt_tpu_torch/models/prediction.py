@@ -1,5 +1,5 @@
 """Prediction (label) network: embedding, then stacked projected LSTMs with
-LayerNorm.  The port of `rnnt_tpu.models.prediction` for inference; decoding
+dropout and LayerNorm.  The port of `rnnt_tpu.models.prediction`; decoding
 carries its LSTM state instead of re-running the emitted prefix."""
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from rnnt_tpu_torch.models.lstm import frozen_param
 class Prediction(nn.Module):
     def __init__(self, cfg: RNNTConfig):
         super().__init__()
+        self.dropout = cfg.dropout
         self.embed = frozen_param((cfg.vocab_size, cfg.embedding_size))
         in_sizes = [cfg.embedding_size] + [cfg.projection_size] * (
             cfg.pred_net_layers - 1)
@@ -35,11 +36,14 @@ class Prediction(nn.Module):
     def zero_state(self, batch: int, dtype=None) -> State:
         return [layer.lstm.zero_state(batch, dtype) for layer in self.layers]
 
-    def forward(self, pred_inp: torch.Tensor, state: Optional[State] = None):
+    def forward(self, pred_inp: torch.Tensor, state: Optional[State] = None,
+                *, training: bool = False, generator=None):
         """pred_inp [B, U+1] int token ids -> (out [B, U+1, P], new_state)."""
         x = self.embed[pred_inp]
         new_state = []
         for i, layer in enumerate(self.layers):
-            x, st = layer(x, state[i] if state is not None else None)
+            x, st = layer(x, state[i] if state is not None else None,
+                          training=training, dropout=self.dropout,
+                          generator=generator)
             new_state.append(st)
         return x, new_state

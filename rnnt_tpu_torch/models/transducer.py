@@ -1,4 +1,4 @@
-"""The RNN-Transducer: encoder + prediction net + joint, for inference.
+"""The RNN-Transducer: encoder + prediction net + joint.
 
 The port of `rnnt_tpu.models.transducer`.  Parameter names mirror the JAX
 parameter tree ("encoder.layers.0.lstm.wx" is params["encoder"]["layers"][0]
@@ -51,9 +51,38 @@ class Transducer(nn.Module):
                 p.data = p.data.to(dtype)
         return self
 
+    def make_trainable_(self) -> "Transducer":
+        """Gradients on for every parameter but the BatchNorm running
+        statistics (the JAX package's trainable mask)."""
+        for name, p in self.named_parameters():
+            p.requires_grad_(name not in FP32_LEAVES)
+        return self
+
     @property
     def dtype(self) -> torch.dtype:
         return self.joint.w1.dtype
+
+    def encode_predict(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
+                       training: bool = False, generator=None):
+        """Encoder and prediction net over a batch: (encoded [B, T', P],
+        pred_out [B, U+1, P], (BatchNorm mean, var)).  In training the
+        BatchNorm statistics are the updated running ones; otherwise the
+        current ones."""
+        if training:
+            encoded, bn_stats = self.encoder.forward_train(mel, generator)
+        else:
+            encoded, _ = self.encoder(mel)
+            bn_stats = (self.encoder.bn.mean, self.encoder.bn.var)
+        pred_out, _ = self.prediction(pred_inp, training=training,
+                                      generator=generator)
+        return encoded, pred_out, bn_stats
+
+    def apply(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
+              training: bool = False, generator=None):
+        """Full forward: (logits [B, T', U+1, V] fp32, BatchNorm stats)."""
+        encoded, pred_out, bn_stats = self.encode_predict(
+            mel, pred_inp, training=training, generator=generator)
+        return joint_mod.joint_logits(self.joint, encoded, pred_out), bn_stats
 
     def encode(self, mel: torch.Tensor, state: Optional[State] = None):
         """mel [B, T, feat] -> (encoded [B, T', P], new_state)."""

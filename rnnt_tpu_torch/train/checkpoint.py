@@ -1,6 +1,8 @@
-"""Read side of the JAX package's checkpoints, without JAX.
+"""Checkpoints in the JAX package's npz layout, without JAX: the port of
+`rnnt_tpu.train.checkpoint`.
 
-A run directory written by `rnnt_tpu.train.checkpoint.save_checkpoint`:
+A run directory, as `rnnt_tpu.train.checkpoint.save_checkpoint` writes it
+and as `save_checkpoint` here writes it:
 
   run/
     config.json                    RNNTConfig sidecar
@@ -9,20 +11,24 @@ A run directory written by `rnnt_tpu.train.checkpoint.save_checkpoint`:
 
 `state.npz` holds the TrainState leaves in `jax.tree_util` flatten order as
 `leaf_{i}`: leaf_0 is the step, then the parameters (dict keys sorted, lists
-in order), then the optimizer state, which serving ignores.  bf16 leaves
-were stored as fp32.
+in order), then the optimizer state (`train.state.Optimizer.slots`).  bf16
+leaves are stored as fp32.  So either package resumes the other's
+checkpoints with the optimizer state.  Writes publish atomically (a
+temporary file renamed into place) and keep the newest `keep` steps.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Iterable, List, Tuple
+import threading
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from rnnt_tpu_torch.config import RNNTConfig
+from rnnt_tpu_torch.device import resolve_device
 
 _CKPT_RE = re.compile(r"^checkpoint_(\d+)$")
 _ORBAX_RE = re.compile(r"^checkpoint_(\d+)\.orbax$")
@@ -76,16 +82,35 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _latest_step_dir(run_dir: str) -> str:
+def list_checkpoint_steps(ckpt_dir: str) -> List[int]:
+    """Steps with a published state.npz under a run directory."""
     steps = []
-    if os.path.isdir(run_dir):
-        for name in os.listdir(run_dir):
+    if os.path.isdir(ckpt_dir):
+        for name in os.listdir(ckpt_dir):
             m = _CKPT_RE.match(name)
-            if m and os.path.exists(os.path.join(run_dir, name, "state.npz")):
+            if m and os.path.exists(os.path.join(ckpt_dir, name, "state.npz")):
                 steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    steps = list_checkpoint_steps(ckpt_dir)
     if not steps:
+        return None
+    return os.path.join(ckpt_dir, f"checkpoint_{steps[-1]:08d}")
+
+
+def has_orbax(path: str) -> bool:
+    return (path.endswith(".orbax") or os.path.isdir(path + ".orbax")
+            or (os.path.isdir(path) and any(
+                _ORBAX_RE.match(n) for n in os.listdir(path))))
+
+
+def _latest_step_dir(run_dir: str) -> str:
+    latest = latest_checkpoint(run_dir)
+    if latest is None:
         raise FileNotFoundError(f"no checkpoint under {run_dir}")
-    return os.path.join(run_dir, f"checkpoint_{max(steps):08d}")
+    return latest
 
 
 def restore_params(path_or_dir: str,
@@ -97,9 +122,7 @@ def restore_params(path_or_dir: str,
     from rnnt_tpu_torch.models.transducer import Transducer
 
     path = path_or_dir
-    if (path.endswith(".orbax") or os.path.isdir(path + ".orbax")
-            or (os.path.isdir(path) and any(
-                _ORBAX_RE.match(n) for n in os.listdir(path)))):
+    if has_orbax(path):
         raise ValueError(
             f"{path_or_dir}: orbax checkpoints are not readable by the "
             "PyTorch port; save with backend='npz'")
@@ -127,3 +150,195 @@ def restore_params(path_or_dir: str,
                     f"model {shapes[name]} (config mismatch?)")
             sd[name] = torch.from_numpy(arr.astype(np.float32))
     return step, sd
+
+
+# ---------------------------------------------------------------- training
+
+
+def state_arrays(step: int, sd: Dict[str, torch.Tensor],
+                 opt_state: Dict) -> Dict[str, np.ndarray]:
+    """A TrainState's leaves (step, model state_dict, optimizer state) as
+    `leaf_{i}` numpy arrays in flatten order: bf16 as fp32, counts as int32
+    scalars."""
+    from rnnt_tpu_torch.train.state import Optimizer
+
+    leaves = [np.asarray(step, np.int32)]
+    leaves += [sd[n] for n in flatten_order(sd)]
+    leaves += [c[k] for c, k in Optimizer.slots(opt_state)]
+    out = {}
+    for i, x in enumerate(leaves):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().float().cpu().numpy()
+        elif not isinstance(x, np.ndarray):
+            x = np.asarray(x, np.int32)
+        out[f"leaf_{i}"] = x
+    return out
+
+
+def _write_npz(ckpt_dir: str, arrays: Dict[str, np.ndarray], cfg: RNNTConfig,
+               *, keep: int, step: int) -> str:
+    """Write checkpoint_{step}/state.npz with an atomic publish, then prune
+    all but the newest `keep` steps."""
+    path = os.path.join(ckpt_dir, f"checkpoint_{step:08d}")
+    cfg.save(ckpt_dir)
+    os.makedirs(path, exist_ok=True)
+    # a preemption mid-write must never leave a truncated state.npz that
+    # list_checkpoint_steps would take for a checkpoint
+    tmp = os.path.join(path, ".state.npz.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(path, "state.npz"))
+    for s in list_checkpoint_steps(ckpt_dir)[:-keep]:
+        old = os.path.join(ckpt_dir, f"checkpoint_{s:08d}")
+        for root, dirs, files in os.walk(old, topdown=False):
+            for fn in files:
+                os.unlink(os.path.join(root, fn))
+            os.rmdir(root)
+    return path
+
+
+def save_checkpoint(ckpt_dir: str, state, cfg: RNNTConfig, *,
+                    keep: int = 5) -> str:
+    """Write checkpoint_{step} (synchronously); prunes beyond `keep`."""
+    arrays = state_arrays(state.step, state.model.state_dict(),
+                          state.opt_state)
+    return _write_npz(ckpt_dir, arrays, cfg, keep=keep, step=int(state.step))
+
+
+class AsyncSaver:
+    """Checkpointing off the training thread.  save() snapshots the state on
+    its device (copies queued on the current stream, so the next steps
+    cannot change them), and a thread moves the copies to the host and runs
+    the same atomic npz write as save_checkpoint.  One save is in flight at
+    a time; wait() joins it and re-raises a writer error."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+        self._last_path: Optional[str] = None
+
+    def wait(self) -> Optional[str]:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+        return self._last_path
+
+    def save(self, ckpt_dir: str, state, cfg: RNNTConfig, *,
+             keep: int = 5) -> str:
+        self.wait()
+        step = int(state.step)
+        sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        opt = {k: ({n: t.detach().clone() for n, t in v.items()}
+                   if isinstance(v, dict) else v)
+               for k, v in state.opt_state.items()}
+
+        def work():
+            try:
+                self._last_path = _write_npz(
+                    ckpt_dir, state_arrays(step, sd, opt), cfg, keep=keep,
+                    step=step)
+            except BaseException as e:  # re-raised on the caller in wait()
+                self._exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name=f"ckpt-save-{step}")
+        self._thread.start()
+        return os.path.join(ckpt_dir, f"checkpoint_{step:08d}")
+
+
+def _template_state(cfg: RNNTConfig, dtype, device):
+    from rnnt_tpu_torch.models.transducer import Transducer
+    from rnnt_tpu_torch.train.state import Optimizer, TrainState
+
+    model = Transducer(cfg).cast_(dtype).to(device).make_trainable_()
+    return TrainState(step=0, model=model, opt_state=Optimizer(cfg).init(model))
+
+
+def _resolve_step_dir(path_or_dir: str) -> str:
+    if has_orbax(path_or_dir):
+        raise ValueError(
+            f"{path_or_dir}: orbax checkpoints are not readable by the "
+            "PyTorch port; save with backend='npz'")
+    if os.path.exists(os.path.join(path_or_dir, "state.npz")):
+        return path_or_dir
+    return _latest_step_dir(path_or_dir)
+
+
+def restore_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
+                       device="cuda"):
+    """Full resume (parameters, optimizer state and step) from a step
+    directory or a run directory's latest step, written by either package,
+    onto `device` (the card unless 'cpu' is asked for).  dtype: the
+    parameter dtype (None: cfg.compute_dtype); leaf shapes and the leaf
+    count are checked against `cfg`."""
+    from rnnt_tpu_torch.train.state import Optimizer
+
+    device = resolve_device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+            else torch.float32
+    path = _resolve_step_dir(path_or_dir)
+    state = _template_state(cfg, dtype, device)
+    sd = state.model.state_dict()
+    names = flatten_order(sd)
+    slots = Optimizer.slots(state.opt_state)
+    with np.load(os.path.join(path, "state.npz")) as data:
+        n = len(data.files)
+        if n != 1 + len(names) + len(slots):
+            raise ValueError(
+                f"{path}: {n} leaves, the config's train state has "
+                f"{1 + len(names) + len(slots)} (config mismatch?)")
+        arrs = [data[f"leaf_{i}"] for i in range(n)]
+    for i, a in enumerate(arrs):
+        if a.dtype.kind == "V":
+            raise ValueError(f"{path}: leaf {i} holds raw bfloat16 bytes "
+                             "(legacy layout), re-save it as fp32")
+    state.step = int(arrs[0])
+    with torch.no_grad():
+        for i, name in enumerate(names, start=1):
+            if arrs[i].shape != tuple(sd[name].shape):
+                raise ValueError(
+                    f"leaf {i} ({name}): checkpoint shape {arrs[i].shape} != "
+                    f"model {tuple(sd[name].shape)} (config mismatch?)")
+            sd[name].copy_(torch.from_numpy(arrs[i].astype(np.float32)))
+        for (c, k), a in zip(slots, arrs[1 + len(names):]):
+            if isinstance(c[k], torch.Tensor):
+                if a.shape != tuple(c[k].shape):
+                    raise ValueError(f"optimizer leaf {k}: shape {a.shape} != "
+                                     f"{tuple(c[k].shape)} (config mismatch?)")
+                c[k].copy_(torch.from_numpy(np.asarray(a, np.float32)))
+            else:
+                c[k] = int(a)
+    return state
+
+
+def init_from_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
+                         device="cuda"):
+    """Warm start: the parameters of a checkpoint (read under its own
+    sidecar config when it has one, since the optimizer layout follows the
+    config), fresh optimizer state and step 0 under `cfg`, on `device`
+    (the card unless 'cpu' is asked for)."""
+    from rnnt_tpu_torch.train.state import Optimizer
+
+    device = resolve_device(device)
+    src_cfg = cfg
+    sc = sidecar_dir(path_or_dir)
+    if os.path.exists(os.path.join(sc, "config.json")):
+        src_cfg = RNNTConfig.load(sc)
+    old = restore_checkpoint(path_or_dir, src_cfg, dtype, device)
+    fresh = _template_state(cfg, old.model.dtype, device)
+    mine = fresh.model.state_dict()
+    with torch.no_grad():
+        for name, t in old.model.state_dict().items():
+            if tuple(t.shape) != tuple(mine[name].shape):
+                raise ValueError(f"init_from geometry mismatch at {name}: "
+                                 f"checkpoint {tuple(t.shape)} vs model "
+                                 f"{tuple(mine[name].shape)}")
+            mine[name].copy_(t)
+    fresh.opt_state = Optimizer(cfg).init(fresh.model)
+    return fresh

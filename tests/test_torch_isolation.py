@@ -22,6 +22,14 @@ import rnnt_tpu_torch.decode.beam, rnnt_tpu_torch.ops.beam_cuda
 import rnnt_tpu_torch.decode.streaming
 import rnnt_tpu_torch.cli.transcribe_file
 import rnnt_tpu_torch.cli.streaming_transcribe
+import rnnt_tpu_torch.cli.run_rnnt, rnnt_tpu_torch.train.loop
+import rnnt_tpu_torch.train.steps, rnnt_tpu_torch.train.state
+import rnnt_tpu_torch.train.checkpoint, rnnt_tpu_torch.train.observe
+import rnnt_tpu_torch.ops.rnnt_loss, rnnt_tpu_torch.ops.rnnt_loss_ref
+import rnnt_tpu_torch.ops.lattice_cuda, rnnt_tpu_torch.ops.planes_cuda
+import rnnt_tpu_torch.ops.joint_loss_fused, rnnt_tpu_torch.ops.matmul
+import rnnt_tpu_torch.data.records, rnnt_tpu_torch.data.pipeline
+import rnnt_tpu_torch.metrics.edit_distance
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
@@ -39,8 +47,13 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
-    from rnnt_tpu_torch.cli import streaming_transcribe, transcribe_file
+    from rnnt_tpu_torch.cli import run_rnnt, streaming_transcribe, \
+        transcribe_file
+    from rnnt_tpu_torch.config import tiny_config
     from rnnt_tpu_torch.serve import Server, TranscriptionService
+    from rnnt_tpu_torch.train.checkpoint import init_from_checkpoint, \
+        restore_checkpoint
+    from rnnt_tpu_torch.train.state import create_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -52,3 +65,12 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         streaming_transcribe.main(["--checkpoint", str(tmp_path),
                                    "--simulate_file", "a.wav"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_rnnt.main(["--data_dir", str(tmp_path)])
+    cfg = tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore_checkpoint(str(tmp_path), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_from_checkpoint(str(tmp_path), cfg)

@@ -1,0 +1,96 @@
+"""The port's training CLI (rnnt_tpu_torch.cli.run_rnnt) on the CPU: a tiny
+config trains a few steps from shards written by the JAX package's writer,
+logs and checkpoints, resumes, and evaluates with --mode test; the flags it
+has not ported yet are refused, never ignored."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rnnt_tpu.config import tiny_config
+from rnnt_tpu.data import records as JR
+from rnnt_tpu_torch.cli import run_rnnt
+from rnnt_tpu_torch.train import checkpoint as tckpt
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def data_dir(tmp_path):
+    cfg = tiny_config()
+    d = tmp_path / "data"
+    cfg.save(str(d))
+    rng = np.random.default_rng(0)
+
+    def examples(n):
+        for _ in range(n):
+            t, u = int(rng.integers(20, 40)), int(rng.integers(3, 8))
+            labels = rng.integers(1, cfg.vocab_size, u).astype(np.int32)
+            yield {"mel_specs": rng.standard_normal(
+                       (t, cfg.input_feat_size)).astype(np.float32),
+                   "pred_inp": np.concatenate([[0], labels]).astype(np.int32),
+                   "labels": labels, "spec_lengths": np.int32(t),
+                   "label_lengths": np.int32(u)}
+
+    for split, n in (("train", 8), ("dev", 4), ("test", 4)):
+        JR.write_shards(examples(n), str(d / f"{split}-{{shard:05d}}.rnr"), 2)
+    return str(d)
+
+
+def _argv(mode, data, **kw):
+    argv = ["--mode", mode, "--data_dir", data, "--batch_size", "4",
+            "--no-bf16", "--device", "cpu", "--pad_frames", "64",
+            "--pad_tokens", "8"]
+    for k, v in kw.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def test_train_then_resume_then_test(data_dir, tmp_path, capsys):
+    out = str(tmp_path / "run")
+    run_rnnt.main(_argv("train", data_dir, output_dir=out, n_epochs=2,
+                        steps_per_log=1, steps_per_checkpoint=3, eval_size=1,
+                        config_override="learning_rate=0.01"))
+    assert tckpt.list_checkpoint_steps(out) == [3, 4]
+    with open(os.path.join(out, "tb", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert sum("eval_loss" in r for r in recs) == 2
+    assert json.load(open(os.path.join(out, "config.json")))[
+        "learning_rate"] == 0.01
+    # --checkpoint auto resumes in place at step 4
+    state = run_rnnt.main(_argv("train", data_dir, output_dir=out,
+                                checkpoint="auto", n_epochs=1))
+    assert state.step == 6
+    capsys.readouterr()
+    metrics = run_rnnt.main(_argv("test", data_dir, checkpoint=out,
+                                  output_dir=out))
+    printed = capsys.readouterr().out
+    assert "eval_loss=" in printed and "eval_wer=" in printed
+    assert np.isfinite(metrics["eval_loss"])
+    beam = run_rnnt.main(_argv("eval", data_dir, checkpoint=out,
+                               output_dir=out, decode="beam"))
+    assert np.isfinite(beam["eval_loss"]) and 0 <= beam["eval_wer"] <= 1
+    # eval never rewrites the training sidecar
+    assert json.load(open(os.path.join(out, "config.json")))[
+        "learning_rate"] == 0.01
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model_parallel", "2"], ["--multihost"], ["--quantized", "q.npz"],
+    ["--int8_exec"], ["--ckpt_backend", "orbax"], ["--loss_impl", "banded"],
+    ["--profile_dir", "prof"]])
+def test_unported_flags_are_refused(flags, capsys):
+    with pytest.raises(SystemExit):
+        run_rnnt.parse_args(["--data_dir", "d", *flags])
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_specaugment_is_refused(data_dir, tmp_path):
+    with pytest.raises(NotImplementedError, match="SpecAugment"):
+        run_rnnt.main(_argv("train", data_dir, output_dir=str(tmp_path / "r"),
+                            config_override="specaug_time_masks=2"))
