@@ -50,8 +50,9 @@ worst case.
    swapped); the fp32 stream through the kernels and through the plain
    versions, greedy argmaxes identical up to a near tie (margin < 1e-4);
    and at the train shapes: K4 (h, z, c, c_fin) and K5 (dz, dh_total, dh0,
-   dc0, fed the same residuals) at B=32, T=256 and T=128, relative error
-   <= 1e-4 in fp32 and <= 2e-2 in bf16, inputs untouched; K6 (denom, blank,
+   dc0, fed the same residuals) at B=32 (T=256, 128 and 65), B=96 (T=256),
+   B=20 (T=128) and B=8, 40 and 160 (T=65), relative error <= 1e-4 in fp32
+   and <= 2e-2 in bf16, inputs untouched; K6 (denom, blank,
    emit) at B=32, T'=128, U+1=65, <= 1e-4 in fp32 and <= PLANES_BF16_TOL in
    bf16; K7 (alpha and beta over the valid cells, ll) from those planes,
    <= 1e-5; and one whole fp32 train step at the parity width (B=32,
@@ -69,8 +70,10 @@ worst case.
    kernel;
 6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
-   error; for K3 also the weight traffic of re-reading the weights at every
-   product, and its time split over the phases of a search), the card's
+   error; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
+   maximum of 30 runs, for K5 also its time at B=96; for K3 also the
+   weight traffic of re-reading the weights at every product, and its time
+   split over the phases of a search), the card's
    name and power limit, and last the line
    {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -110,8 +113,9 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the card (CUDA events, after warm-up)."""
+def cuda_times(fn, reps: int, warmup: int = 2) -> list:
+    """Milliseconds of each of `reps` runs of fn() on the card (CUDA events,
+    after warm-up)."""
     import torch
 
     for _ in range(warmup):
@@ -126,7 +130,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of fn() on the card."""
+    return statistics.median(cuda_times(fn, reps, warmup))
 
 
 def require(ok, what) -> None:
@@ -316,7 +325,19 @@ def cudnn_proj_lstm(lstm, x):
         ref.bias_ih_l0.copy_(lstm.bias[perm])
         ref.bias_hh_l0.zero_()
         ref.weight_hr_l0.copy_(lstm.wp.t())
+    ref.flatten_parameters()  # as a cuDNN user would (`.to()` does not)
     return ref
+
+
+def library_runs(fn, what, reps=30):
+    """A library yardstick's times: median, minimum and maximum of `reps`
+    runs (its time varies by up to ~2x between runs of one call)."""
+    times = cuda_times(fn, reps, warmup=3)
+    runs = {"median_ms": statistics.median(times), "min_ms": min(times),
+            "max_ms": max(times)}
+    log(f"{what}, {reps} runs: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in runs.items()))
+    return runs
 
 
 def check_lstm_cases(H: int, P: int) -> None:
@@ -388,7 +409,8 @@ def check_lstm_layer(model, mel_p):
     x_tb = x.transpose(0, 1).to(dt).contiguous()
     ref = cudnn_proj_lstm(lstm, x)  # the yardstick only; the port never uses it
     with torch.no_grad():
-        library_ms = cuda_ms(lambda: ref(x_tb), reps=10)
+        lib = library_runs(lambda: ref(x_tb), f"cuDNN nn.LSTM(proj_size={P}) "
+                           f"inference T={T} B={B} {str(dt)[6:]}")
     entry = {
         "name": "lstm_seq_infer",
         "route": "cuda",
@@ -400,7 +422,8 @@ def check_lstm_layer(model, mel_p):
                             reps=3, warmup=1),
         "bound_ms": max(t_flops, t_bytes) * 1e3,
         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "library_ms": lib["median_ms"],
+        "library_runs_ms": lib,
         "shape": f"xp [{T},{B},{4 * H}] {str(dt)[6:]}, H={H} P={P}",
         "step_ms": step_ms,
     }
@@ -1040,11 +1063,17 @@ def bound_of(nbytes, flops, peak):
 
 def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
     """K4 and K5 vs their plain versions at the train shapes: B=32 and
-    T=256 (encoder layers 0-1) and T=128 (after the time reduction), in
-    fp32 (relative error <= 1e-4) and bf16 (<= 2e-2); K5 is fed the plain
+    T=256 (encoder layers 0-1), T=128 (after the time reduction) and T=65
+    (the prediction net's U+1), B=96 at T=256 (bench.py's batch), a ragged
+    B=20 at T=128 (not a multiple of K5's 16-row tiles), and at T=65 the
+    other passes of K5's bf16 tiling: B=8 and B=40 (one and three ragged
+    16-row tiles) and B=160 (passes of 64, 64 and 32 rows through the
+    half-size staging ring), in fp32 (relative error <= 1e-4) and bf16
+    (<= 2e-2); K5 is fed the plain
     forward's residuals and a random output gradient; neither kernel may
     write into its inputs.  Returns the K4 and K5 entries (times at layer
-    0's shape in bf16)."""
+    0's shape in bf16; K5 also at B=96; the cuDNN yardstick as the median
+    of 30 runs, with their minimum and maximum)."""
     import torch
 
     from rnnt_tpu_torch.ops import lstm_cuda
@@ -1056,11 +1085,12 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
 
     worst = {}
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        for T in (256, 128):
-            fwd_args = (rand((T, B, 4 * H), 4.0).to(dt),
+        for Bc, T in ((B, 256), (B, 128), (B, 65), (BENCH_B, 256), (20, 128),
+                      (8, 65), (40, 65), (160, 65)):
+            fwd_args = (rand((T, Bc, 4 * H), 4.0).to(dt),
                         rand((P, 4 * H), 0.05).to(dt), rand((H, P), 0.1).to(dt),
-                        rand((4 * H,), 1.0).to(dt), rand((B, P), 0.5).to(dt),
-                        rand((B, H), 0.5))
+                        rand((4 * H,), 1.0).to(dt), rand((Bc, P), 0.5).to(dt),
+                        rand((Bc, H), 0.5))
             before = [a.clone() for a in fwd_args]
             got = lstm_cuda.lstm_fwd(*fwd_args)
             want = lstm_cuda.lstm_fwd_plain(*fwd_args)
@@ -1071,7 +1101,7 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
             whT = fwd_args[1].t().contiguous()
             wpT = fwd_args[2].t().contiguous()
             bwd_args = (want[1], want[2], fwd_args[5],
-                        rand((T, B, P), 1.0).to(dt), whT, wpT)
+                        rand((T, Bc, P), 1.0).to(dt), whT, wpT)
             before = [a.clone() for a in bwd_args]
             got_b = lstm_cuda.lstm_bwd(*bwd_args)
             want_b = lstm_cuda.lstm_bwd_plain(*bwd_args)
@@ -1080,7 +1110,7 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
             err_b = max(rel_err(a, b) for a, b in zip(got_b, want_b))
             abs_b = float((got_b[0].float() - want_b[0].float()).abs().max())
             name = str(dt)[6:]
-            log(f"K4 lstm_fwd T={T} B={B} {name}: rel err {err_f:.3e} (h, z, "
+            log(f"K4 lstm_fwd T={T} B={Bc} {name}: rel err {err_f:.3e} (h, z, "
                 f"c, c_fin); K5 lstm_bwd: rel err {err_b:.3e} (dz, dh_total, "
                 f"dh0, dc0)")
             require(err_f <= tol, f"K4 disagrees: {err_f}")
@@ -1089,16 +1119,22 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
             worst[name, "bwd"] = max(worst.get((name, "bwd"), 0.0), abs_b)
     # times at layer 0's shape (T=256, F=240) in bf16
     T, F_in, dt = 256, 240, torch.bfloat16
-    fwd_args = (rand((T, B, 4 * H), 4.0).to(dt), rand((P, 4 * H), 0.05).to(dt),
-                rand((H, P), 0.1).to(dt), rand((4 * H,), 1.0).to(dt),
-                torch.zeros((B, P), dtype=dt, device=device),
-                torch.zeros((B, H), device=device))
-    _, z, c, _ = lstm_cuda.lstm_fwd_plain(*fwd_args)
-    bwd_args = (z, c, fwd_args[5], rand((T, B, P), 1.0).to(dt),
-                fwd_args[1].t().contiguous(), fwd_args[2].t().contiguous())
+
+    def layer0_args(Bc):
+        fwd = (rand((T, Bc, 4 * H), 4.0).to(dt),
+               rand((P, 4 * H), 0.05).to(dt), rand((H, P), 0.1).to(dt),
+               rand((4 * H,), 1.0).to(dt),
+               torch.zeros((Bc, P), dtype=dt, device=device),
+               torch.zeros((Bc, H), device=device))
+        _, z, c, _ = lstm_cuda.lstm_fwd_plain(*fwd)
+        return fwd, (z, c, fwd[5], rand((T, Bc, P), 1.0).to(dt),
+                     fwd[1].t().contiguous(), fwd[2].t().contiguous())
+
+    fwd_args, bwd_args = layer0_args(B)
     # cuDNN's projected LSTM in training mode on the same widths, for the
     # library times only (it also computes the input projection x @ Wx)
     ref = torch.nn.LSTM(F_in, H, proj_size=P).to(device, dt)
+    ref.flatten_parameters()  # as a cuDNN user would (`.to()` does not)
     x = rand((T, B, F_in), 2.0).to(dt).requires_grad_()
     dy = rand((T, B, P), 1.0).to(dt)
 
@@ -1108,8 +1144,14 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
     def lib_fwd_bwd():
         torch.autograd.backward(ref(x)[0], dy)
 
-    lib_f = cuda_ms(lib_fwd, reps=5)
-    lib_fb = cuda_ms(lib_fwd_bwd, reps=5)
+    lib = {what: library_runs(fn, f"cuDNN nn.LSTM(proj_size={P}) {what} "
+                              f"T={T} B={B} bf16")
+           for what, fn in (("forward", lib_fwd),
+                            ("forward+backward", lib_fwd_bwd))}
+    lib_f = lib["forward"]["median_ms"]
+    lib_fb = lib["forward+backward"]["median_ms"]
+    _, bwd96 = layer0_args(BENCH_B)
+    nbytes96, flops96 = lstm_cost(T, BENCH_B, H, P, 2, True)
     entries = []
     for kind, fn, plain, args, src, line in (
             ("lstm_fwd", lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_plain,
@@ -1129,8 +1171,15 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
             "library": (f"torch.nn.LSTM(proj_size={P}) (cuDNN), training mode, "
                         + ("forward" if kind == "lstm_fwd" else
                            "backward (forward + backward less forward)")),
+            "library_runs_ms": lib,
             "shape": f"T={T} B={B} H={H} P={P} bf16",
             "max_abs_err_fp32": worst["float32", kind[5:]]})
+    k5 = entries[1]
+    k5["ms_B96"] = cuda_ms(lambda: lstm_cuda.lstm_bwd(*bwd96), reps=10)
+    k5["bound_ms_B96"] = bound_of(nbytes96, flops96, PEAK_BF16_FLOPS)[
+        "bound_ms"]
+    log(f"K5 lstm_bwd T={T} bf16: B={B} {k5['ms']:.3f} ms, B={BENCH_B} "
+        f"{k5['ms_B96']:.3f} ms (bound {k5['bound_ms_B96']:.4f})")
     return entries
 
 

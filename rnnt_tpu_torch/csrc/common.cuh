@@ -121,3 +121,41 @@ __host__ __device__ constexpr int train_rows() {
 __host__ __device__ inline int slice_begin(int i, int n, int parts) {
   return (int)((long long)i * n / parts);
 }
+
+// ---- asynchronous copies and warp-level tensor-core products (sm_80+) ----
+
+// 16-byte copy from global to shared memory through L2 only (.cg), so it
+// sees what other blocks wrote before a grid barrier.  With src_bytes = 0
+// it reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src,
+                                           int src_bytes) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a b on the tensor cores, one warp: a 16x16 bf16 (row-major), b 16x8
+// bf16 (column-major), d 16x8 fp32, in the PTX ISA's m16n8k16 fragments
+// (lane = 4 * g + t): a0 rows g, k 2t..2t+1; a1 row g+8, the same k; a2
+// and a3 the same rows at k + 8; b0 k 2t..2t+1 of column g, b1 k + 8;
+// d rows g (d0, d1) and g+8 (d2, d3), columns 2t and 2t+1.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], unsigned a0,
+                                               unsigned a1, unsigned a2,
+                                               unsigned a3, unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}

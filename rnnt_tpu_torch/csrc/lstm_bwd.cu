@@ -17,16 +17,20 @@
 // Wp^T [P, H] are transposed copies made by the wrapper.  The weight
 // gradients are large products outside the kernel (plain torch.matmul).
 //
-// Bound on the H100: like the forward, each step needs all of Wh and Wp
-// (13.1 MB in bf16 at the parity width) and the steps are a sequential
-// chain; at B=32 the products are 2 x 32 x (4H x P + P x H) = 0.42 GFLOP a
-// step.
+// What bounds it on the H100: the products are 2 x B x (4H x P + P x H)
+// operations a step (0.42 GFLOP at B=32, parity width), 0.4 us of the bf16
+// tensor cores; the steps are a sequential chain, and a step needs dh_total
+// whole before any dhid and dz whole before any dh, so each step is two
+// grid-wide exchanges with a grid barrier after each.  What is left a step
+// is the barriers plus the exchange: every block reads the whole dz [B, 4H]
+// and dh_total [B, P], 0.55 MB at B=32 in bf16 (73 MB across 132 blocks),
+// from L2.
 //
-// Design: the forward kernel's structure reversed, one persistent
-// cooperative launch (one block per SM, grid_barrier from common.cuh).
-// Block k owns a slice of the H hidden units (their four gate columns) and
-// a slice of the P columns.  Before the first step each block writes its
-// columns of dh_total for t = T-1; then per step:
+// Structure (both types): one persistent cooperative launch (one block per
+// SM, grid_barrier from common.cuh).  Block k owns a slice of the H hidden
+// units (their four gate columns) and a slice of the P columns.  Before the
+// first step each block writes its columns of dh_total for t = T-1; then
+// per step:
 //   phase A: dhid for its own units from the whole dh_total (a global
 //            buffer), then the cell backward with dc carried in shared
 //            memory, then dz for its own four gate columns (to dz_seq and a
@@ -35,22 +39,68 @@
 //   phase B: its P columns of dz @ Wh^T, which with dout[t-1] become the
 //            next step's dh_total (or, at t = 0, dh0);
 //   grid barrier
-// The products reuse block_dots: the vector rows are staged in shared memory
-// in the weight type (exact: dh_total and dz are rounded to it), 8 rows a
-// pass in bf16 and 4 in fp32 (train_rows), the weights read from L2 once a
-// pass.  The kernel writes only its outputs and scratch: its inputs are
-// left untouched.
+// The kernel writes only its outputs and scratch: its inputs are left
+// untouched.
+//
+// bf16 (bwd_mma): the weight slices stay in shared memory for the whole
+// launch, the step products run on the tensor cores, the exchange is bf16.
+//  - Before the first step a block copies its columns of Wh^T [4H x ncb]
+//    and Wp^T [P x nu] into shared memory, each column's k values
+//    contiguous (padded with zeros to a multiple of 16), so an MMA
+//    B-fragment is one 8-byte load; nothing reads the weights again.
+//  - Products: mma.sync m16n8k16 bf16 with fp32 accumulation.  Batch rows
+//    are M, in passes of up to 64 rows (4 m16 tiles; the last tile's rows
+//    past B are zero-filled); the block's own columns are N: two n8 tiles
+//    for phase A's units (nu <= 16), one for phase B's P columns (ncb <=
+//    8), the missing columns zero in registers.  The 16 warps split a pass
+//    as mt m-tiles x (16 / mt) groups of k16 slices; the groups' partial
+//    tiles sum through shared memory in a fixed order, so a launch is
+//    deterministic.  Within each 16-wide k slice, lane t holds the four
+//    contiguous values 4t..4t+3 as MMA k indices 2t, 2t+1, 2t+8, 2t+9, for
+//    A and B alike: the sum is the same, and every fragment is one 8-byte
+//    load.
+//  - Exchange: dh_total [B, ldp] and dz [B, ld4] are bf16 (exact: both are
+//    rounded to bf16 before their products), rows padded to a multiple of
+//    16 with zeros.  A pass streams its rows into a 3-slot shared-memory
+//    ring in k-chunks of ~32 KB (~16 KB above B=133) with 16-byte
+//    cp.async.cg (L2, which sees the other blocks' writes), two chunks in
+//    flight ahead of the MMAs.
+//    Measured on one H100 (PERF.md): chunks of 32 KB and 3 slots beat
+//    16 KB chunks with 3 or 4 slots by 16-20%; starting each block at
+//    another chunk, and loading the cell's residuals before the products,
+//    were slower.
+//  - Strides keep every 8-byte fragment load of a half-warp on 32 distinct
+//    banks: weight columns are padded to 16 mod 64 values, ring rows to
+//    chunk + 16 with the chunk a multiple of 32.
+// Shared memory (mma_plan), at the parity width (H=2048, P=640) on 132 SMs:
+// Wh^T slice 5 x 8208 x 2 = 82,080 B; Wp^T slice 16 x 656 x 2 = 20,992 B;
+// partial tiles 16,384 B; dc B x 16 x 4 (6,144 B at B=96); the ring 3 x
+// 34,816 = 104,448 B: 230,048 B at B=96, within the 232,448 B a block may
+// use (up to B=133).  A larger batch takes slots of half the size (kq = 1,
+// 55,296 B; up to B=901).  A shape whose plan does not fit (more than 16
+// units or 8 P columns a block, or too many bytes) is refused with
+// kPlanDoesNotFit.
+//
+// fp32 (bwd_fma) keeps the FMA design: block_dots over 4 batch rows a pass,
+// the weights read from L2 once a pass, the exchange in fp32.  TF32 tensor
+// cores would round the operands to 10 mantissa bits and break the 1e-4
+// agreement with the plain version, and fp32 weight slices (204 KB at the
+// parity width) would leave no shared memory to stage the exchange.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+// ---- fp32: block_dots on the FMA units ----
+
 // Shared memory: reduction [NT*R] + dot outputs [ncmax*R] + dc [B*numax]
-// in fp32, then the staged vector rows [R*max(4H,P)] in the weight type
-// (dh_total and dz are rounded to it before their products, so the staged
-// copy is exact).  R = train_rows<W>().
+// in fp32, then the staged vector rows [R*max(4H,P)] in the weight type.
+// R = train_rows<W>().
 template <typename W>
 inline size_t smem_bytes(int nblk, int B, int H, int P) {
   constexpr int R = train_rows<W>();
@@ -62,20 +112,19 @@ inline size_t smem_bytes(int nblk, int B, int H, int P) {
 }
 
 template <typename W>
-__global__ void __launch_bounds__(NT)
-    lstm_bwd_kernel(const W* __restrict__ zseq,    // [T, B, 4H]
-                    const W* __restrict__ cseq,    // [T, B, H]
-                    const float* __restrict__ c0,  // [B, H]
-                    const W* __restrict__ dout,    // [T, B, P]
-                    const W* __restrict__ whT,     // [4H, P]
-                    const W* __restrict__ wpT,     // [P, H]
-                    float* dhtot,   // [B, P] dh_total of the step, rounded to W
-                    float* dzbuf,   // [B, 4H] dz of the step, rounded to W
-                    W* __restrict__ dzseq,   // [T, B, 4H]
-                    W* __restrict__ dhtseq,  // [T, B, P]
-                    float* __restrict__ dh0,  // [B, P]
-                    float* __restrict__ dc0,  // [B, H]
-                    unsigned int* bar, int T, int B, int H, int P) {
+__device__ void bwd_fma(const W* __restrict__ zseq,    // [T, B, 4H]
+                        const W* __restrict__ cseq,    // [T, B, H]
+                        const float* __restrict__ c0,  // [B, H]
+                        const W* __restrict__ dout,    // [T, B, P]
+                        const W* __restrict__ whT,     // [4H, P]
+                        const W* __restrict__ wpT,     // [P, H]
+                        float* dhtot,   // [B, P] dh_total of the step
+                        float* dzbuf,   // [B, 4H] dz of the step
+                        W* __restrict__ dzseq,   // [T, B, 4H]
+                        W* __restrict__ dhtseq,  // [T, B, P]
+                        float* __restrict__ dh0,  // [B, P]
+                        float* __restrict__ dc0,  // [B, H]
+                        unsigned int* bar, int T, int B, int H, int P) {
   constexpr int R = train_rows<W>();
   extern __shared__ float smem[];
   const int nblk = gridDim.x, blk = blockIdx.x;
@@ -169,10 +218,284 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---- bf16: resident weight slices, tensor-core step products ----
+
+constexpr int NWARP = NT / 32;            // 16 warps a block
+constexpr int MT_MAX = 4;                 // m16 tiles a pass: 64 batch rows
+constexpr int NA = 2, NB = 1;             // n8 tiles: phase A, phase B
+constexpr int STAGES = 3;                 // ring slots (2 chunks in flight)
+constexpr int RED = NWARP * 16 * 8 * NA;  // partial-tile floats of a pass
+constexpr int kPlanDoesNotFit = -1;       // launcher status: shape refused
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+// Values a ring slot holds: 64 rows of 128 kq + 16 (kq = 2, or 1 where the
+// shared memory of a large batch's dc leaves no room for kq = 2).
+__host__ __device__ constexpr int slot_values(int kq) {
+  return 16 * MT_MAX * (128 * kq + 16);
+}
+// k values of one ring chunk when a pass has mt m-tiles: a multiple of 32
+// (the row stride, chunk + 16, is 16 mod 32 values) that fits a slot.
+__device__ constexpr int chunk_k(int mt, int kq) {
+  return kq * (mt == 1 ? 512 : mt == 2 ? 256 : mt == 3 ? 160 : 128);
+}
+// Column stride of a resident weight slice of kp (a multiple of 16) values.
+__host__ __device__ constexpr int col_stride(int kp) {
+  return round_up(kp, 64) + 16;
+}
+
+struct MmaPlan {
+  int ldp, ld4;    // exchange row strides: P, 4H padded to 16
+  int sp, sh;      // resident column strides of Wp^T, Wh^T
+  int numax, ncmax;
+  int kq;          // chunk scale (slot_values)
+  size_t wp, red, dc, ring, bytes;  // byte offsets (Wh^T slice at 0), total
+};
+
+__host__ __device__ inline MmaPlan mma_plan(int nblk, int B, int H, int P,
+                                            int kq) {
+  MmaPlan p;
+  p.kq = kq;
+  p.ldp = round_up(P, 16);
+  p.ld4 = round_up(4 * H, 16);
+  p.sp = col_stride(p.ldp);
+  p.sh = col_stride(p.ld4);
+  p.numax = (H + nblk - 1) / nblk;
+  p.ncmax = (P + nblk - 1) / nblk;
+  p.wp = sizeof(bf16) * (size_t)p.ncmax * p.sh;
+  p.red = p.wp + sizeof(bf16) * (size_t)p.numax * p.sp;
+  p.dc = p.red + sizeof(float) * RED;
+  p.ring = p.dc + (sizeof(float) * (size_t)B * p.numax + 15) / 16 * 16;
+  p.bytes = p.ring + sizeof(bf16) * (size_t)STAGES * slot_values(kq);
+  return p;
+}
+
+// One pass of a step product on the tensor cores: the partial tiles of
+// x[b0 .. b0+nb, 0:ld] @ ws[:, 0 : 8 NTL] (ws column n at ws + n * wst,
+// columns >= ncols zero) go to red [nkg][16 mt][8 NTL], nkg = NWARP / mt.
+// x rows (a global buffer written during the launch) stream through the
+// ring.  The caller synchronises before reading red.
+template <int NTL>
+__device__ __forceinline__ void pass_products(const bf16* x, int ld, int b0,
+                                              int nb, int mt, int kq,
+                                              const bf16* ws, int wst,
+                                              int ncols, bf16* ring,
+                                              float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = 4 * (lane & 3);
+  const int nkg = NWARP / mt, m = warp % mt, kg = warp / mt;
+  const int kc = chunk_k(mt, kq), xs = kc + 16, rows = 16 * mt;
+  const int slot = slot_values(kq);
+  const int nchunks = (ld + kc - 1) / kc;
+  float acc[NTL][4] = {};
+
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      const int k0 = c * kc, pieces = min(kc, ld - k0) / 8;
+      bf16* dst = ring + (c % STAGES) * slot;
+      for (int i = threadIdx.x; i < rows * pieces; i += NT) {
+        const int r = i / pieces, p = i - r * pieces;
+        const bool live = r < nb;
+        cp_async16(dst + r * xs + p * 8,
+                   x + (size_t)(b0 + (live ? r : 0)) * ld + k0 + p * 8,
+                   live ? 16 : 0);
+      }
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
+
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<STAGES - 2>();  // chunk c has landed (this thread's part)
+    __syncthreads();              // everyone's; chunk c-1's slot is free
+    issue(c + STAGES - 1);
+    if (kg < nkg) {
+      const bf16* xa = ring + (c % STAGES) * slot + (m * 16 + g) * xs + t4;
+      const int s0 = c * kc / 16, s1 = min(ld, (c + 1) * kc) / 16;
+      for (int s = s0 + (kg + nkg - s0 % nkg) % nkg; s < s1; s += nkg) {
+        const int kl = (s - s0) * 16;
+        const uint2 lo = *reinterpret_cast<const uint2*>(xa + kl);
+        const uint2 hi = *reinterpret_cast<const uint2*>(xa + 8 * xs + kl);
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) {
+          const int n = nt * 8 + g;
+          const uint2 w = *reinterpret_cast<const uint2*>(
+              ws + (size_t)(n < ncols ? n : 0) * wst + s * 16 + t4);
+          mma_bf16_16816(acc[nt], lo.x, hi.x, lo.y, hi.y,
+                         n < ncols ? w.x : 0u, n < ncols ? w.y : 0u);
+        }
+      }
+    }
+  }
+  if (kg < nkg) {
+    constexpr int NW = 8 * NTL;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      float* o = red + (kg * rows + m * 16 + g) * NW + nt * 8 + t4 / 2;
+      o[0] = acc[nt][0];
+      o[1] = acc[nt][1];
+      o[8 * NW] = acc[nt][2];
+      o[8 * NW + 1] = acc[nt][3];
+    }
+  }
+}
+
+// Row r, column n of a pass's product: its nkg partial tiles in order.
+__device__ __forceinline__ float red_sum(const float* red, int mt, int nw,
+                                         int r, int n) {
+  const int nkg = NWARP / mt, rows = 16 * mt;
+  float s = 0.f;
+  for (int q = 0; q < nkg; ++q) s += red[(q * rows + r) * nw + n];
+  return s;
+}
+
+__device__ void bwd_mma(const bf16* __restrict__ zseq,    // [T, B, 4H]
+                        const bf16* __restrict__ cseq,    // [T, B, H]
+                        const float* __restrict__ c0,     // [B, H]
+                        const bf16* __restrict__ dout,    // [T, B, P]
+                        const bf16* __restrict__ whT,     // [4H, P]
+                        const bf16* __restrict__ wpT,     // [P, H]
+                        bf16* dhtot,   // [B, ldp] dh_total of the step
+                        bf16* dzbuf,   // [B, ld4] dz of the step
+                        bf16* __restrict__ dzseq,   // [T, B, 4H]
+                        bf16* __restrict__ dhtseq,  // [T, B, P]
+                        float* __restrict__ dh0,    // [B, P]
+                        float* __restrict__ dc0,    // [B, H]
+                        unsigned int* bar, int T, int B, int H, int P,
+                        int kq) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int nblk = gridDim.x, blk = blockIdx.x;
+  const int u0 = slice_begin(blk, H, nblk);
+  const int nu = slice_begin(blk + 1, H, nblk) - u0;
+  const int j0 = slice_begin(blk, P, nblk);
+  const int ncb = slice_begin(blk + 1, P, nblk) - j0;
+  const MmaPlan pl = mma_plan(nblk, B, H, P, kq);
+  bf16* wsh = reinterpret_cast<bf16*>(smem_mma);
+  bf16* wsp = reinterpret_cast<bf16*>(smem_mma + pl.wp);
+  float* red = reinterpret_cast<float*>(smem_mma + pl.red);
+  float* dcs = reinterpret_cast<float*>(smem_mma + pl.dc);
+  bf16* ring = reinterpret_cast<bf16*>(smem_mma + pl.ring);
+  const int H4 = 4 * H, numax = pl.numax;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // the weight slices, resident for the whole launch
+  for (int i = threadIdx.x; i < pl.ld4 * ncb; i += NT) {
+    const int k = i / ncb, c = i - k * ncb;
+    wsh[c * pl.sh + k] = k < H4 ? whT[(size_t)k * P + j0 + c] : zero;
+  }
+  for (int i = threadIdx.x; i < pl.ldp * nu; i += NT) {
+    const int k = i / nu, u = i - k * nu;
+    wsp[u * pl.sp + k] = k < P ? wpT[(size_t)k * H + u0 + u] : zero;
+  }
+  for (int i = threadIdx.x; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    dcs[b * numax + u] = 0.f;
+  }
+  // the exchange rows' padding, which no step writes
+  if (blk == 0) {
+    const int pp = pl.ldp - P, p4 = pl.ld4 - H4;
+    for (int i = threadIdx.x; i < B * pp; i += NT)
+      dhtot[(size_t)(i / pp) * pl.ldp + P + i % pp] = zero;
+    for (int i = threadIdx.x; i < B * p4; i += NT)
+      dzbuf[(size_t)(i / p4) * pl.ld4 + H4 + i % p4] = zero;
+  }
+  // dh_total for t = T-1 is dout[T-1] (dh starts at zero)
+  for (int i = threadIdx.x; i < B * ncb; i += NT) {
+    const int b = i / ncb, c = i - b * ncb;
+    const size_t k = ((size_t)(T - 1) * B + b) * P + j0 + c;
+    dhtseq[k] = dout[k];
+    dhtot[(size_t)b * pl.ldp + j0 + c] = dout[k];
+  }
+  unsigned int target = 0;
+  grid_barrier(bar, target);
+
+  for (int t = T - 1; t >= 0; --t) {
+    // phase A: dhid, the cell backward and dz for own units
+    for (int b0 = 0; b0 < B; b0 += 16 * MT_MAX) {
+      const int nb = min(16 * MT_MAX, B - b0), mt = (nb + 15) / 16;
+      pass_products<NA>(dhtot, pl.ldp, b0, nb, mt, kq, wsp, pl.sp, nu, ring,
+                        red);
+      __syncthreads();
+      for (int i = threadIdx.x; i < nb * nu; i += NT) {
+        const int bb = i / nu, u = i - bb * nu, b = b0 + bb;
+        const int col = u0 + u;
+        const bf16* zrow = zseq + ((size_t)t * B + b) * H4;
+        const float ig = sigmoid(to_float(zrow[col]));
+        const float gg = tanhf(to_float(zrow[H + col]));
+        const float fg = sigmoid(to_float(zrow[2 * H + col]));
+        const float og = sigmoid(to_float(zrow[3 * H + col]));
+        const float ct = to_float(cseq[((size_t)t * B + b) * H + col]);
+        const float cp = t > 0 ? to_float(cseq[((size_t)(t - 1) * B + b) * H + col])
+                               : c0[(size_t)b * H + col];
+        const float dhid = red_sum(red, mt, 8 * NA, bb, u);
+        const float th = tanhf(ct);
+        const float dc = dcs[b * numax + u] + dhid * og * (1.f - th * th);
+        dcs[b * numax + u] = dc * fg;
+        const float dz[4] = {dc * gg * ig * (1.f - ig), dc * ig * (1.f - gg * gg),
+                             dc * cp * fg * (1.f - fg), dhid * th * og * (1.f - og)};
+        bf16* dzrow = dzseq + ((size_t)t * B + b) * H4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bf16 r = from_float<bf16>(dz[q]);
+          dzrow[q * H + col] = r;
+          dzbuf[(size_t)b * pl.ld4 + q * H + col] = r;
+        }
+      }
+      __syncthreads();
+    }
+    grid_barrier(bar, target);
+
+    // phase B: own columns of dh = dz @ Wh^T, then the next dh_total
+    for (int b0 = 0; ncb > 0 && b0 < B; b0 += 16 * MT_MAX) {
+      const int nb = min(16 * MT_MAX, B - b0), mt = (nb + 15) / 16;
+      pass_products<NB>(dzbuf, pl.ld4, b0, nb, mt, kq, wsh, pl.sh, ncb, ring,
+                        red);
+      __syncthreads();
+      for (int i = threadIdx.x; i < nb * ncb; i += NT) {
+        const int bb = i / ncb, c = i - bb * ncb, b = b0 + bb;
+        const float dh = red_sum(red, mt, 8 * NB, bb, c);
+        if (t > 0) {
+          const size_t k = ((size_t)(t - 1) * B + b) * P + j0 + c;
+          const bf16 r = from_float<bf16>(to_float(dout[k]) + dh);
+          dhtseq[k] = r;
+          dhtot[(size_t)b * pl.ldp + j0 + c] = r;
+        } else {
+          dh0[(size_t)b * P + j0 + c] = dh;
+        }
+      }
+      __syncthreads();
+    }
+    grid_barrier(bar, target);
+  }
+
+  for (int i = threadIdx.x; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    dc0[(size_t)b * H + u0 + u] = dcs[b * numax + u];
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(NT)
+    lstm_bwd_kernel(const W* __restrict__ zseq, const W* __restrict__ cseq,
+                    const float* __restrict__ c0, const W* __restrict__ dout,
+                    const W* __restrict__ whT, const W* __restrict__ wpT,
+                    void* dhtot, void* dzbuf, W* __restrict__ dzseq,
+                    W* __restrict__ dhtseq, float* __restrict__ dh0,
+                    float* __restrict__ dc0, unsigned int* bar, int T, int B,
+                    int H, int P, int kq) {
+  if constexpr (std::is_same<W, float>::value)
+    bwd_fma<float>(zseq, cseq, c0, dout, whT, wpT, (float*)dhtot,
+                   (float*)dzbuf, dzseq, dhtseq, dh0, dc0, bar, T, B, H, P);
+  else
+    bwd_mma(zseq, cseq, c0, dout, whT, wpT, (bf16*)dhtot, (bf16*)dzbuf,
+            dzseq, dhtseq, dh0, dc0, bar, T, B, H, P, kq);
+}
+
 template <typename W>
 int launch(const void* zseq, const void* cseq, const float* c0,
-           const void* dout, const void* whT, const void* wpT, float* dhtot,
-           float* dzbuf, void* dzseq, void* dhtseq, float* dh0, float* dc0,
+           const void* dout, const void* whT, const void* wpT, void* dhtot,
+           void* dzbuf, void* dzseq, void* dhtseq, float* dh0, float* dc0,
            unsigned int* bar, int T, int B, int H, int P, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const W* z = (const W*)zseq;
@@ -182,16 +505,29 @@ int launch(const void* zseq, const void* cseq, const float* c0,
   const W* wp = (const W*)wpT;
   W* dz = (W*)dzseq;
   W* dht = (W*)dhtseq;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   const int nblk = std::min(sms, H);
-  const size_t smem = smem_bytes<W>(nblk, B, H, P);
+  size_t smem;
+  int kq = 0;  // the bf16 plan's chunk scale
+  if constexpr (std::is_same<W, float>::value) {
+    smem = smem_bytes<W>(nblk, B, H, P);
+  } else {
+    kq = mma_plan(nblk, B, H, P, 2).bytes <= (size_t)optin ? 2 : 1;
+    const MmaPlan pl = mma_plan(nblk, B, H, P, kq);
+    if (pl.numax > 8 * NA || pl.ncmax > 8 * NB || pl.bytes > (size_t)optin)
+      return kPlanDoesNotFit;
+    smem = pl.bytes;
+  }
   auto kernel = lstm_bwd_kernel<W>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -204,7 +540,7 @@ int launch(const void* zseq, const void* cseq, const float* c0,
   e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&z,   &c,   &c0,  &d,  &wh, &wp, &dhtot, &dzbuf, &dz,
-                  &dht, &dh0, &dc0, &bar, &T, &B,  &H,     &P};
+                  &dht, &dh0, &dc0, &bar, &T, &B,  &H,     &P,     &kq};
   return launch_status(cudaLaunchCooperativeKernel(
       (void*)kernel, dim3(nblk), dim3(NT), args, smem, stream));
 }
@@ -213,12 +549,15 @@ int launch(const void* zseq, const void* cseq, const float* c0,
 
 // zseq [T,B,4H], cseq [T,B,H], dout [T,B,P], whT [4H,P], wpT [P,H], dzseq
 // [T,B,4H], dhtseq [T,B,P] in the weight type; c0 [B,H], dh0 [B,P], dc0
-// [B,H] f32; dhtot [B,P] and dzbuf [B,4H] f32 scratch; bar one uint32
-// scratch.  Returns a CUDA error code (0 = launched).
+// [B,H] f32; bar one uint32 scratch.  Scratch dhtot and dzbuf: f32 [B,P]
+// and [B,4H] (lstm_bwd_f32); bf16 [B, round_up(P,16)] and [B,
+// round_up(4H,16)] (lstm_bwd_bf16).  Returns a CUDA error code (0 =
+// launched), or -1 (lstm_bwd_bf16) when the shape's shared-memory plan does
+// not fit one block.
 extern "C" int lstm_bwd_f32(const void* zseq, const void* cseq,
                             const float* c0, const void* dout,
-                            const void* whT, const void* wpT, float* dhtot,
-                            float* dzbuf, void* dzseq, void* dhtseq,
+                            const void* whT, const void* wpT, void* dhtot,
+                            void* dzbuf, void* dzseq, void* dhtseq,
                             float* dh0, float* dc0, unsigned int* bar, int T,
                             int B, int H, int P, void* stream) {
   return launch<float>(zseq, cseq, c0, dout, whT, wpT, dhtot, dzbuf, dzseq,
@@ -227,11 +566,10 @@ extern "C" int lstm_bwd_f32(const void* zseq, const void* cseq,
 
 extern "C" int lstm_bwd_bf16(const void* zseq, const void* cseq,
                              const float* c0, const void* dout,
-                             const void* whT, const void* wpT, float* dhtot,
-                             float* dzbuf, void* dzseq, void* dhtseq,
+                             const void* whT, const void* wpT, void* dhtot,
+                             void* dzbuf, void* dzseq, void* dhtseq,
                              float* dh0, float* dc0, unsigned int* bar, int T,
                              int B, int H, int P, void* stream) {
-  return launch<__nv_bfloat16>(zseq, cseq, c0, dout, whT, wpT, dhtot, dzbuf,
-                               dzseq, dhtseq, dh0, dc0, bar, T, B, H, P,
-                               stream);
+  return launch<bf16>(zseq, cseq, c0, dout, whT, wpT, dhtot, dzbuf, dzseq,
+                      dhtseq, dh0, dc0, bar, T, B, H, P, stream);
 }

@@ -10,9 +10,27 @@ versions, and the differentiable sequence op `lstm_seq`.
   reverse-time BPTT, dz_seq [T, B, 4H] and dh_total_seq [T, B, P] in the
   weight dtype, dh0 [B, P] and dc0 [B, H] in fp32.
 
-Each launch runs a whole sequence; the kernels' bound on the H100 is
-streaming Wh + Wp (13.1 MB in bf16 at the parity width) once per step, and
-the sequential chain of steps; see the source notes.
+Each launch runs a whole sequence.  K2 and K4 are bound by streaming Wh +
+Wp (13.1 MB in bf16 at the parity width) once per step, and the sequential
+chain of steps; see the source notes.
+
+K5 is bound by its step chain: per step two grid-wide exchanges (dh_total
+[B, P] before any block's dhid, dz [B, 4H] before any block's dh), each
+followed by a grid barrier, and every block reads both whole from L2
+(0.55 MB at B=32 in bf16).  In bf16 each block keeps its weight slices in
+shared memory for the whole launch (Wh^T's columns for its P slice, Wp^T's
+for its units), runs both step products on the tensor cores (mma.sync
+m16n8k16, fp32 accumulation, batch rows as M in passes of up to 64), and
+streams the bf16 exchange through a cp.async ring.  Its shared-memory plan
+at the parity width on 132 SMs: 82 KB + 21 KB of weights, 16 KB of
+partial tiles, B x 64 bytes of dc and a 102 KB ring (three 34 KB slots),
+225 KB at B=96; above B=133 the ring takes half-size chunks (up to B=901).
+A shape whose plan does not fit one SM raises ValueError.  fp32 keeps the
+FMA design (block_dots, fp32 exchange): TF32 tensor cores would break the
+1e-4 agreement with the plain version, and fp32 weight slices (204 KB at
+the parity width) would leave no room to stage the exchange.  The scratch
+buffers follow the kernel: the exchange is in the weight dtype, bf16 rows
+padded to a multiple of 16.
 
 Inputs follow the TPU kernels: xp [T, B, 4H] in the weight dtype, Wh
 [P, 4H], Wp [H, P], bias [4H], h0 [B, P], c0 [B, H] (fp32).  On a CPU
@@ -191,10 +209,23 @@ def lstm_fwd(xp, wh, wp, bias, h0, c0):
 lstm_fwd.launches = 0
 
 
+# The launcher's status when K5's bf16 shared-memory plan does not fit.
+_PLAN_DOES_NOT_FIT = -1
+
+
+def _bwd_exchange_shape(B, K, dt):
+    """K5's exchange buffers are in the weight dtype (the values are rounded
+    to it before their products); bf16 rows are padded to a multiple of 16,
+    the MMA depth."""
+    return (B, K if dt == torch.float32 else -(-K // 16) * 16)
+
+
 def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
     """K5: reverse-time BPTT from the residuals and the output gradient
     dout [T, B, P] (weight dtype), with whT [4H, P] and wpT [P, H].
-    Returns (dz_seq, dh_total_seq, dh0, dc0)."""
+    Returns (dz_seq, dh_total_seq, dh0, dc0).  For bf16 on a CUDA tensor it
+    raises ValueError when the shape's shared-memory plan does not fit one
+    SM (see the module note)."""
     T, B, H4 = z_seq.shape
     H, P = H4 // 4, whT.shape[1]
     if (c_seq.shape != (T, B, H) or dout.shape != (T, B, P)
@@ -214,8 +245,8 @@ def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
                                      dout.to(dt), whT, wpT.to(dt))]
     if any(a.device != dev for a in args):
         raise ValueError("all LSTM inputs must be on one device")
-    dhtot = torch.empty((B, P), dtype=torch.float32, device=dev)
-    dzbuf = torch.empty((B, H4), dtype=torch.float32, device=dev)
+    dhtot = torch.empty(_bwd_exchange_shape(B, P, dt), dtype=dt, device=dev)
+    dzbuf = torch.empty(_bwd_exchange_shape(B, H4, dt), dtype=dt, device=dev)
     dz_seq = torch.empty((T, B, H4), dtype=dt, device=dev)
     dht_seq = torch.empty((T, B, P), dtype=dt, device=dev)
     dh0 = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -227,6 +258,12 @@ def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
         err = fn(*(a.data_ptr() for a in (*args, dhtot, dzbuf, dz_seq,
                                           dht_seq, dh0, dc0, bar)),
                  T, B, H, P, torch.cuda.current_stream(dev).cuda_stream)
+    if err == _PLAN_DOES_NOT_FIT:
+        raise ValueError(
+            f"K5 (bf16) cannot run B={B}, H={H}, P={P} on this card: a block "
+            "would own more than 16 hidden units or 8 projection columns, or "
+            "its resident weight slices, dc and staging ring would exceed "
+            "the shared memory of one SM")
     build.check(lib, err, entry)
     lstm_bwd.launches += 1
     return dz_seq, dht_seq, dh0, dc0

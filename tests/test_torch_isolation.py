@@ -29,7 +29,7 @@ import rnnt_tpu_torch.ops.rnnt_loss, rnnt_tpu_torch.ops.rnnt_loss_ref
 import rnnt_tpu_torch.ops.lattice_cuda, rnnt_tpu_torch.ops.planes_cuda
 import rnnt_tpu_torch.ops.joint_loss_fused, rnnt_tpu_torch.ops.matmul
 import rnnt_tpu_torch.data.records, rnnt_tpu_torch.data.pipeline
-import rnnt_tpu_torch.metrics.edit_distance
+import rnnt_tpu_torch.metrics.edit_distance, rnnt_tpu_torch.kernels.lstm_ab
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))

@@ -89,6 +89,33 @@ def test_kernel_wrappers_run_plain_versions_on_cpu():
         lstm_cuda.lstm_bwd(z_seq, c_seq, c0, dout, wp, wh)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, t", [(20, 4), (3, 65)])
+def test_lstm_bwd_plain_matches_jax_kernel(b, t, dtype):
+    """K5's plain version (what the card's K5 is held to) against the JAX
+    backward kernel itself, at a batch that is no multiple of 16 and at the
+    prediction net's T = U+1 = 65: dz_seq, dh_total_seq, dh0, dc0."""
+    from rnnt_tpu.ops.lstm_pallas import _bwd_call
+
+    rng = np.random.default_rng(4)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    arrays = [rng.uniform(-2, 2, (t, b, 4 * H)), rng.uniform(-1, 1, (t, b, H)),
+              rng.uniform(-1, 1, (b, H)), rng.standard_normal((t, b, P)),
+              rng.uniform(-0.5, 0.5, (4 * H, P)), rng.uniform(-0.5, 0.5, (P, H))]
+    arrays = [a.astype(np.float32) for a in arrays]
+    want = _bwd_call(*(jnp.asarray(a, jnp.float32 if i == 2 else jdt)
+                       for i, a in enumerate(arrays)), Bt=b, dtype=jdt)
+    got = lstm_cuda.lstm_bwd(*(torch.from_numpy(a).to(
+        torch.float32 if i == 2 else tdt) for i, a in enumerate(arrays)))
+    for g, w in zip(got, want):
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            assert np.abs(g - w).max() <= 2 ** -7 * np.abs(w).max()
+
+
 def test_training_batch_norm_and_dropout():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((3, 7, 5)).astype(np.float32) * 2 + 1
