@@ -27,7 +27,8 @@ worst case.
    --loss_impl pallas (materialised logits, the lattice kernel); each run
    must log finite losses and an eval line and leave a checkpoint that the
    port's restore reads back at its step, and launch per train step the
-   LSTM forward (K4) and backward (K5) 10 times each, the lattice (K7) once
+   LSTM forward (K4, every launch its MMA design) and backward (K5) 10
+   times each, the lattice (K7) once
    and, fused, the plane kernel (K6) once; it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
    stream chunk's reply latency (p50, p99, max);
@@ -52,10 +53,15 @@ worst case.
    and at the train shapes: K4 (h, z, c, c_fin) and K5 (dz, dh_total, dh0,
    dc0, fed the same residuals) at B=32 (T=256, 128 and 65), B=96 (T=256),
    B=20 (T=128) and B=8, 40 and 160 (T=65), relative error <= 1e-4 in fp32
-   and <= 2e-2 in bf16, inputs untouched; K6 (denom, blank,
+   and <= 2e-2 in bf16, inputs untouched; the same with the grid capped at
+   114 blocks (B=32 and 96, T=65), where bf16 K4 must run its MMA design
+   and bf16 K5 its FMA design, and at B=32, T=64 for the wide H=3072,
+   P=768 (K4 and K5; bf16 K5 must run FMA) and H=4096, P=1024 (K4; bf16
+   FMA); K6 (denom, blank,
    emit) at B=32, T'=128, U+1=65, <= 1e-4 in fp32 and <= PLANES_BF16_TOL in
-   bf16; K7 (alpha and beta over the valid cells, ll) from those planes,
-   <= 1e-5; and one whole fp32 train step at the parity width (B=32,
+   bf16; K7 (alpha and beta over the valid cells, ll) from those planes
+   and from random planes at U+1 = 1025 and 1537 (runs of positions a
+   thread), <= 1e-5; and one whole fp32 train step at the parity width (B=32,
    T=256, U=64) through K4-K7 on the card against the same step on the CPU
    (every wrapper's plain version): loss <= 1e-4 and every gradient <= 1e-3
    relative error;
@@ -71,7 +77,8 @@ worst case.
 6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
    error; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
-   maximum of 30 runs, for K5 also its time at B=96; for K3 also the
+   maximum of 30 runs, for K4 and K5 also the time at B=96 and the
+   launches by design; for K3 also the
    weight traffic of re-reading the weights at every product, and its time
    split over the phases of a search), the card's
    name and power limit, and last the line
@@ -195,10 +202,19 @@ def kernel_wrappers():
 def zero_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_design"):
+            fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def read_designs() -> dict:
+    """The LSTM training kernels' launches by design ("mma", "fma")."""
+    w = kernel_wrappers()
+    return {name: dict(w[name].launches_by_design)
+            for name in ("lstm_fwd", "lstm_bwd")}
 
 
 def synthetic_pieces(n: int):
@@ -610,8 +626,11 @@ def drive_path(name, fn, expect):
     t0 = time.perf_counter()
     out = fn()
     launches = read_launches()
+    designs = read_designs()
     log(f"path {name}: {time.perf_counter() - t0:.1f} s, launches "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}, LSTM training kernels by design "
+        f"{json.dumps(designs)}")
+    launches.update({f"{k}_by_design": v for k, v in designs.items()})
     for k in expect:
         require(launches[k] > 0, f"path {name}: {k} never launched")
     return out, launches
@@ -1040,6 +1059,10 @@ def require_train_launches(name, launches, steps, eval_batches, pallas):
     for k, n in want.items():
         require(launches[k] == n, f"path {name}: {k} launched {launches[k]} "
                 f"times, want {n}")
+    # bf16 K4 at the parity width fits its MMA plan on any H100
+    mma = launches["lstm_fwd_by_design"]["mma"]
+    require(mma == want["lstm_fwd"], f"path {name}: {mma} of "
+            f"{want['lstm_fwd']} K4 launches ran the MMA design")
 
 
 def lstm_cost(T, B, H, P, esize, backward):
@@ -1061,6 +1084,59 @@ def bound_of(nbytes, flops, peak):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def lstm_rand(device, seed):
+    """rand(shape, scale): uniform in [-scale/2, scale/2) on the device."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return lambda shape, scale: (torch.rand(shape, generator=g,
+                                            device=device) - 0.5) * scale
+
+
+def check_lstm_case(H, P, B, T, dt, tol, rand, backward=True):
+    """K4 (h, z, c, c_fin) and, with `backward`, K5 (dz, dh_total, dh0, dc0;
+    fed the plain forward's residuals and a random output gradient) vs
+    their plain versions on random inputs with a carried state: relative
+    error <= tol, inputs untouched.  Returns ({kernel: (rel err, max |d| of
+    the first output)}, {kernel: the design its launch ran})."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    before = read_designs()
+    fwd_args = (rand((T, B, 4 * H), 4.0).to(dt), rand((P, 4 * H), 0.05).to(dt),
+                rand((H, P), 0.1).to(dt), rand((4 * H,), 1.0).to(dt),
+                rand((B, P), 0.5).to(dt), rand((B, H), 0.5))
+    cases = [("lstm_fwd", lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_plain,
+              fwd_args)]
+    want_f = lstm_cuda.lstm_fwd_plain(*fwd_args)
+    if backward:
+        cases.append(("lstm_bwd", lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                      (want_f[1], want_f[2], fwd_args[5],
+                       rand((T, B, P), 1.0).to(dt),
+                       fwd_args[1].t().contiguous(),
+                       fwd_args[2].t().contiguous())))
+    errs = {}
+    for name, fn, plain, args in cases:
+        kept = [a.clone() for a in args]
+        got = fn(*args)
+        want = want_f if name == "lstm_fwd" else plain(*args)
+        require(all(torch.equal(a, b) for a, b in zip(args, kept)),
+                f"{name} wrote into its inputs")
+        errs[name] = (max(rel_err(a, b) for a, b in zip(got, want)),
+                      float((got[0].float() - want[0].float()).abs().max()))
+    after = read_designs()
+    designs = {k: next((d for d in after[k] if after[k][d] > before[k][d]),
+                       "plain")
+               for k in errs}
+    log(f"H={H} P={P} T={T} B={B} {str(dt)[6:]}: "
+        + "; ".join(f"{'K4' if k == 'lstm_fwd' else 'K5'} {k} ({designs[k]}) "
+                    f"rel err {e:.3e}" for k, (e, _) in errs.items()))
+    for k, (e, _) in errs.items():
+        require(e <= tol, f"{k} H={H} P={P} T={T} B={B} {dt} disagrees: {e}")
+    return errs, designs
+
+
 def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
     """K4 and K5 vs their plain versions at the train shapes: B=32 and
     T=256 (encoder layers 0-1), T=128 (after the time reduction) and T=65
@@ -1072,51 +1148,22 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
     (<= 2e-2); K5 is fed the plain
     forward's residuals and a random output gradient; neither kernel may
     write into its inputs.  Returns the K4 and K5 entries (times at layer
-    0's shape in bf16; K5 also at B=96; the cuDNN yardstick as the median
-    of 30 runs, with their minimum and maximum)."""
+    0's shape in bf16, also at B=96; the cuDNN yardstick as the median of
+    30 runs, with their minimum and maximum)."""
     import torch
 
     from rnnt_tpu_torch.ops import lstm_cuda
 
-    g = torch.Generator(device=device).manual_seed(3)
-
-    def rand(shape, scale):
-        return (torch.rand(shape, generator=g, device=device) - 0.5) * scale
-
+    rand = lstm_rand(device, 3)
     worst = {}
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         for Bc, T in ((B, 256), (B, 128), (B, 65), (BENCH_B, 256), (20, 128),
                       (8, 65), (40, 65), (160, 65)):
-            fwd_args = (rand((T, Bc, 4 * H), 4.0).to(dt),
-                        rand((P, 4 * H), 0.05).to(dt), rand((H, P), 0.1).to(dt),
-                        rand((4 * H,), 1.0).to(dt), rand((Bc, P), 0.5).to(dt),
-                        rand((Bc, H), 0.5))
-            before = [a.clone() for a in fwd_args]
-            got = lstm_cuda.lstm_fwd(*fwd_args)
-            want = lstm_cuda.lstm_fwd_plain(*fwd_args)
-            require(all(torch.equal(a, b) for a, b in zip(fwd_args, before)),
-                    "K4 wrote into its inputs")
-            err_f = max(rel_err(a, b) for a, b in zip(got, want))
-            abs_f = float((got[0].float() - want[0].float()).abs().max())
-            whT = fwd_args[1].t().contiguous()
-            wpT = fwd_args[2].t().contiguous()
-            bwd_args = (want[1], want[2], fwd_args[5],
-                        rand((T, Bc, P), 1.0).to(dt), whT, wpT)
-            before = [a.clone() for a in bwd_args]
-            got_b = lstm_cuda.lstm_bwd(*bwd_args)
-            want_b = lstm_cuda.lstm_bwd_plain(*bwd_args)
-            require(all(torch.equal(a, b) for a, b in zip(bwd_args, before)),
-                    "K5 wrote into its inputs")
-            err_b = max(rel_err(a, b) for a, b in zip(got_b, want_b))
-            abs_b = float((got_b[0].float() - want_b[0].float()).abs().max())
+            errs, _ = check_lstm_case(H, P, Bc, T, dt, tol, rand)
             name = str(dt)[6:]
-            log(f"K4 lstm_fwd T={T} B={Bc} {name}: rel err {err_f:.3e} (h, z, "
-                f"c, c_fin); K5 lstm_bwd: rel err {err_b:.3e} (dz, dh_total, "
-                f"dh0, dc0)")
-            require(err_f <= tol, f"K4 disagrees: {err_f}")
-            require(err_b <= tol, f"K5 disagrees: {err_b}")
-            worst[name, "fwd"] = max(worst.get((name, "fwd"), 0.0), abs_f)
-            worst[name, "bwd"] = max(worst.get((name, "bwd"), 0.0), abs_b)
+            for k, (_, max_abs) in errs.items():
+                worst[name, k[5:]] = max(worst.get((name, k[5:]), 0.0),
+                                         max_abs)
     # times at layer 0's shape (T=256, F=240) in bf16
     T, F_in, dt = 256, 240, torch.bfloat16
 
@@ -1150,8 +1197,7 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
                             ("forward+backward", lib_fwd_bwd))}
     lib_f = lib["forward"]["median_ms"]
     lib_fb = lib["forward+backward"]["median_ms"]
-    _, bwd96 = layer0_args(BENCH_B)
-    nbytes96, flops96 = lstm_cost(T, BENCH_B, H, P, 2, True)
+    args96 = layer0_args(BENCH_B)
     entries = []
     for kind, fn, plain, args, src, line in (
             ("lstm_fwd", lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_plain,
@@ -1174,13 +1220,60 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
             "library_runs_ms": lib,
             "shape": f"T={T} B={B} H={H} P={P} bf16",
             "max_abs_err_fp32": worst["float32", kind[5:]]})
-    k5 = entries[1]
-    k5["ms_B96"] = cuda_ms(lambda: lstm_cuda.lstm_bwd(*bwd96), reps=10)
-    k5["bound_ms_B96"] = bound_of(nbytes96, flops96, PEAK_BF16_FLOPS)[
-        "bound_ms"]
-    log(f"K5 lstm_bwd T={T} bf16: B={B} {k5['ms']:.3f} ms, B={BENCH_B} "
-        f"{k5['ms_B96']:.3f} ms (bound {k5['bound_ms_B96']:.4f})")
+    for k, fn, args in zip(entries, (lstm_cuda.lstm_fwd, lstm_cuda.lstm_bwd),
+                           args96):
+        k["ms_B96"] = cuda_ms(lambda: fn(*args), reps=10)
+        k["bound_ms_B96"] = bound_of(*lstm_cost(
+            T, BENCH_B, H, P, 2, k["name"] == "lstm_bwd"), PEAK_BF16_FLOPS)[
+                "bound_ms"]
+        log(f"{k['name']} T={T} bf16: B={B} {k['ms']:.3f} ms, B={BENCH_B} "
+            f"{k['ms_B96']:.3f} ms (bound {k['bound_ms_B96']:.4f})")
     return entries
+
+
+CAP_BLOCKS = 114  # an H100 PCIe's SMs
+WIDE = ((3072, 768, True), (4096, 1024, False))  # (H, P, K5 too)
+
+
+def check_lstm_designs(H, P, device="cuda"):
+    """Which design each LSTM training kernel runs, and that it agrees:
+    (a) the parity width with the grid capped at CAP_BLOCKS (as on an H100
+    PCIe) at B=32 and 96, T=65: bf16 K4 must run its MMA design (18 units
+    a block) and bf16 K5 its FMA design (its MMA plan holds 16); (b) the
+    WIDE shapes at one block per SM, B=32, T=64: bf16 K5 at H=3072 must run
+    FMA (24 units a block), and bf16 K4 at H=4096 too (its Wh slice alone
+    would be 266 KB); K4 at H=3072 runs what its plan picks.  fp32 runs
+    FMA throughout.  Relative error <= 1e-4 in fp32, <= 2e-2 in bf16.
+    Returns {case: {kernel: design}}."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    rand = lstm_rand(device, 7)
+    seen = {}
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        name = str(dt)[6:]
+        bf16 = dt == torch.bfloat16
+        lstm_cuda.set_block_cap(CAP_BLOCKS)
+        try:
+            for B in (32, BENCH_B):
+                _, d = check_lstm_case(H, P, B, 65, dt, tol, rand)
+                seen[f"H={H} B={B} T=65 {CAP_BLOCKS} blocks {name}"] = d
+                require(d == ({"lstm_fwd": "mma", "lstm_bwd": "fma"} if bf16
+                              else {"lstm_fwd": "fma", "lstm_bwd": "fma"}),
+                        f"designs at {CAP_BLOCKS} blocks, B={B}, {name}: {d}")
+        finally:
+            lstm_cuda.set_block_cap(0)
+        for Hw, Pw, backward in WIDE:
+            _, d = check_lstm_case(Hw, Pw, 32, 64, dt, tol, rand, backward)
+            seen[f"H={Hw} P={Pw} B=32 T=64 {name}"] = d
+            must = {"lstm_bwd": "fma"} if backward else {"lstm_fwd": "fma"}
+            if not bf16:
+                must = dict.fromkeys(d, "fma")
+            require(all(d[k] == v for k, v in must.items()),
+                    f"designs at H={Hw}, P={Pw}, {name}: {d}")
+    log("LSTM training kernels' designs " + json.dumps(seen))
+    return seen
 
 
 def planes_inputs(cfg, B, T, U1, device, seed):
@@ -1297,6 +1390,42 @@ def check_lattice(planes32, device="cuda", seed=5):
         "shape": f"B={B} T'={T} U+1={U1} fp32"}
 
 
+def check_lattice_wide(device="cuda", seed=6, B=2, T=24):
+    """K7 above one thread a label position (U+1 = 1025 and 1537, runs of 2
+    positions a thread): random log-probability planes, emit masked from
+    u = U_b on, random frame and label lengths; alpha and beta over the
+    valid cells and ll within LATTICE_TOL relative error of the plain
+    scans, inputs untouched.  Returns {U+1: ms}."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lattice_cuda, rnnt_loss_ref
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    times = {}
+    for U1 in (1025, 1537):
+        b = -3.0 * torch.rand((B, T, U1), generator=g, device=device) - 0.05
+        e = -3.0 * torch.rand((B, T, U1), generator=g, device=device) - 0.05
+        fl = torch.randint(T - 6, T + 1, (B,), generator=g, device=device)
+        yl = torch.randint(U1 - 60, U1, (B,), generator=g, device=device)
+        u_idx = torch.arange(U1, device=device)[None, None, :]
+        e = torch.where(u_idx < yl[:, None, None], e, rnnt_loss_ref.NEG)
+        args = (b, e, fl, yl)
+        kept = [a.clone() for a in args]
+        got = lattice_cuda.lattice_scan(*args)
+        want = rnnt_loss_ref.lattice_scan_plain(*args)
+        require(all(torch.equal(a, c) for a, c in zip(args, kept)),
+                "K7 wrote into its inputs")
+        t_idx = torch.arange(T, device=device)[None, :, None]
+        valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
+        rel = [rel_err(got[i][valid], want[i][valid]) for i in (0, 1)]
+        rel.append(rel_err(got[2], want[2]))
+        times[U1] = cuda_ms(lambda: lattice_cuda.lattice_scan(*args), reps=20)
+        log(f"K7 lattice B={B} T={T} U+1={U1}: rel err alpha {rel[0]:.3e} "
+            f"beta {rel[1]:.3e} ll {rel[2]:.3e}; {times[U1]:.4f} ms")
+        require(max(rel) <= LATTICE_TOL, f"K7 U+1={U1} disagrees: {rel}")
+    return times
+
+
 def random_batch(cfg, B, T, U, device, seed):
     """A training batch at (B, T frames, U labels), every row full length."""
     import torch
@@ -1353,7 +1482,7 @@ def check_train_step_fp32(cfg, seed, B=TRAIN_BATCH, device="cuda"):
 
 def step_split(events):
     """Device ms of a train step's ops by kernel."""
-    groups = (("K4 lstm_fwd", "lstm_infer_kernel"),
+    groups = (("K4 lstm_fwd", ("lstm_infer_kernel", "lstm_fwd_mma_kernel")),
               ("K5 lstm_bwd", "lstm_bwd_kernel"),
               ("K6 joint_planes", "plane_kernel"),
               ("K7 lattice", "lattice_kernel"),
@@ -1551,8 +1680,14 @@ def main(argv=None) -> int:
         log(f"phase training paths: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)
+        designs = check_lstm_designs(cfg.encoder_size, cfg.projection_size)
+        for k in k45:
+            k["designs_by_case"] = {case: d[k["name"]]
+                                    for case, d in designs.items()
+                                    if k["name"] in d}
         k6, planes32 = check_planes(cfg)
         k7 = check_lattice(planes32)
+        k7["ms_by_wide_U1"] = check_lattice_wide()
         del planes32
         check_train_step_fp32(cfg, args.seed)
         log(f"phase K4-K7 checks and times: "
@@ -1571,6 +1706,10 @@ def main(argv=None) -> int:
             k["launches_per_request"] = {
                 path: [r["launches"][name] for r in recs]
                 for path, recs in per_request.items()}
+            if f"{name}_by_design" in paths["train_cli"]:
+                k["launches_by_design"] = {
+                    d: sum(p[f"{name}_by_design"][d] for p in paths.values())
+                    for d in ("mma", "fma")}
             log(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, "
                 f"bound {k['bound_ms']:.5f} by {k['bound_by']}, library "
                 f"{k['library_ms']}), launches {k['launches_by_path']}")

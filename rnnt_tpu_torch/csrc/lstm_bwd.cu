@@ -77,26 +77,25 @@
 // partial tiles 16,384 B; dc B x 16 x 4 (6,144 B at B=96); the ring 3 x
 // 34,816 = 104,448 B: 230,048 B at B=96, within the 232,448 B a block may
 // use (up to B=133).  A larger batch takes slots of half the size (kq = 1,
-// 55,296 B; up to B=901).  A shape whose plan does not fit (more than 16
-// units or 8 P columns a block, or too many bytes) is refused with
-// kPlanDoesNotFit.
+// 55,296 B; up to B=901).
 //
-// fp32 (bwd_fma) keeps the FMA design: block_dots over 4 batch rows a pass,
-// the weights read from L2 once a pass, the exchange in fp32.  TF32 tensor
-// cores would round the operands to 10 mantissa bits and break the 1e-4
-// agreement with the plain version, and fp32 weight slices (204 KB at the
-// parity width) would leave no shared memory to stage the exchange.
+// The FMA design (bwd_fma): block_dots over 4 batch rows a pass (8 in
+// bf16), the weights read from L2 once a pass, the exchange in fp32.  fp32
+// always runs it: TF32 tensor cores would round the operands to 10 mantissa
+// bits and break the 1e-4 agreement with the plain version, and fp32 weight
+// slices (204 KB at the parity width) would leave no shared memory to stage
+// the exchange.  bf16 runs it for a shape outside the MMA plan (more than
+// 16 units or 8 P columns a block, as on fewer than 128 SMs at the parity
+// width, or too many bytes): the launcher picks the design from the plan,
+// never after a failed launch, and lstm_last_design() reports it.
 
-#include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "lstm_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// ---- fp32: block_dots on the FMA units ----
+// ---- the FMA design (fp32; bf16 outside the MMA plan) ----
 
 // Shared memory: reduction [NT*R] + dot outputs [ncmax*R] + dc [B*numax]
 // in fp32, then the staged vector rows [R*max(4H,P)] in the weight type.
@@ -220,30 +219,8 @@ __device__ void bwd_fma(const W* __restrict__ zseq,    // [T, B, 4H]
 
 // ---- bf16: resident weight slices, tensor-core step products ----
 
-constexpr int NWARP = NT / 32;            // 16 warps a block
-constexpr int MT_MAX = 4;                 // m16 tiles a pass: 64 batch rows
 constexpr int NA = 2, NB = 1;             // n8 tiles: phase A, phase B
-constexpr int STAGES = 3;                 // ring slots (2 chunks in flight)
 constexpr int RED = NWARP * 16 * 8 * NA;  // partial-tile floats of a pass
-constexpr int kPlanDoesNotFit = -1;       // launcher status: shape refused
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-// Values a ring slot holds: 64 rows of 128 kq + 16 (kq = 2, or 1 where the
-// shared memory of a large batch's dc leaves no room for kq = 2).
-__host__ __device__ constexpr int slot_values(int kq) {
-  return 16 * MT_MAX * (128 * kq + 16);
-}
-// k values of one ring chunk when a pass has mt m-tiles: a multiple of 32
-// (the row stride, chunk + 16, is 16 mod 32 values) that fits a slot.
-__device__ constexpr int chunk_k(int mt, int kq) {
-  return kq * (mt == 1 ? 512 : mt == 2 ? 256 : mt == 3 ? 160 : 128);
-}
-// Column stride of a resident weight slice of kp (a multiple of 16) values.
-__host__ __device__ constexpr int col_stride(int kp) {
-  return round_up(kp, 64) + 16;
-}
 
 struct MmaPlan {
   int ldp, ld4;    // exchange row strides: P, 4H padded to 16
@@ -269,85 +246,6 @@ __host__ __device__ inline MmaPlan mma_plan(int nblk, int B, int H, int P,
   p.ring = p.dc + (sizeof(float) * (size_t)B * p.numax + 15) / 16 * 16;
   p.bytes = p.ring + sizeof(bf16) * (size_t)STAGES * slot_values(kq);
   return p;
-}
-
-// One pass of a step product on the tensor cores: the partial tiles of
-// x[b0 .. b0+nb, 0:ld] @ ws[:, 0 : 8 NTL] (ws column n at ws + n * wst,
-// columns >= ncols zero) go to red [nkg][16 mt][8 NTL], nkg = NWARP / mt.
-// x rows (a global buffer written during the launch) stream through the
-// ring.  The caller synchronises before reading red.
-template <int NTL>
-__device__ __forceinline__ void pass_products(const bf16* x, int ld, int b0,
-                                              int nb, int mt, int kq,
-                                              const bf16* ws, int wst,
-                                              int ncols, bf16* ring,
-                                              float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = 4 * (lane & 3);
-  const int nkg = NWARP / mt, m = warp % mt, kg = warp / mt;
-  const int kc = chunk_k(mt, kq), xs = kc + 16, rows = 16 * mt;
-  const int slot = slot_values(kq);
-  const int nchunks = (ld + kc - 1) / kc;
-  float acc[NTL][4] = {};
-
-  auto issue = [&](int c) {
-    if (c < nchunks) {
-      const int k0 = c * kc, pieces = min(kc, ld - k0) / 8;
-      bf16* dst = ring + (c % STAGES) * slot;
-      for (int i = threadIdx.x; i < rows * pieces; i += NT) {
-        const int r = i / pieces, p = i - r * pieces;
-        const bool live = r < nb;
-        cp_async16(dst + r * xs + p * 8,
-                   x + (size_t)(b0 + (live ? r : 0)) * ld + k0 + p * 8,
-                   live ? 16 : 0);
-      }
-    }
-    cp_async_commit();  // empty groups keep the count uniform
-  };
-
-  for (int c = 0; c < STAGES - 1; ++c) issue(c);
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // chunk c has landed (this thread's part)
-    __syncthreads();              // everyone's; chunk c-1's slot is free
-    issue(c + STAGES - 1);
-    if (kg < nkg) {
-      const bf16* xa = ring + (c % STAGES) * slot + (m * 16 + g) * xs + t4;
-      const int s0 = c * kc / 16, s1 = min(ld, (c + 1) * kc) / 16;
-      for (int s = s0 + (kg + nkg - s0 % nkg) % nkg; s < s1; s += nkg) {
-        const int kl = (s - s0) * 16;
-        const uint2 lo = *reinterpret_cast<const uint2*>(xa + kl);
-        const uint2 hi = *reinterpret_cast<const uint2*>(xa + 8 * xs + kl);
-#pragma unroll
-        for (int nt = 0; nt < NTL; ++nt) {
-          const int n = nt * 8 + g;
-          const uint2 w = *reinterpret_cast<const uint2*>(
-              ws + (size_t)(n < ncols ? n : 0) * wst + s * 16 + t4);
-          mma_bf16_16816(acc[nt], lo.x, hi.x, lo.y, hi.y,
-                         n < ncols ? w.x : 0u, n < ncols ? w.y : 0u);
-        }
-      }
-    }
-  }
-  if (kg < nkg) {
-    constexpr int NW = 8 * NTL;
-#pragma unroll
-    for (int nt = 0; nt < NTL; ++nt) {
-      float* o = red + (kg * rows + m * 16 + g) * NW + nt * 8 + t4 / 2;
-      o[0] = acc[nt][0];
-      o[1] = acc[nt][1];
-      o[8 * NW] = acc[nt][2];
-      o[8 * NW + 1] = acc[nt][3];
-    }
-  }
-}
-
-// Row r, column n of a pass's product: its nkg partial tiles in order.
-__device__ __forceinline__ float red_sum(const float* red, int mt, int nw,
-                                         int r, int n) {
-  const int nkg = NWARP / mt, rows = 16 * mt;
-  float s = 0.f;
-  for (int q = 0; q < nkg; ++q) s += red[(q * rows + r) * nw + n];
-  return s;
 }
 
 __device__ void bwd_mma(const bf16* __restrict__ zseq,    // [T, B, 4H]
@@ -475,23 +373,38 @@ __device__ void bwd_mma(const bf16* __restrict__ zseq,    // [T, B, 4H]
   }
 }
 
+// The two designs' kernels (both names hold "lstm_bwd_kernel", which the
+// profiles match).
 template <typename W>
 __global__ void __launch_bounds__(NT)
-    lstm_bwd_kernel(const W* __restrict__ zseq, const W* __restrict__ cseq,
-                    const float* __restrict__ c0, const W* __restrict__ dout,
-                    const W* __restrict__ whT, const W* __restrict__ wpT,
-                    void* dhtot, void* dzbuf, W* __restrict__ dzseq,
-                    W* __restrict__ dhtseq, float* __restrict__ dh0,
-                    float* __restrict__ dc0, unsigned int* bar, int T, int B,
-                    int H, int P, int kq) {
-  if constexpr (std::is_same<W, float>::value)
-    bwd_fma<float>(zseq, cseq, c0, dout, whT, wpT, (float*)dhtot,
-                   (float*)dzbuf, dzseq, dhtseq, dh0, dc0, bar, T, B, H, P);
-  else
-    bwd_mma(zseq, cseq, c0, dout, whT, wpT, (bf16*)dhtot, (bf16*)dzbuf,
-            dzseq, dhtseq, dh0, dc0, bar, T, B, H, P, kq);
+    lstm_bwd_kernel_fma(const W* __restrict__ zseq, const W* __restrict__ cseq,
+                        const float* __restrict__ c0, const W* __restrict__ dout,
+                        const W* __restrict__ whT, const W* __restrict__ wpT,
+                        float* dhtot, float* dzbuf, W* __restrict__ dzseq,
+                        W* __restrict__ dhtseq, float* __restrict__ dh0,
+                        float* __restrict__ dc0, unsigned int* bar, int T,
+                        int B, int H, int P) {
+  bwd_fma<W>(zseq, cseq, c0, dout, whT, wpT, dhtot, dzbuf, dzseq, dhtseq, dh0,
+             dc0, bar, T, B, H, P);
 }
 
+__global__ void __launch_bounds__(NT)
+    lstm_bwd_kernel_mma(const bf16* __restrict__ zseq,
+                        const bf16* __restrict__ cseq,
+                        const float* __restrict__ c0,
+                        const bf16* __restrict__ dout,
+                        const bf16* __restrict__ whT,
+                        const bf16* __restrict__ wpT, bf16* dhtot, bf16* dzbuf,
+                        bf16* __restrict__ dzseq, bf16* __restrict__ dhtseq,
+                        float* __restrict__ dh0, float* __restrict__ dc0,
+                        unsigned int* bar, int T, int B, int H, int P, int kq) {
+  bwd_mma(zseq, cseq, c0, dout, whT, wpT, dhtot, dzbuf, dzseq, dhtseq, dh0,
+          dc0, bar, T, B, H, P, kq);
+}
+
+// Picks the design from the plan: bf16 runs bwd_mma where its shared-memory
+// plan fits one block (at most 16 units and 8 P columns a block, and the
+// bytes), else bwd_fma, as fp32 always does.
 template <typename W>
 int launch(const void* zseq, const void* cseq, const float* c0,
            const void* dout, const void* whT, const void* wpT, void* dhtot,
@@ -505,44 +418,31 @@ int launch(const void* zseq, const void* cseq, const float* c0,
   const W* wp = (const W*)wpT;
   W* dz = (W*)dzseq;
   W* dht = (W*)dhtseq;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  const int nblk = std::min(sms, H);
-  size_t smem;
-  int kq = 0;  // the bf16 plan's chunk scale
-  if constexpr (std::is_same<W, float>::value) {
-    smem = smem_bytes<W>(nblk, B, H, P);
-  } else {
-    kq = mma_plan(nblk, B, H, P, 2).bytes <= (size_t)optin ? 2 : 1;
+  Card card;
+  const int err = query_card(card);
+  if (err) return err;
+  const int nblk = grid_blocks(card, H);
+  if constexpr (std::is_same<W, bf16>::value) {
+    int kq = mma_plan(nblk, B, H, P, 2).bytes <= (size_t)card.optin ? 2 : 1;
     const MmaPlan pl = mma_plan(nblk, B, H, P, kq);
-    if (pl.numax > 8 * NA || pl.ncmax > 8 * NB || pl.bytes > (size_t)optin)
-      return kPlanDoesNotFit;
-    smem = pl.bytes;
+    if (pl.numax <= 8 * NA && pl.ncmax <= 8 * NB &&
+        pl.bytes <= (size_t)card.optin) {
+      bf16* dht_x = (bf16*)dhtot;
+      bf16* dz_x = (bf16*)dzbuf;
+      void* args[] = {&z,   &c,   &c0,  &d,  &wh, &wp, &dht_x, &dz_x, &dz,
+                      &dht, &dh0, &dc0, &bar, &T, &B,  &H,     &P,    &kq};
+      g_last_design = kDesignMma;
+      return coop_launch((const void*)lstm_bwd_kernel_mma, nblk, pl.bytes,
+                         args, bar, stream);
+    }
   }
-  auto kernel = lstm_bwd_kernel<W>;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {&z,   &c,   &c0,  &d,  &wh, &wp, &dhtot, &dzbuf, &dz,
-                  &dht, &dh0, &dc0, &bar, &T, &B,  &H,     &P,     &kq};
-  return launch_status(cudaLaunchCooperativeKernel(
-      (void*)kernel, dim3(nblk), dim3(NT), args, smem, stream));
+  float* dht_x = (float*)dhtot;
+  float* dz_x = (float*)dzbuf;
+  void* args[] = {&z,   &c,   &c0,  &d,  &wh, &wp, &dht_x, &dz_x, &dz,
+                  &dht, &dh0, &dc0, &bar, &T, &B,  &H,     &P};
+  g_last_design = kDesignFma;
+  return coop_launch((const void*)lstm_bwd_kernel_fma<W>, nblk,
+                     smem_bytes<W>(nblk, B, H, P), args, bar, stream);
 }
 
 }  // namespace
@@ -550,10 +450,10 @@ int launch(const void* zseq, const void* cseq, const float* c0,
 // zseq [T,B,4H], cseq [T,B,H], dout [T,B,P], whT [4H,P], wpT [P,H], dzseq
 // [T,B,4H], dhtseq [T,B,P] in the weight type; c0 [B,H], dh0 [B,P], dc0
 // [B,H] f32; bar one uint32 scratch.  Scratch dhtot and dzbuf: f32 [B,P]
-// and [B,4H] (lstm_bwd_f32); bf16 [B, round_up(P,16)] and [B,
-// round_up(4H,16)] (lstm_bwd_bf16).  Returns a CUDA error code (0 =
-// launched), or -1 (lstm_bwd_bf16) when the shape's shared-memory plan does
-// not fit one block.
+// and [B,4H] for the FMA design; bf16 [B, round_up(P,16)] and [B,
+// round_up(4H,16)] for the MMA design (lstm_bwd_bf16 where its plan fits;
+// 4 bytes a padded value hold either).  Returns a CUDA error code (0 =
+// launched); lstm_last_design() then says which design ran.
 extern "C" int lstm_bwd_f32(const void* zseq, const void* cseq,
                             const float* c0, const void* dout,
                             const void* whT, const void* wpT, void* dhtot,

@@ -1,5 +1,5 @@
 // Projected-LSTM sequence kernels for Hopper (sm_90a): inference (K2) and
-// the training forward with residuals (K4), one template.
+// the training forward with residuals (K4): one structure, two designs.
 //
 // Replaces rnnt_tpu/ops/lstm_pallas.py::_fwd_infer_kernel (launched by
 // lstm_seq_infer) and, with RES = true, ::_fwd_kernel (launched by
@@ -22,12 +22,12 @@
 // sequential chain, so at small B the real limit is latency: one step has to
 // finish everywhere before the next can start.
 //
-// Design: one persistent launch covers the whole sequence.  The grid is one
-// block per SM (checked against cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// and launched with cudaLaunchCooperativeKernel, so all blocks are
-// co-resident and an oversize grid is refused instead of deadlocking at the
-// grid barrier.  Block k owns a slice of the H hidden units (their four gate
-// columns of Wh) and a slice of the P output columns of Wp.  Per step:
+// Structure: one persistent launch covers the whole sequence.  The grid is
+// one block per SM (or fewer: lstm_set_block_cap), launched with
+// cudaLaunchCooperativeKernel, so all blocks are co-resident and an
+// oversize grid is refused instead of deadlocking at the grid barrier.
+// Block k owns a slice of the H hidden units (their four gate columns of
+// Wh) and a slice of the P output columns of Wp.  Per step:
 //   phase A: z for its gate columns from the whole h_prev (global buffer),
 //            then c and hid for its units.  c stays in shared memory for the
 //            whole sequence; hid goes to a global buffer.
@@ -35,18 +35,53 @@
 //   phase B: its columns of h = hid @ Wp, written to h_seq[t] and the h
 //            buffer.
 //   grid barrier
-// Within a block, the vector operand (h or hid rows) is staged in shared
-// memory, threads split each column's dot product over rows, and partial
-// sums reduce through shared memory.  A pass takes 4 batch rows (BCH); the
-// training forward in bf16 takes 8 (train_rows), halving the passes, and so
-// the weight re-reads, of a step at B >= 8.  Buffers written during the
-// launch are read with __ldcg (L2, not the incoherent L1).  Weights are
-// re-read from memory (L2) every pass; pinning each block's Wh slice in
-// shared memory and wgmma are later work.
+// Buffers written during the launch are read through L2 (__ldcg or
+// cp.async.cg), never the incoherent L1.  Two designs fill this structure.
+//
+// FMA (lstm_infer_kernel: K2, fp32 K4, and bf16 K4 outside the MMA plan):
+// the vector operand (h or hid rows) is staged in shared memory, threads
+// split each column's dot product over rows, and partial sums reduce
+// through shared memory.  A pass takes 4 batch rows (BCH); K4 in bf16 takes
+// 8 (train_rows).  The weights are re-read from L2 every pass and the
+// exchange is fp32.  fp32 stays here: TF32 tensor cores would break the
+// 1e-4 agreement with the plain version.
+//
+// MMA (lstm_fwd_mma_kernel: K4 in bf16), K5's bwd_mma design turned forward:
+//  - Before the first step a block copies its Wh columns [P x 4 nu] (unit
+//    major: column 4u + gate) and its Wp columns [H x ncb] into shared
+//    memory, k-contiguous and zero-padded (col_stride), and nothing reads
+//    the weights again: at the parity width on 132 blocks 64 x 656 x 2 =
+//    83,968 B and 5 x 2064 x 2 = 20,640 B.
+//  - Phase A on mma.sync m16n8k16 (bf16, fp32 accumulation): batch rows as
+//    M in passes of up to 64, the 4 nu gate columns as N (8 n8 tiles at the
+//    parity width, more on fewer SMs: 9 at 114), all of K = P a warp.  The
+//    16 warps split a pass as m-tiles x n-tiles (2 x 8 at B=32), so no sum
+//    crosses warps, and the cell update runs from the accumulators: with
+//    unit-major columns one shuffle gives a lane all four gates of one
+//    (row, unit).
+//  - Phase B as K5's: N is the block's P columns (one n8 tile), K = H split
+//    over the warps, the partial tiles summed in a fixed order, so a launch
+//    is deterministic.
+//  - Exchange: h [B, ldp] and hid [B, ldh] are bf16 (exact: both are
+//    rounded to bf16 before their products), rows padded to 16 with zeros,
+//    streamed through K5's 3-slot cp.async.cg ring (stream_rows).
+//  - Off the chain: xp[t+1] for the block's units (4-byte cp.async) is
+//    issued after phase A of step t and lands during phase B; the bias is
+//    read once.
+//  - Phase A's epilogue stages z, c and hid of the pass in the free ring
+//    and writes them out row by row, so consecutive threads store
+//    consecutive units (4-5% faster than each lane storing its own
+//    scattered values, PERF.md).  Four accumulators a tile and half-size
+//    chunks of h took another 3-7% off (PERF.md).
+//  - The plan (fwd_plan) must fit the opt-in shared memory, with phase B's
+//    columns in one n8 tile and at most NTW n-tiles a warp; a shape outside
+//    it (e.g. H=3072, P=768 on 132 SMs: 150 KB of Wh slice) runs the FMA
+//    design.  The ring takes ~32 KB chunks where the plan has room (B=32 on
+//    132 SMs), else ~16 KB.
 
-#include <algorithm>
+#include <type_traits>
 
-#include "common.cuh"
+#include "lstm_common.cuh"
 
 namespace {
 
@@ -160,6 +195,274 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---- K4 in bf16: resident weight slices, tensor-core step products ----
+
+constexpr int NTW = 4;                   // phase A n8 tiles a warp holds
+constexpr int RED_B = NWARP * 16 * 8;    // phase B partial-tile floats
+
+struct FwdPlan {
+  int ldp, ldh;    // exchange row strides: P, H padded to 16
+  int sa, sb;      // resident column strides: Wh slice (k over P), Wp (over H)
+  int numax, ncmax;
+  int nta;         // n8 tiles of the Wh slice (4 numax gate columns)
+  int xw;          // values a (row, gate) of the xp buffer holds
+  int kq;          // chunk scale (slot_values)
+  size_t wp, red, bias, c, xp, ring, bytes;  // byte offsets (Wh at 0), total
+};
+
+__host__ __device__ inline FwdPlan fwd_plan(int nblk, int B, int H, int P,
+                                            int kq) {
+  FwdPlan p;
+  p.kq = kq;
+  p.ldp = round_up(P, 16);
+  p.ldh = round_up(H, 16);
+  p.sa = col_stride(p.ldp);
+  p.sb = col_stride(p.ldh);
+  p.numax = (H + nblk - 1) / nblk;
+  p.ncmax = (P + nblk - 1) / nblk;
+  p.nta = (4 * p.numax + 7) / 8;
+  p.xw = round_up(p.numax + 1, 2);
+  p.wp = sizeof(bf16) * (size_t)8 * p.nta * p.sa;
+  p.red = p.wp + sizeof(bf16) * (size_t)p.ncmax * p.sb;
+  p.bias = p.red + sizeof(float) * RED_B;
+  p.c = p.bias + sizeof(float) * (size_t)round_up(4 * p.numax, 4);
+  p.xp = p.c + (sizeof(float) * (size_t)B * p.numax + 15) / 16 * 16;
+  p.ring = p.xp + (sizeof(bf16) * (size_t)B * 4 * p.xw + 15) / 16 * 16;
+  p.bytes = p.ring + sizeof(bf16) * (size_t)STAGES * slot_values(kq);
+  return p;
+}
+
+// Whether the MMA design takes the shape: the bytes fit one block, phase B's
+// P columns one n8 tile, phase A's tiles NTW a warp at the largest pass,
+// the epilogue's staging the ring, and the xp prefetch's 4-byte copies are
+// aligned (H even, xp too).
+inline bool fwd_plan_fits(const FwdPlan& p, int B, int H, size_t optin,
+                          const void* xp) {
+  const int mt = std::min(MT_MAX, (B + 15) / 16), ncol = NWARP / mt;
+  return p.bytes <= optin && p.ncmax <= 8 && (p.nta + ncol - 1) / ncol <= NTW
+         && 16 * MT_MAX * 6 * p.numax <= STAGES * slot_values(p.kq)
+         && H % 2 == 0 && (reinterpret_cast<size_t>(xp) & 3) == 0;
+}
+
+// Phase A's product for one pass, N split over warps: rows b0 .. b0+nb of x
+// @ ws (nta n8 tiles, every k) on the tensor cores.  Warp w takes m-tile
+// w % mt and the n-tiles w / mt, w / mt + ncol, ... (ncol = NWARP / mt),
+// so no two warps share an output and nothing is reduced across warps; four
+// accumulators a tile (k16 slices s mod 4) quarter the MMA chain.  Then,
+// from registers, epi(row, unit, z) once for each row and unit of its
+// tiles: the columns are unit-major (4u + gate, gates i, g, f, o), so a
+// lane holds gates (i, g) or (f, o) of one unit for rows g and g + 8, and
+// one shuffle with lane ^ 1 gives the even lane all four gates of row g,
+// the odd lane those of row g + 8.  k fragments as in pass_products.
+template <typename Epi>
+__device__ __forceinline__ void gates_pass(const bf16* x, int ld, int b0,
+                                           int nb, int mt, int kq,
+                                           const bf16* ws, int wst, int nta,
+                                           bf16* ring, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = 4 * (lane & 3);
+  const int ncol = NWARP / mt, m = warp % mt, n0 = warp / mt;
+  float acc[4][NTW][4] = {};
+
+  stream_rows(x, ld, b0, nb, mt, kq, ring,
+              [&](const bf16* chunk, int xs, int s0, int s1) {
+    if (n0 >= ncol) return;
+    const bf16* xa = chunk + (m * 16 + g) * xs + t4;
+    auto slice = [&](int s, float (&a)[NTW][4]) {
+      const int kl = (s - s0) * 16;
+      const uint2 lo = *reinterpret_cast<const uint2*>(xa + kl);
+      const uint2 hi = *reinterpret_cast<const uint2*>(xa + 8 * xs + kl);
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        const int nt = n0 + i * ncol;
+        if (nt < nta) {
+          const uint2 w = *reinterpret_cast<const uint2*>(
+              ws + (size_t)(nt * 8 + g) * wst + s * 16 + t4);
+          mma_bf16_16816(a[i], lo.x, hi.x, lo.y, hi.y, w.x, w.y);
+        }
+      }
+    };
+    int s = s0;
+    for (; s + 3 < s1; s += 4) {
+      slice(s, acc[0]);
+      slice(s + 1, acc[1]);
+      slice(s + 2, acc[2]);
+      slice(s + 3, acc[3]);
+    }
+    for (; s < s1; ++s) slice(s, acc[0]);
+  });
+  cp_async_wait<0>();  // the xp prefetch too
+  __syncthreads();     // the ring is free again; the xp buffer is visible
+  if (n0 >= ncol) return;
+#pragma unroll
+  for (int i = 0; i < NTW; ++i) {
+    const int nt = n0 + i * ncol;
+    if (nt < nta) {
+      float d[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        d[q] = (acc[0][i][q] + acc[1][i][q]) + (acc[2][i][q] + acc[3][i][q]);
+      const bool odd = lane & 1;
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+      const float z[4] = {odd ? r0 : d[0], odd ? r1 : d[1], odd ? d[2] : r0,
+                          odd ? d[3] : r1};
+      epi(m * 16 + g + (odd ? 8 : 0), nt * 2 + ((lane & 3) >> 1), z);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+    lstm_fwd_mma_kernel(const bf16* __restrict__ xp,    // [T, B, 4H]
+                        const bf16* __restrict__ wh,    // [P, 4H]
+                        const bf16* __restrict__ wp,    // [H, P]
+                        const bf16* __restrict__ bias,  // [4H]
+                        const float* __restrict__ c0,   // [B, H]
+                        const float* __restrict__ h0,   // [B, P], bf16 values
+                        bf16* hx,     // [B, ldp] h of the step
+                        bf16* hidx,   // [B, ldh] hid of the step
+                        bf16* __restrict__ hseq,   // [T, B, P]
+                        float* __restrict__ cfin,  // [B, H]
+                        bf16* __restrict__ zseq,   // [T, B, 4H]
+                        bf16* __restrict__ cseq,   // [T, B, H]
+                        unsigned int* bar, int T, int B, int H, int P,
+                        int kq) {
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  const int nblk = gridDim.x, blk = blockIdx.x;
+  const int u0 = slice_begin(blk, H, nblk);
+  const int nu = slice_begin(blk + 1, H, nblk) - u0;
+  const int j0 = slice_begin(blk, P, nblk);
+  const int ncb = slice_begin(blk + 1, P, nblk) - j0;
+  const FwdPlan pl = fwd_plan(nblk, B, H, P, kq);
+  bf16* wsh = reinterpret_cast<bf16*>(smem_fwd);
+  bf16* wsp = reinterpret_cast<bf16*>(smem_fwd + pl.wp);
+  float* red = reinterpret_cast<float*>(smem_fwd + pl.red);
+  float* bs = reinterpret_cast<float*>(smem_fwd + pl.bias);
+  float* cst = reinterpret_cast<float*>(smem_fwd + pl.c);
+  bf16* xps = reinterpret_cast<bf16*>(smem_fwd + pl.xp);
+  bf16* ring = reinterpret_cast<bf16*>(smem_fwd + pl.ring);
+  const int H4 = 4 * H, numax = pl.numax, ncols = 8 * pl.nta;
+  // the xp buffer holds columns xb .. of each gate: whole 4-byte pairs
+  const int xb = u0 & ~1, npair = (u0 + nu - xb + 1) / 2;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // the weight slices, resident for the whole launch: Wh's columns of own
+  // units unit-major (4u + gate; columns past 4 nu zero), Wp's own columns
+  for (int i = threadIdx.x; i < pl.ldp * ncols; i += NT) {
+    const int k = i / ncols, n = i - k * ncols, u = n >> 2;
+    wsh[n * pl.sa + k] = k < P && u < nu
+                             ? wh[(size_t)k * H4 + (n & 3) * H + u0 + u]
+                             : zero;
+  }
+  for (int i = threadIdx.x; i < pl.ldh * ncb; i += NT) {
+    const int k = i / ncb, c = i - k * ncb;
+    wsp[c * pl.sb + k] = k < H ? wp[(size_t)k * P + j0 + c] : zero;
+  }
+  for (int i = threadIdx.x; i < 4 * nu; i += NT) {
+    const int q = i / nu, u = i - q * nu;
+    bs[q * numax + u] = to_float(bias[q * H + u0 + u]);
+  }
+  for (int i = threadIdx.x; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    cst[b * numax + u] = c0[(size_t)b * H + u0 + u];
+  }
+  // h0 into the exchange (own columns), and the rows' padding, which no
+  // step writes
+  for (int i = threadIdx.x; i < B * ncb; i += NT) {
+    const int b = i / ncb, c = i - b * ncb;
+    hx[(size_t)b * pl.ldp + j0 + c] =
+        from_float<bf16>(h0[(size_t)b * P + j0 + c]);
+  }
+  if (blk == 0) {
+    const int pp = pl.ldp - P, ph = pl.ldh - H;
+    for (int i = threadIdx.x; i < B * pp; i += NT)
+      hx[(size_t)(i / pp) * pl.ldp + P + i % pp] = zero;
+    for (int i = threadIdx.x; i < B * ph; i += NT)
+      hidx[(size_t)(i / ph) * pl.ldh + H + i % ph] = zero;
+  }
+  // xp[t] of own units into xps [B][4][xw], off the step chain: one group
+  auto prefetch_xp = [&](int t) {
+    for (int i = threadIdx.x; i < B * 4 * npair; i += NT) {
+      const int r = i / npair, p = i - r * npair;  // r = 4 b + gate
+      cp_async4(xps + r * pl.xw + 2 * p,
+                xp + ((size_t)t * B + (r >> 2)) * H4 + (r & 3) * H + xb +
+                    2 * p);
+    }
+    cp_async_commit();
+  };
+  prefetch_xp(0);
+  unsigned int target = 0;
+  grid_barrier(bar, target);
+
+  for (int t = 0; t < T; ++t) {
+    // phase A: z = xp[t] + bias + h @ Wh for own units, then the cell
+    for (int b0 = 0; b0 < B; b0 += 16 * MT_MAX) {
+      const int nb = min(16 * MT_MAX, B - b0), mt = (nb + 15) / 16;
+      // h in half-size chunks (kq = 1): the first MMAs start sooner
+      gates_pass(hx, pl.ldp, b0, nb, mt, 1, wsh, pl.sa, pl.nta, ring,
+                 [&](int r, int u, const float (&acc)[4]) {
+        if (r >= nb || u >= nu) return;
+        const int b = b0 + r;
+        const bf16* xr = xps + b * 4 * pl.xw + (u0 - xb) + u;
+        float z[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          z[q] = to_float(xr[q * pl.xw]) + bs[q * numax + u] + acc[q];
+        const float c = sigmoid(z[2]) * cst[b * numax + u] +
+                        sigmoid(z[0]) * tanhf(z[1]);
+        cst[b * numax + u] = c;
+        // staged in the free ring: [row][z i, g, f, o, c, hid][unit]
+        bf16* st = ring + r * 6 * numax + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) st[q * numax] = from_float<bf16>(z[q]);
+        st[4 * numax] = from_float<bf16>(c);
+        st[5 * numax] = from_float<bf16>(sigmoid(z[3]) * tanhf(c));
+      });
+      __syncthreads();
+      // the pass's residuals and hid, written out row by row
+      for (int i = threadIdx.x; i < nb * 6 * nu; i += NT) {
+        const int r = i / (6 * nu), k = i - r * 6 * nu, q = k / nu;
+        const int u = k - q * nu;
+        const bf16 v = ring[(r * 6 + q) * numax + u];
+        const size_t row = (size_t)t * B + b0 + r;
+        if (q < 4)
+          zseq[row * H4 + q * H + u0 + u] = v;
+        else if (q == 4)
+          cseq[row * H + u0 + u] = v;
+        else
+          hidx[(size_t)(b0 + r) * pl.ldh + u0 + u] = v;
+      }
+      __syncthreads();  // also: every epilogue has read xps and the ring
+    }
+    if (t + 1 < T) prefetch_xp(t + 1);  // lands during phase B
+    grid_barrier(bar, target);
+
+    // phase B: own columns of h = hid @ Wp
+    for (int b0 = 0; ncb > 0 && b0 < B; b0 += 16 * MT_MAX) {
+      const int nb = min(16 * MT_MAX, B - b0), mt = (nb + 15) / 16;
+      pass_products<1>(hidx, pl.ldh, b0, nb, mt, kq, wsp, pl.sb, ncb, ring,
+                       red);
+      __syncthreads();
+      for (int i = threadIdx.x; i < nb * ncb; i += NT) {
+        const int bb = i / ncb, c = i - bb * ncb, b = b0 + bb;
+        const bf16 hw = from_float<bf16>(red_sum(red, mt, 8, bb, c));
+        hseq[((size_t)t * B + b) * P + j0 + c] = hw;
+        hx[(size_t)b * pl.ldp + j0 + c] = hw;
+      }
+      __syncthreads();
+    }
+    grid_barrier(bar, target);
+  }
+
+  for (int i = threadIdx.x; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    cfin[(size_t)b * H + u0 + u] = cst[b * numax + u];
+  }
+}
+
+// K4 in bf16 runs lstm_fwd_mma_kernel where its plan fits, else, as K2 and
+// fp32 K4 always do, the template above; the choice is the plan's, never a
+// failed launch's, and lstm_last_design() reports it.
 template <typename W, bool RES>
 int launch(const void* xp_, const void* wh_, const void* wp_,
            const void* bias_, const float* c0, float* hbuf, float* hidbuf,
@@ -173,40 +476,43 @@ int launch(const void* xp_, const void* wh_, const void* wp_,
   W* hseq = (W*)hseq_;
   W* zseq = (W*)zseq_;
   W* cseq = (W*)cseq_;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  // one block per SM keeps the grid barrier cheap; never more than H blocks
-  const int nblk = std::min(sms, H);
-  const size_t smem = smem_bytes(nblk, B, H, P, rows<W, RES>());
-  auto kernel = lstm_infer_kernel<W, RES>;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  Card card;
+  const int err = query_card(card);
+  if (err) return err;
+  const int nblk = grid_blocks(card, H);
+  if constexpr (RES && std::is_same<W, bf16>::value) {
+    int kq = fwd_plan(nblk, B, H, P, 2).bytes <= (size_t)card.optin ? 2 : 1;
+    const FwdPlan pl = fwd_plan(nblk, B, H, P, kq);
+    if (fwd_plan_fits(pl, B, H, card.optin, xp)) {
+      const float* h0 = hbuf;
+      bf16* hx = reinterpret_cast<bf16*>(hbuf + round_up(B * P, 4));
+      bf16* hidx = reinterpret_cast<bf16*>(hidbuf);
+      void* args[] = {&xp,   &wh,   &wp,   &bias, &c0,  &h0, &hx,
+                      &hidx, &hseq, &cfin, &zseq, &cseq, &bar, &T,
+                      &B,    &H,    &P,    &kq};
+      g_last_design = kDesignMma;
+      return coop_launch((const void*)lstm_fwd_mma_kernel, nblk, pl.bytes,
+                         args, bar, stream);
+    }
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
-  if (e != cudaSuccess) return (int)e;
   void* args[] = {&xp,   &wh,   &wp,   &bias, &c0, &hbuf, &hidbuf, &hseq,
-                  &cfin, &zseq, &cseq, &bar, &T,  &B,    &H,      &P};
-  return launch_status(cudaLaunchCooperativeKernel(
-      (void*)kernel, dim3(nblk), dim3(NT), args, smem, stream));
+                  &cfin, &zseq, &cseq, &bar,  &T,  &B,    &H,      &P};
+  g_last_design = kDesignFma;
+  return coop_launch((const void*)lstm_infer_kernel<W, RES>, nblk,
+                     smem_bytes(nblk, B, H, P, rows<W, RES>()), args, bar,
+                     stream);
 }
 
 }  // namespace
 
 // xp [T, B, 4H], wh [P, 4H], wp [H, P], bias [4H], h_seq [T, B, P] in the
-// weight type; c0 [B, H], c_fin [B, H] f32; hbuf [B, P] f32 holding h0 (rounded
-// to the weight type), hidbuf [B, H] f32 scratch, bar one uint32 scratch.
-// Returns a CUDA error code (0 = launched).
+// weight type; c0 [B, H], c_fin [B, H] f32; hbuf f32 holding h0 [B, P]
+// (rounded to the weight type) followed, from float round_up(B P, 4), by
+// room for B round_up(P, 16) floats; hidbuf f32 scratch of B round_up(H,
+// 16) floats (the MMA design's bf16 exchange uses the tail of hbuf and the
+// bytes of hidbuf; the FMA design, hbuf's first B P floats and hidbuf as
+// [B, H]); bar one uint32 scratch.  Returns a CUDA error code (0 =
+// launched); lstm_last_design() then says which design ran.
 extern "C" int lstm_infer_f32(const void* xp, const void* wh, const void* wp,
                               const void* bias, const float* c0, float* hbuf,
                               float* hidbuf, void* hseq, float* cfin,

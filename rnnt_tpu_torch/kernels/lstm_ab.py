@@ -1,22 +1,32 @@
-"""A/B timing of builds of the LSTM backward kernel K5 on one card.
+"""A/B timing of builds of the training kernels K4, K5 and K7 on one card.
 
-  python3 -m rnnt_tpu_torch.kernels.lstm_ab A.cu B.cu [...] [--batch 32 96]
-      [--steps 256] [--reps 10]
+  python3 -m rnnt_tpu_torch.kernels.lstm_ab A.cu B.cu [...]
+      [--kernel fwd|bwd|lattice] [--batch 32 96] [--steps 256] [--reps 10]
 
-Each source is a copy of `csrc/lstm_bwd.cu` (the parent's, the change's, or
-an edited copy), built with the package's nvcc flags into
-`rnnt_tpu_torch/_build/ab/`; a `common.cuh` beside a source is used before
-the package's.  At each batch B (T = --steps, H=2048, P=640, bf16, random
-residuals from the plain forward, seed 0) every build is checked once
-against the plain version (`lstm_cuda.lstm_bwd_plain`; its largest relative
-error over dz, dh_total, dh0, dc0 is printed, not gated) and then timed in
-turns, first source to last and back (parent, change, change, parent for
-two sources), the median of `reps` CUDA-event runs each.  A build that
-exports `int k5_phases(unsigned long long* out, int reset)` (a copy with
+Each source is a copy of `csrc/lstm_infer.cu` (`--kernel fwd`, K4) or of
+`csrc/lstm_bwd.cu` (`--kernel bwd`, the default, K5): the parent's, the
+change's, or an edited copy.  All are built at once with the package's nvcc
+flags into `rnnt_tpu_torch/_build/ab/`; a header beside a source is used
+before the package's.  At each batch B (T = --steps, H=2048, P=640, bf16,
+random inputs, seed 0; K5 gets the residuals of the plain forward) every
+build is checked once against the plain version (`lstm_cuda.lstm_fwd_plain`
+or `lstm_bwd_plain`; its largest relative error over the outputs is
+printed, not gated) and then timed in turns, first source to last and back
+(parent, change, change, parent for two sources), the median of `reps`
+CUDA-event runs each.  With `--kernel fwd` cuDNN's training forward of
+`torch.nn.LSTM(proj_size=640)` on the same widths (input projection
+included) takes its turn as one more source, `cudnn`, so one call settles
+K4's ratio against it.  A build that exports `lstm_last_design()` reports
+the design it ran ("mma" or "fma"); one that exports `int
+k4_phases(unsigned long long* out, int reset)` or `k5_phases` (a copy with
 clock64 timers in block 0) also reports its cycles a step by phase.  Prints
 one JSON line a batch, then the card's name and power limit.  The scratch
 buffers fit both exchange layouts (the fp32 one of the FMA design and the
 padded bf16 one of the MMA design), so builds of either design time alike.
+With `--kernel lattice` the sources are copies of `csrc/rnnt_lattice.cu`
+(K7), run on random log-probability planes [B, T, U+1] (T = --steps, U+1
+= --labels, emit masked from U_b on) and checked against
+`rnnt_loss_ref.lattice_scan_plain` over the valid cells.
 """
 
 from __future__ import annotations
@@ -32,15 +42,27 @@ import sys
 import torch
 
 from rnnt_tpu_torch.kernels import build
-from rnnt_tpu_torch.ops import lstm_cuda
+from rnnt_tpu_torch.ops import lstm_cuda, rnnt_loss_ref
 
-H, P = 2048, 640
+H, P, F_IN = 2048, 640, 240
 PHASES = ("A products", "A epilogue", "A barrier", "B products",
           "B epilogue", "B barrier", "chunk wait and sync (in products)")
+# kernel: (entry, pointer arguments, phase-timer export, its phase names)
+ENTRY = {"fwd": ("lstm_fwd_bf16", 12, "k4_phases",
+                 ("A products: wait for the other warps",) + PHASES[1:]
+                 + ("A products: ring and MMAs",)),
+         "bwd": ("lstm_bwd_bf16", 13, "k5_phases", PHASES),
+         "lattice": ("rnnt_lattice", 7, None, ())}
+DESIGNS = ("fma", "mma")
 
 
-def _build_all(sources):
-    """{source: ctypes entry lstm_bwd_bf16}, all nvcc processes at once."""
+def _round16(n):
+    return -(-n // 16) * 16
+
+
+def _build_all(sources, kernel):
+    """{source: (library, ctypes entry)}, all nvcc processes at once."""
+    entry, n_ptr, _, _ = ENTRY[kernel]
     out_dir = os.path.join(build._BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -57,22 +79,45 @@ def _build_all(sources):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{out}")
         lib = ctypes.CDLL(path)
-        fn = lib.lstm_bwd_bf16
+        fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (
+            3 if kernel == "lattice" else 4) + [ctypes.c_void_p]
         libs[src] = (lib, fn)
     return libs
 
 
-def _launch(fn, args):
+def _launch_fwd(fn, args):
+    xp, wh, wp, bias, h0, c0 = args
+    T, B, H4 = xp.shape
+    dev, dt = xp.device, wh.dtype
+    # h0 then room for the padded bf16 exchange; hid 4 bytes a padded value
+    off = -(-B * P // 4) * 4
+    hbuf = torch.empty((off + B * _round16(P),), dtype=torch.float32,
+                       device=dev)
+    hbuf[:B * P] = h0.reshape(-1).float()
+    hidbuf = torch.empty((B * _round16(H),), dtype=torch.float32, device=dev)
+    h_seq = torch.empty((T, B, P), dtype=dt, device=dev)
+    c_fin = torch.empty((B, H), dtype=torch.float32, device=dev)
+    z_seq = torch.empty((T, B, H4), dtype=dt, device=dev)
+    c_seq = torch.empty((T, B, H), dtype=dt, device=dev)
+    bar = torch.empty((1,), dtype=torch.int32, device=dev)
+    ptrs = (xp, wh, wp, bias, c0, hbuf, hidbuf, h_seq, c_fin, z_seq, c_seq,
+            bar)
+    err = fn(*(a.data_ptr() for a in ptrs), T, B, H, P,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed with {err}")
+    return h_seq, z_seq, c_seq, c_fin
+
+
+def _launch_bwd(fn, args):
     z, c, c0, dout, whT, wpT = args
     T, B, H4 = z.shape
     dev, dt = z.device, whT.dtype
-    ldp, ld4 = -(-P // 16) * 16, -(-H4 // 16) * 16
     # 4 bytes a padded value: room for fp32 [B, P] and bf16 [B, ldp] alike
-    dhtot = torch.empty((B * ldp,), dtype=torch.float32, device=dev)
-    dzbuf = torch.empty((B * ld4,), dtype=torch.float32, device=dev)
+    dhtot = torch.empty((B * _round16(P),), dtype=torch.float32, device=dev)
+    dzbuf = torch.empty((B * _round16(H4),), dtype=torch.float32, device=dev)
     outs = (torch.empty((T, B, H4), dtype=dt, device=dev),
             torch.empty((T, B, P), dtype=dt, device=dev),
             torch.empty((B, P), dtype=torch.float32, device=dev),
@@ -83,6 +128,41 @@ def _launch(fn, args):
     if err != 0:
         raise RuntimeError(f"K5 launch failed with {err}")
     return outs
+
+
+def _launch_lattice(fn, args):
+    b, e, fl, yl = args
+    B, T, U1 = b.shape
+    alpha, beta = torch.empty_like(b), torch.empty_like(b)
+    ll = torch.empty((B,), dtype=torch.float32, device=b.device)
+    err = fn(*(a.data_ptr() for a in (b, e, fl, yl, alpha, beta, ll)), B, T,
+             U1, torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K7 launch failed with {err}")
+    return alpha, beta, ll
+
+
+def _lattice_inputs(B, T, U1, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = -3.0 * torch.rand((B, T, U1), generator=g, device="cuda") - 0.05
+    e = -3.0 * torch.rand((B, T, U1), generator=g, device="cuda") - 0.05
+    fl = torch.randint(max(1, T - 28), T + 1, (B,), generator=g,
+                       device="cuda", dtype=torch.int32)
+    yl = torch.randint(max(0, U1 - 26), U1, (B,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    u = torch.arange(U1, device="cuda")[None, None, :]
+    return b, torch.where(u < yl[:, None, None], e, rnnt_loss_ref.NEG), fl, yl
+
+
+def _lattice_err(got, args):
+    b, _, fl, yl = args
+    want = rnnt_loss_ref.lattice_scan_plain(*args)
+    _, T, U1 = b.shape
+    t = torch.arange(T, device=b.device)[None, :, None]
+    u = torch.arange(U1, device=b.device)[None, None, :]
+    valid = (t < fl[:, None, None]) & (u <= yl[:, None, None])
+    return _rel_err([got[0][valid], got[1][valid], got[2]],
+                    [want[0][valid], want[1][valid], want[2]])
 
 
 def _median_ms(fn, reps):
@@ -100,7 +180,9 @@ def _median_ms(fn, reps):
     return statistics.median(times)
 
 
-def _inputs(B, T, seed=0):
+def _inputs(kernel, B, T, seed=0):
+    """The kernel's arguments, and a cuDNN training forward on the same
+    widths for K4 (None for K5)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(shape, scale):
@@ -111,9 +193,14 @@ def _inputs(B, T, seed=0):
            rand((H, P), 0.1).to(dt), rand((4 * H,), 1.0).to(dt),
            torch.zeros((B, P), dtype=dt, device="cuda"),
            torch.zeros((B, H), device="cuda"))
+    if kernel == "fwd":
+        ref = torch.nn.LSTM(F_IN, H, proj_size=P).to("cuda", dt)
+        ref.flatten_parameters()  # as a cuDNN user would (`.to()` does not)
+        x = rand((T, B, F_IN), 2.0).to(dt).requires_grad_()
+        return fwd, lambda: ref(x)[0]
     _, z, c, _ = lstm_cuda.lstm_fwd_plain(*fwd)
     return (z, c, fwd[5], rand((T, B, P), 1.0).to(dt),
-            fwd[1].t().contiguous(), fwd[2].t().contiguous())
+            fwd[1].t().contiguous(), fwd[2].t().contiguous()), None
 
 
 def _rel_err(got, want):
@@ -125,34 +212,55 @@ def _rel_err(got, want):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("sources", nargs="+")
+    p.add_argument("--kernel", choices=tuple(ENTRY), default="bwd")
     p.add_argument("--batch", type=int, nargs="+", default=[32, 96])
     p.add_argument("--steps", type=int, default=256)
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--labels", type=int, default=65, help="U+1 (lattice)")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("lstm_ab: CUDA is not available", file=sys.stderr)
         return 2
-    libs = _build_all(a.sources)
+    libs = _build_all(a.sources, a.kernel)
+    launch = {"fwd": _launch_fwd, "bwd": _launch_bwd,
+              "lattice": _launch_lattice}[a.kernel]
+    _, _, phases_fn, names = ENTRY[a.kernel]
     for B in a.batch:
-        args = _inputs(B, a.steps)
-        want = lstm_cuda.lstm_bwd_plain(*args)
-        rel = {s: _rel_err(_launch(fn, args), want)
-               for s, (_, fn) in libs.items()}
-        ms = {s: [] for s in a.sources}
-        for s in a.sources + a.sources[::-1]:
-            ms[s].append(_median_ms(lambda: _launch(libs[s][1], args),
-                                    a.reps))
+        if a.kernel == "lattice":
+            args, cudnn = _lattice_inputs(B, a.steps, a.labels), None
+            check = lambda got: _lattice_err(got, args)  # noqa: E731
+        else:
+            args, cudnn = _inputs(a.kernel, B, a.steps)
+            want = (lstm_cuda.lstm_fwd_plain if a.kernel == "fwd"
+                    else lstm_cuda.lstm_bwd_plain)(*args)
+            check = lambda got: _rel_err(got, want)  # noqa: E731
+        rel, design = {}, {}
+        for s, (lib, fn) in libs.items():
+            rel[s] = check(launch(fn, args))
+            if hasattr(lib, "lstm_last_design"):
+                design[s] = DESIGNS[lib.lstm_last_design()]
+        runs = {s: (lambda fn=fn: launch(fn, args))
+                for s, (_, fn) in libs.items()}
+        if cudnn is not None:
+            runs["cudnn"] = cudnn
+        order = list(runs)
+        ms = {s: [] for s in order}
+        for s in order + order[::-1]:
+            ms[s].append(_median_ms(runs[s], a.reps))
         phases = {}
         for s, (lib, fn) in libs.items():
-            if hasattr(lib, "k5_phases"):
+            if phases_fn and hasattr(lib, phases_fn):
                 buf = (ctypes.c_ulonglong * 8)()
-                lib.k5_phases(buf, 1)
-                _launch(fn, args)
+                getattr(lib, phases_fn)(buf, 1)
+                launch(fn, args)
                 torch.cuda.synchronize()
-                lib.k5_phases(buf, 0)
-                phases[s] = {n: buf[i] / a.steps for i, n in enumerate(PHASES)}
-        print(json.dumps({"B": B, "T": a.steps, "H": H, "P": P,
-                          "dtype": "bfloat16", "ms": ms, "rel_err": rel,
+                getattr(lib, phases_fn)(buf, 0)
+                phases[s] = {n: buf[i] / a.steps for i, n in enumerate(names)}
+        shape = ({"U+1": a.labels, "dtype": "float32"} if a.kernel == "lattice"
+                 else {"H": H, "P": P, "dtype": "bfloat16"})
+        print(json.dumps({"kernel": a.kernel, "B": B, "T": a.steps, **shape,
+                          "ms": ms,
+                          "rel_err": rel, "design": design,
                           "block0_cycles_a_step": phases}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -3,7 +3,9 @@ loss over materialised logits that uses it.
 
 Replaces `rnnt_tpu/ops/rnnt_loss_pallas.py::_lattice_kernel`.  One launch
 walks alpha and beta over T for every batch row (one block a row, a doubling
-scan over U+1 per time row); see the source note for its bound.  On a CPU
+scan over U+1 per time row, each thread owning a run of ceil((U+1) / 1024)
+positions above U+1 = 1024, so any U+1 runs); see the source note for its
+bound.  On a CPU
 tensor `lattice_scan` runs the plain scans of `ops.rnnt_loss_ref`; on a CUDA
 tensor it launches the kernel or raises.
 
@@ -46,8 +48,6 @@ def lattice_scan(b: torch.Tensor, e: torch.Tensor, logit_lengths: torch.Tensor,
     from rnnt_tpu_torch.kernels import build
 
     B, T, U1 = b.shape
-    if U1 > 1024:
-        raise ValueError(f"the lattice kernel takes U+1 <= 1024, not {U1}")
     dev = b.device
     b = b.float().contiguous()
     e = e.float().contiguous()

@@ -10,27 +10,31 @@ versions, and the differentiable sequence op `lstm_seq`.
   reverse-time BPTT, dz_seq [T, B, 4H] and dh_total_seq [T, B, P] in the
   weight dtype, dh0 [B, P] and dc0 [B, H] in fp32.
 
-Each launch runs a whole sequence.  K2 and K4 are bound by streaming Wh +
-Wp (13.1 MB in bf16 at the parity width) once per step, and the sequential
-chain of steps; see the source notes.
+Each launch runs a whole sequence: one persistent cooperative launch, one
+block per SM (at most H; fewer with `set_block_cap`), two grid barriers a
+step.  The steps are a sequential chain, so what sets the pace is the
+latency of a step: its products, its grid-wide exchange (h and hid in the
+forward, dh_total and dz in the backward), and the barriers.  Two designs
+fill that structure, and the launcher picks one from the shape's
+shared-memory plan before it launches, never after a failed launch:
 
-K5 is bound by its step chain: per step two grid-wide exchanges (dh_total
-[B, P] before any block's dhid, dz [B, 4H] before any block's dh), each
-followed by a grid barrier, and every block reads both whole from L2
-(0.55 MB at B=32 in bf16).  In bf16 each block keeps its weight slices in
-shared memory for the whole launch (Wh^T's columns for its P slice, Wp^T's
-for its units), runs both step products on the tensor cores (mma.sync
-m16n8k16, fp32 accumulation, batch rows as M in passes of up to 64), and
-streams the bf16 exchange through a cp.async ring.  Its shared-memory plan
-at the parity width on 132 SMs: 82 KB + 21 KB of weights, 16 KB of
-partial tiles, B x 64 bytes of dc and a 102 KB ring (three 34 KB slots),
-225 KB at B=96; above B=133 the ring takes half-size chunks (up to B=901).
-A shape whose plan does not fit one SM raises ValueError.  fp32 keeps the
-FMA design (block_dots, fp32 exchange): TF32 tensor cores would break the
-1e-4 agreement with the plain version, and fp32 weight slices (204 KB at
-the parity width) would leave no room to stage the exchange.  The scratch
-buffers follow the kernel: the exchange is in the weight dtype, bf16 rows
-padded to a multiple of 16.
+- MMA (bf16 K4 and K5, where the plan fits): each block keeps its weight
+  slices in shared memory for the whole launch, runs both step products on
+  the tensor cores (mma.sync m16n8k16, fp32 accumulation, batch rows as M
+  in passes of up to 64) and streams the bf16 exchange through a cp.async
+  ring.  At the parity width on 132 SMs K4 holds 84 KB + 21 KB of weights,
+  K5 82 KB + 21 KB.  K4's plan takes any number of units a block within the
+  shared memory (so also 114 SMs at the parity width); K5's takes at most
+  16 units and 8 P columns a block (128 SMs or more at the parity width).
+- FMA (K2; fp32 K4 and K5; bf16 outside the plan, e.g. H=3072, P=768):
+  block_dots on the FMA units, the weights re-read from L2 every pass of 4
+  batch rows (8 in bf16), an fp32 exchange.  fp32 stays here: TF32 tensor
+  cores would break the 1e-4 agreement with the plain version.
+
+`lstm_fwd.launches_by_design` and `lstm_bwd.launches_by_design` count the
+launches of each design beside `launches`.  The scratch buffers hold 4 bytes
+a padded value (rows padded to a multiple of 16), which fits both designs'
+exchange.
 
 Inputs follow the TPU kernels: xp [T, B, 4H] in the weight dtype, Wh
 [P, 4H], Wp [H, P], bias [4H], h0 [B, P], c0 [B, H] (fp32).  On a CPU
@@ -143,7 +147,36 @@ def _lib(entry):
         entry.rsplit("_", 1)[0]]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
+    lib.lstm_last_design.restype = ctypes.c_int
+    lib.lstm_last_design.argtypes = []
     return lib, fn
+
+
+_DESIGNS = ("fma", "mma")  # lstm_last_design(): 0, 1
+_LIBS = ("lstm_infer", "lstm_bwd")
+
+
+def set_block_cap(cap: int) -> None:
+    """Caps the grid of every later LSTM kernel launch (K2, K4, K5) at `cap`
+    blocks; 0 restores one block per SM.  This lets one card run the
+    kernels as a card with fewer SMs would (e.g. 114 on an H100 PCIe)."""
+    from rnnt_tpu_torch.kernels import build
+
+    for name in _LIBS:
+        fn = build.load(name).lstm_set_block_cap
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
+        fn(int(cap))
+
+
+def _count(wrapper, lib):
+    """One launch of `wrapper`, under the design its launcher picked."""
+    wrapper.launches += 1
+    wrapper.launches_by_design[_DESIGNS[lib.lstm_last_design()]] += 1
+
+
+def _round16(n):
+    return -(-n // 16) * 16
 
 
 def _forward_launch(kind, xp, wh, wp, bias, h0, c0, residuals: bool):
@@ -159,9 +192,14 @@ def _forward_launch(kind, xp, wh, wp, bias, h0, c0, residuals: bool):
     xp = xp.to(dt).contiguous()
     wh, wp, bias = wh.contiguous(), wp.contiguous(), bias.to(dt).contiguous()
     c0 = c0.float().contiguous()
-    # the kernel's own h buffer (rounded to dt); a copy, never the caller's
-    hbuf = h0.to(dt).to(torch.float32, copy=True).contiguous()
-    hidbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # the kernel's own h buffer: h0 rounded to dt (a copy, never the
+    # caller's), then room for the MMA design's padded bf16 exchange;
+    # 4 bytes a padded value of hid, which fits both designs
+    off = -(-B * P // 4) * 4
+    hbuf = torch.empty((off + B * _round16(P),), dtype=torch.float32,
+                       device=dev)
+    hbuf[:B * P].copy_(h0.to(dt).reshape(-1))  # one device op
+    hidbuf = torch.empty((B * _round16(H),), dtype=torch.float32, device=dev)
     bar = torch.empty((1,), dtype=torch.int32, device=dev)
     h_seq = torch.empty((T, B, P), dtype=dt, device=dev)
     c_fin = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -177,7 +215,7 @@ def _forward_launch(kind, xp, wh, wp, bias, h0, c0, residuals: bool):
         err = fn(*(a.data_ptr() for a in (*ptrs, *extra, bar)), T, B, H, P,
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, entry)
-    return (h_seq, *extra, c_fin)
+    return lib, (h_seq, *extra, c_fin)
 
 
 def lstm_seq_infer(xp, wh, wp, bias, h0, c0) -> Tuple[torch.Tensor,
@@ -187,7 +225,7 @@ def lstm_seq_infer(xp, wh, wp, bias, h0, c0) -> Tuple[torch.Tensor,
     _check_shapes(xp, wh, wp)
     if not xp.is_cuda:
         return lstm_seq_infer_plain(xp, wh, wp, bias, h0, c0)
-    out = _forward_launch("lstm_infer", xp, wh, wp, bias, h0, c0, False)
+    _, out = _forward_launch("lstm_infer", xp, wh, wp, bias, h0, c0, False)
     lstm_seq_infer.launches += 1
     return out
 
@@ -201,31 +239,19 @@ def lstm_fwd(xp, wh, wp, bias, h0, c0):
     _check_shapes(xp, wh, wp)
     if not xp.is_cuda:
         return lstm_fwd_plain(xp, wh, wp, bias, h0, c0)
-    out = _forward_launch("lstm_fwd", xp, wh, wp, bias, h0, c0, True)
-    lstm_fwd.launches += 1
+    lib, out = _forward_launch("lstm_fwd", xp, wh, wp, bias, h0, c0, True)
+    _count(lstm_fwd, lib)
     return out
 
 
 lstm_fwd.launches = 0
-
-
-# The launcher's status when K5's bf16 shared-memory plan does not fit.
-_PLAN_DOES_NOT_FIT = -1
-
-
-def _bwd_exchange_shape(B, K, dt):
-    """K5's exchange buffers are in the weight dtype (the values are rounded
-    to it before their products); bf16 rows are padded to a multiple of 16,
-    the MMA depth."""
-    return (B, K if dt == torch.float32 else -(-K // 16) * 16)
+lstm_fwd.launches_by_design = {"mma": 0, "fma": 0}
 
 
 def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
     """K5: reverse-time BPTT from the residuals and the output gradient
     dout [T, B, P] (weight dtype), with whT [4H, P] and wpT [P, H].
-    Returns (dz_seq, dh_total_seq, dh0, dc0).  For bf16 on a CUDA tensor it
-    raises ValueError when the shape's shared-memory plan does not fit one
-    SM (see the module note)."""
+    Returns (dz_seq, dh_total_seq, dh0, dc0)."""
     T, B, H4 = z_seq.shape
     H, P = H4 // 4, whT.shape[1]
     if (c_seq.shape != (T, B, H) or dout.shape != (T, B, P)
@@ -245,8 +271,10 @@ def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
                                      dout.to(dt), whT, wpT.to(dt))]
     if any(a.device != dev for a in args):
         raise ValueError("all LSTM inputs must be on one device")
-    dhtot = torch.empty(_bwd_exchange_shape(B, P, dt), dtype=dt, device=dev)
-    dzbuf = torch.empty(_bwd_exchange_shape(B, H4, dt), dtype=dt, device=dev)
+    # 4 bytes a padded value: fp32 [B, P] and [B, 4H] (FMA) or bf16 rows
+    # padded to 16 (MMA), whichever design the launcher picks
+    dhtot = torch.empty((B * _round16(P),), dtype=torch.float32, device=dev)
+    dzbuf = torch.empty((B * _round16(H4),), dtype=torch.float32, device=dev)
     dz_seq = torch.empty((T, B, H4), dtype=dt, device=dev)
     dht_seq = torch.empty((T, B, P), dtype=dt, device=dev)
     dh0 = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -258,18 +286,13 @@ def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
         err = fn(*(a.data_ptr() for a in (*args, dhtot, dzbuf, dz_seq,
                                           dht_seq, dh0, dc0, bar)),
                  T, B, H, P, torch.cuda.current_stream(dev).cuda_stream)
-    if err == _PLAN_DOES_NOT_FIT:
-        raise ValueError(
-            f"K5 (bf16) cannot run B={B}, H={H}, P={P} on this card: a block "
-            "would own more than 16 hidden units or 8 projection columns, or "
-            "its resident weight slices, dc and staging ring would exceed "
-            "the shared memory of one SM")
     build.check(lib, err, entry)
-    lstm_bwd.launches += 1
+    _count(lstm_bwd, lib)
     return dz_seq, dht_seq, dh0, dc0
 
 
 lstm_bwd.launches = 0
+lstm_bwd.launches_by_design = {"mma": 0, "fma": 0}
 
 
 class _LSTMSeq(torch.autograd.Function):

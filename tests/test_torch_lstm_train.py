@@ -116,6 +116,49 @@ def test_lstm_bwd_plain_matches_jax_kernel(b, t, dtype):
             assert np.abs(g - w).max() <= 2 ** -7 * np.abs(w).max()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_plain_versions_match_jax_kernels_at_wide_width(kernel, dtype):
+    """K4's and K5's plain versions against the JAX forward and backward
+    kernels at H=3072, P=768 (B=2, T=3): the widths of the shape that
+    takes the FMA design of both kernels in bf16 on the card."""
+    from rnnt_tpu.ops.lstm_pallas import _bwd_call, _fwd_call
+
+    b, t, h, p = 2, 3, 3072, 768
+    rng = np.random.default_rng(5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    if kernel == "fwd":  # xp, wh, wp, bias, h0, c0
+        arrays = [rng.uniform(-2, 2, (t, b, 4 * h)),
+                  rng.uniform(-1, 1, (p, 4 * h)) / np.sqrt(p),
+                  rng.uniform(-1, 1, (h, p)) / np.sqrt(h),
+                  rng.uniform(-1, 1, (4 * h,)), rng.uniform(-1, 1, (b, p)),
+                  rng.uniform(-1, 1, (b, h))]
+        f32 = (5,)
+        call, port = _fwd_call, lstm_cuda.lstm_fwd
+    else:  # z_seq, c_seq, c0, dout, whT, wpT
+        arrays = [rng.uniform(-2, 2, (t, b, 4 * h)),
+                  rng.uniform(-1, 1, (t, b, h)), rng.uniform(-1, 1, (b, h)),
+                  rng.standard_normal((t, b, p)),
+                  rng.uniform(-1, 1, (4 * h, p)) / np.sqrt(h),
+                  rng.uniform(-1, 1, (p, h)) / np.sqrt(p)]
+        f32 = (2,)
+        call, port = _bwd_call, lstm_cuda.lstm_bwd
+    arrays = [a.astype(np.float32) for a in arrays]
+    want = call(*(jnp.asarray(a, jnp.float32 if i in f32 else jdt)
+                  for i, a in enumerate(arrays)), Bt=b, dtype=jdt)
+    got = port(*(torch.from_numpy(a).to(torch.float32 if i in f32 else tdt)
+                 for i, a in enumerate(arrays)))
+    if kernel == "fwd":  # (h_seq, z_seq, c_seq, h_fin, c_fin): no h_fin
+        want = want[:3] + want[4:]
+    for g, w in zip(got, want):
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            assert np.abs(g - w).max() <= 2 ** -7 * np.abs(w).max()
+
+
 def test_training_batch_norm_and_dropout():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((3, 7, 5)).astype(np.float32) * 2 + 1

@@ -49,15 +49,18 @@ def test_loss_and_grad_match_jax_reference(impl):
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(j_grad), atol=1e-5)
 
 
-def test_plain_lattice_matches_pallas_kernel_interpret():
-    logits, labels, fl, yl = _case(1, B=4, T=6, U=5, V=7)
+@pytest.mark.parametrize("B, T, U", [(4, 6, 5), (2, 5, 1099)])
+def test_plain_lattice_matches_pallas_kernel_interpret(B, T, U):
+    # U+1 = 1100 is above one thread a label position of K7's block (1024):
+    # the plain scans are what the card holds K7 to there
+    logits, labels, fl, yl = _case(1, B=B, T=T, U=U, V=7)
     _, b, e = JR._gather_coeffs(jnp.asarray(logits), jnp.asarray(labels),
                                 jnp.asarray(yl))
     ja, jb, jll = lattice_scan_pallas(b, e, jnp.asarray(fl), jnp.asarray(yl),
                                       interpret=True)
     ta, tb, tll = TR.lattice_scan_plain(*_t(np.asarray(b), np.asarray(e), fl,
                                             yl))
-    B, T, U1 = b.shape
+    U1 = b.shape[2]
     t_idx = np.arange(T)[None, :, None]
     u_idx = np.arange(U1)[None, None, :]
     valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
