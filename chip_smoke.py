@@ -34,9 +34,14 @@ worst case.
    stream chunk's reply latency (p50, p99, max);
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4; the
-   LSTM (K2) for random inputs with a carried state at B=1 and B=5 (fp32
-   <= 1e-4, bf16 <= 2e-2 relative error, inputs left untouched), and for
-   the whole encoder in fp32 (<= 1e-4) and bf16 (<= 2e-2); fp32 greedy
+   LSTM (K2) for random inputs with a nonzero carried state at B=1 (T=1, 2,
+   512), B=5 (T=7), B=8 and 9 (LAT's threshold and one above, T=7) and
+   B=32 (T=64), also at 114 blocks and at H=3072, P=768 (fp32 <= 1e-4,
+   bf16 <= 2e-2 relative error, inputs left untouched, each case running
+   the design it must: fp32 FMA, bf16 LAT up to B=8, above it MMA, and
+   FMA at H=3072), and for the whole encoder in fp32 (<= 1e-4) and bf16 (<=
+   2e-2); every bf16 K2 launch of the greedy, beam, TCP and train_cli paths
+   must have run a resident-weight design (LAT or MMA); fp32 greedy
    argmaxes are identical at every joint step up to any step whose top-2
    logit margin on the plain path is below 1e-4; the beam search (K3) at
    each request's encoder output, a B=3 batch at the 128 bucket, the 5 s
@@ -77,8 +82,9 @@ worst case.
 6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
    error; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
-   maximum of 30 runs, for K4 and K5 also the time at B=96 and the
-   launches by design; for K3 also the
+   maximum of 30 runs and the launches by design, for K2 also the time of
+   a one-step launch and at B=32, T=256 and each case's design, for K4 and
+   K5 also the time at B=96; for K3 also the
    weight traffic of re-reading the weights at every product, and its time
    split over the phases of a search), the card's
    name and power limit, and last the line
@@ -211,10 +217,18 @@ def read_launches() -> dict:
 
 
 def read_designs() -> dict:
-    """The LSTM training kernels' launches by design ("mma", "fma")."""
+    """The LSTM kernels' launches by design ("lat", "mma", "fma")."""
     w = kernel_wrappers()
     return {name: dict(w[name].launches_by_design)
-            for name in ("lstm_fwd", "lstm_bwd")}
+            for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd")}
+
+
+def require_resident_k2(name, launches) -> None:
+    """Every bf16 K2 launch of a driven path at the parity width ran a
+    resident-weight design (LAT or MMA), none the FMA one."""
+    d = launches["lstm_seq_infer_by_design"]
+    require(d["fma"] == 0 and d["lat"] + d["mma"] == launches[
+        "lstm_seq_infer"], f"path {name}: K2 launches by design {d}")
 
 
 def synthetic_pieces(n: int):
@@ -356,35 +370,73 @@ def library_runs(fn, what, reps=30):
     return runs
 
 
-def check_lstm_cases(H: int, P: int) -> None:
-    """K2 vs its plain version on random inputs with a carried state, at
-    B=1 T=1 (the prediction-net step) and B=5 T=7 (two batch passes), in
-    both weight dtypes; the kernel must leave its inputs untouched."""
+LAT_MAX_B = 8  # K2's LAT design takes B <= 8 (csrc/lstm_infer.cu)
+# (B, T) of K2's cases: a prediction-net step, a stream chunk, a 512-frame
+# layer call, two FMA passes, LAT's threshold and one above it, eval's B=32
+K2_CASES = ((1, 1), (1, 2), (1, 512), (5, 7), (LAT_MAX_B, 7),
+            (LAT_MAX_B + 1, 7), (32, 64))
+
+
+def k2_design(dt, B, H, P, blocks) -> str:
+    """The design K2 must run: fp32 always FMA; bf16 at the parity width
+    on 114 or 132 blocks LAT up to LAT_MAX_B rows, MMA above; bf16 at
+    H=3072, P=768 FMA (LAT's Wh slice and partial tiles, or MMA's Wh slice
+    and ring, exceed 227 KB)."""
+    import torch
+
+    if dt == torch.float32 or (H, P) != (2048, 640) or blocks < 114:
+        return "fma"
+    return "lat" if B <= LAT_MAX_B else "mma"
+
+
+def check_lstm_cases(H: int, P: int) -> dict:
+    """K2 vs its plain version on random inputs with a nonzero carried
+    state, in both weight dtypes (relative error <= 1e-4 in fp32, <= 2e-2
+    in bf16, inputs untouched): every K2_CASES shape at the parity width on
+    one block per SM, B=1 T=64, B=9 T=7 and B=32 T=64 with the grid capped
+    at CAP_BLOCKS, and B=1 and 9 at T=7 for H=3072, P=768.  Each case must
+    run the design k2_design names.  Returns {case: design}."""
     import torch
 
     from rnnt_tpu_torch.ops import lstm_cuda
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-
-    def rand(shape, scale):
-        return (torch.rand(shape, generator=g, device="cuda") - 0.5) * scale
-
+    rand = lstm_rand("cuda", 1)
+    cases = [(H, P, B, T, 0) for B, T in K2_CASES]
+    cases += [(H, P, B, T, CAP_BLOCKS)
+              for B, T in ((1, 64), (LAT_MAX_B + 1, 7), (32, 64))]
+    cases += [(3072, 768, B, 7, 0) for B in (1, LAT_MAX_B + 1)]
+    seen = {}
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        for T, B in ((1, 1), (7, 5)):
-            args = (rand((T, B, 4 * H), 4.0).to(dt),
-                    rand((P, 4 * H), 0.05).to(dt), rand((H, P), 0.1).to(dt),
-                    rand((4 * H,), 1.0).to(dt), rand((B, P), 0.5).to(dt),
-                    rand((B, H), 0.5))
+        for Hc, Pc, B, T, cap in cases:
+            args = (rand((T, B, 4 * Hc), 4.0).to(dt),
+                    rand((Pc, 4 * Hc), 0.05).to(dt), rand((Hc, Pc), 0.1).to(dt),
+                    rand((4 * Hc,), 1.0).to(dt), rand((B, Pc), 0.5).to(dt),
+                    rand((B, Hc), 0.5))
             before = [a.clone() for a in args]
-            h_k, c_k = lstm_cuda.lstm_seq_infer(*args)
+            counts = dict(lstm_cuda.lstm_seq_infer.launches_by_design)
+            lstm_cuda.set_block_cap(cap)
+            try:
+                h_k, c_k = lstm_cuda.lstm_seq_infer(*args)
+            finally:
+                lstm_cuda.set_block_cap(0)
             h_p, c_p = lstm_cuda.lstm_seq_infer_plain(*args)
             torch.cuda.synchronize()
             require(all(torch.equal(a, b) for a, b in zip(args, before)),
                     "LSTM kernel wrote into its inputs")
+            design = next(d for d, n in
+                          lstm_cuda.lstm_seq_infer.launches_by_design.items()
+                          if n > counts[d])
+            blocks = cap or torch.cuda.get_device_properties(
+                0).multi_processor_count
+            case = (f"H={Hc} P={Pc} B={B} T={T} {blocks} blocks "
+                    f"{str(dt)[6:]}")
+            seen[case] = design
             err = max(rel_err(h_k, h_p), rel_err(c_k, c_p))
-            log(f"K2 lstm T={T} B={B} {str(dt)[6:]} with state: rel err "
-                f"{err:.3e}")
+            log(f"K2 lstm {case} with state ({design}): rel err {err:.3e}")
             require(err <= tol, f"LSTM kernel disagrees: {err}")
+            want = k2_design(dt, B, Hc, Pc, blocks)
+            require(design == want, f"K2 {case} ran {design}, want {want}")
+    return seen
 
 
 def check_lstm_layer(model, mel_p):
@@ -413,15 +465,17 @@ def check_lstm_layer(model, mel_p):
     log(f"K2 lstm layer xp {tuple(xp.shape)} {dt}: rel err h {err_h:.3e} "
         f"c {err_c:.3e}, max |d h| {max_abs:.3e}")
     esize = torch.finfo(dt).bits // 8
-    nbytes = (esize * (xp.numel() + lstm.wh.numel() + lstm.wp.numel()
-                       + lstm.bias.numel() + h0.numel() + T * B * P)
-              + 4 * (c0.numel() + B * H))
-    flops = 2.0 * T * B * (P * 4 * H + H * P)
     peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_flops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     # one step, as the prediction net runs it in greedy decoding
     step_args = (xp[:1],) + args[1:]
     step_ms = cuda_ms(lambda: lstm_cuda.lstm_seq_infer(*step_args), reps=50)
+    # eval's batch (B=32, T=256, the layer's weights, random xp and state)
+    rand = lstm_rand("cuda", 2)
+    args32 = (rand((256, 32, 4 * H), 4.0).to(dt), lstm.wh, lstm.wp,
+              lstm.bias, rand((32, P), 0.5).to(dt), rand((32, H), 0.5))
+    ms32 = cuda_ms(lambda: lstm_cuda.lstm_seq_infer(*args32), reps=10)
+    designs = {f"B={a[0].shape[1]} T={a[0].shape[0]}": k2_run_design(a)
+               for a in (args, step_args, args32)}
     x_tb = x.transpose(0, 1).to(dt).contiguous()
     ref = cudnn_proj_lstm(lstm, x)  # the yardstick only; the port never uses it
     with torch.no_grad():
@@ -436,15 +490,37 @@ def check_lstm_layer(model, mel_p):
         "ms": cuda_ms(lambda: lstm_cuda.lstm_seq_infer(*args), reps=10),
         "plain_ms": cuda_ms(lambda: lstm_cuda.lstm_seq_infer_plain(*args),
                             reps=3, warmup=1),
-        "bound_ms": max(t_flops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        **bound_of(*k2_cost(T, B, H, P, esize), peak),
         "library_ms": lib["median_ms"],
         "library_runs_ms": lib,
         "shape": f"xp [{T},{B},{4 * H}] {str(dt)[6:]}, H={H} P={P}",
         "step_ms": step_ms,
+        "ms_B32_T256": ms32,
+        "bound_ms_B32_T256": bound_of(*k2_cost(256, 32, H, P, esize),
+                                      peak)["bound_ms"],
+        "design": designs,
     }
-    log(f"K2 one-step launch (prediction-net shape): {step_ms:.4f} ms")
+    log(f"K2 one-step launch (prediction-net shape): {step_ms:.4f} ms; "
+        f"B=32 T=256 {ms32:.3f} ms; designs {json.dumps(designs)}")
     return entry
+
+
+def k2_cost(T, B, H, P, esize):
+    """(bytes, operations) of one K2 call: xp, the weights, bias and h0 in
+    the weight type, c0 in fp32, read once; h_seq and c_fin written once."""
+    nbytes = (esize * (T * B * 4 * H + P * 4 * H + H * P + 4 * H + B * P
+                       + T * B * P) + 4 * 2 * B * H)
+    return nbytes, 2.0 * T * B * (P * 4 * H + H * P)
+
+
+def k2_run_design(args) -> str:
+    """The design of one K2 launch on `args` (launches_by_design's diff)."""
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    counts = dict(lstm_cuda.lstm_seq_infer.launches_by_design)
+    lstm_cuda.lstm_seq_infer(*args)
+    return next(d for d, n in lstm_cuda.lstm_seq_infer.launches_by_design
+                .items() if n > counts[d])
 
 
 def check_encoder_and_greedy(model, mel_p, t, tol, exact_tokens):
@@ -577,7 +653,7 @@ def profile_request(model, mel_p, t, label):
                 ("decode", lambda: greedy_decode_encoded(
                     model, enc, enc_len, max_output_length=256))):
             plain_wall, wall, ops, busy, launches, runs = device_profile(
-                fn, lstm_cuda.lstm_seq_infer, "lstm_infer_kernel")
+                fn, lstm_cuda.lstm_seq_infer, "lstm_infer_lat_kernel")
             what = f"profile {label} {phase}"
             require(busy <= wall, f"{what}: device busy {busy} ms exceeds "
                     f"wall {wall} ms on one stream")
@@ -628,7 +704,7 @@ def drive_path(name, fn, expect):
     launches = read_launches()
     designs = read_designs()
     log(f"path {name}: {time.perf_counter() - t0:.1f} s, launches "
-        f"{json.dumps(launches)}, LSTM training kernels by design "
+        f"{json.dumps(launches)}, LSTM kernels by design "
         f"{json.dumps(designs)}")
     launches.update({f"{k}_by_design": v for k, v in designs.items()})
     for k in expect:
@@ -1614,7 +1690,8 @@ def main(argv=None) -> int:
         k1 = check_frontend(cfg, audios)
         mel_long, t_long = padded_mel(audios[-1])
         k2 = check_lstm_layer(served, mel_long)
-        check_lstm_cases(cfg.encoder_size, cfg.projection_size)
+        k2["designs_by_case"] = check_lstm_cases(cfg.encoder_size,
+                                                 cfg.projection_size)
         for audio, secs in zip(audios, REQUEST_SECONDS):
             profile_request(served, *padded_mel(audio), f"{secs:g} s bf16")
             profile_beam(served, *padded_mel(audio), f"{secs:g} s bf16")
@@ -1669,6 +1746,8 @@ def main(argv=None) -> int:
             train_kernels + ("joint_planes", "lstm_seq_infer"))
         require_train_launches("train_cli", paths["train_cli"], TRAIN_STEPS,
                                1, pallas=False)
+        for name in ("greedy_http", "beam_http", "stream_tcp", "train_cli"):
+            require_resident_k2(name, paths[name])
         data = os.path.join(TRAIN_DIR, "data_pallas")
         write_train_data(cfg, data, TRAIN_BATCH, TRAIN_BATCH, args.seed + 1)
         _, paths["train_pallas_loss"] = drive_path(
@@ -1709,7 +1788,7 @@ def main(argv=None) -> int:
             if f"{name}_by_design" in paths["train_cli"]:
                 k["launches_by_design"] = {
                     d: sum(p[f"{name}_by_design"][d] for p in paths.values())
-                    for d in ("mma", "fma")}
+                    for d in paths["train_cli"][f"{name}_by_design"]}
             log(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, "
                 f"bound {k['bound_ms']:.5f} by {k['bound_by']}, library "
                 f"{k['library_ms']}), launches {k['launches_by_path']}")

@@ -12,6 +12,7 @@
 
 constexpr int kDesignFma = 0;  // block_dots on the FMA units, fp32 exchange
 constexpr int kDesignMma = 1;  // resident weights, mma.sync, bf16 exchange
+constexpr int kDesignLat = 2;  // resident weights, tagged exchange (K2, B <= 8)
 
 static int g_block_cap = 0;    // 0: one block per SM
 static int g_last_design = kDesignFma;
@@ -24,7 +25,7 @@ extern "C" int lstm_set_block_cap(int cap) {
   return 0;
 }
 
-// The design of this library's last launch: 0 = FMA, 1 = MMA.
+// The design of this library's last launch: 0 = FMA, 1 = MMA, 2 = LAT.
 extern "C" int lstm_last_design() { return g_last_design; }
 
 struct Card {
@@ -53,22 +54,40 @@ inline int grid_blocks(const Card& c, int H) {
 }
 
 // Launches a persistent cooperative kernel (nblk blocks of NT threads, smem
-// bytes of dynamic shared memory) after zeroing its grid-barrier counter.
-// A grid that cannot be co-resident is refused, never run.
+// bytes of dynamic shared memory) after zeroing zero_bytes at `zero`: its
+// grid-barrier counter, or the LAT design's tagged exchange words.  A grid
+// that cannot be co-resident is refused by cudaLaunchCooperativeKernel,
+// never run.  The shared-memory attribute is set once per kernel, device
+// and size (it holds for the process), which keeps a one-step launch short.
 inline int coop_launch(const void* kernel, int nblk, size_t smem,
-                       void** args, unsigned int* bar, cudaStream_t stream) {
+                       void** args, void* zero, cudaStream_t stream,
+                       size_t zero_bytes = sizeof(unsigned int)) {
   cudaError_t e;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    struct Set {
+      const void* kernel;
+      int dev;
+      size_t smem;
+    };
+    constexpr int kSets = 64;
+    static Set sets[kSets];
+    static int nsets = 0;
+    int dev = 0;
+    e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
+    bool set = false;
+    for (int i = 0; i < nsets && !set; ++i)
+      set = sets[i].kernel == kernel && sets[i].dev == dev &&
+            sets[i].smem >= smem;
+    if (!set) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      if (nsets < kSets) sets[nsets++] = {kernel, dev, smem};
+    }
   }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
+  e = cudaMemsetAsync(zero, 0, zero_bytes, stream);
   if (e != cudaSuccess) return (int)e;
   return launch_status(cudaLaunchCooperativeKernel(kernel, dim3(nblk),
                                                    dim3(NT), args, smem,

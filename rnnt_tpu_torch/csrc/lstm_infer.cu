@@ -1,5 +1,5 @@
 // Projected-LSTM sequence kernels for Hopper (sm_90a): inference (K2) and
-// the training forward with residuals (K4): one structure, two designs.
+// the training forward with residuals (K4): one structure, three designs.
 //
 // Replaces rnnt_tpu/ops/lstm_pallas.py::_fwd_infer_kernel (launched by
 // lstm_seq_infer) and, with RES = true, ::_fwd_kernel (launched by
@@ -27,7 +27,8 @@
 // cudaLaunchCooperativeKernel, so all blocks are co-resident and an
 // oversize grid is refused instead of deadlocking at the grid barrier.
 // Block k owns a slice of the H hidden units (their four gate columns of
-// Wh) and a slice of the P output columns of Wp.  Per step:
+// Wh) and a slice of the P output columns of Wp.  Per step (FMA and MMA;
+// LAT replaces the barriers by tagged words):
 //   phase A: z for its gate columns from the whole h_prev (global buffer),
 //            then c and hid for its units.  c stays in shared memory for the
 //            whole sequence; hid goes to a global buffer.
@@ -35,10 +36,11 @@
 //   phase B: its columns of h = hid @ Wp, written to h_seq[t] and the h
 //            buffer.
 //   grid barrier
-// Buffers written during the launch are read through L2 (__ldcg or
-// cp.async.cg), never the incoherent L1.  Two designs fill this structure.
+// Buffers written during the launch are read through L2 (__ldcg,
+// cp.async.cg or ld.relaxed.gpu), never the incoherent L1.  Three designs
+// fill this structure; the launcher picks one from the shape's plan.
 //
-// FMA (lstm_infer_kernel: K2, fp32 K4, and bf16 K4 outside the MMA plan):
+// FMA (lstm_infer_kernel: fp32 K2 and K4, and bf16 outside the other plans):
 // the vector operand (h or hid rows) is staged in shared memory, threads
 // split each column's dot product over rows, and partial sums reduce
 // through shared memory.  A pass takes 4 batch rows (BCH); K4 in bf16 takes
@@ -46,7 +48,8 @@
 // exchange is fp32.  fp32 stays here: TF32 tensor cores would break the
 // 1e-4 agreement with the plain version.
 //
-// MMA (lstm_fwd_mma_kernel: K4 in bf16), K5's bwd_mma design turned forward:
+// MMA (lstm_fwd_mma_kernel: bf16 K4, and bf16 K2 above LAT's batch; K2
+// writes no z_seq or c_seq), K5's bwd_mma design turned forward:
 //  - Before the first step a block copies its Wh columns [P x 4 nu] (unit
 //    major: column 4u + gate) and its Wp columns [H x ncb] into shared
 //    memory, k-contiguous and zero-padded (col_stride), and nothing reads
@@ -78,6 +81,14 @@
 //    it (e.g. H=3072, P=768 on 132 SMs: 150 KB of Wh slice) runs the FMA
 //    design.  The ring takes ~32 KB chunks where the plan has room (B=32 on
 //    132 SMs), else ~16 KB.
+//
+// LAT (lstm_infer_lat_kernel: bf16 K2 at B <= 8, the serving batch): the
+// MMA design's resident slices with a step cut down for latency.  At B=1 a
+// step is 13.1 MFLOP over 132 blocks, so what it costs is its chain: the K
+// of each product is split over all 16 warps, and the exchange is tagged
+// words (value and step tag in one 32-bit store) polled straight into the
+// MMA fragments, so no grid barrier and no staging pass stands between one
+// block's write and another's product.  Details at the kernel.
 
 #include <type_traits>
 
@@ -312,6 +323,9 @@ __device__ __forceinline__ void gates_pass(const bf16* x, int ld, int b0,
   }
 }
 
+// K4 in bf16 (RES) and K2 in bf16 above the LAT design's batch (!RES: no
+// z_seq, c_seq; only hid leaves phase A's epilogue).
+template <bool RES>
 __global__ void __launch_bounds__(NT)
     lstm_fwd_mma_kernel(const bf16* __restrict__ xp,    // [T, B, 4H]
                         const bf16* __restrict__ wh,    // [P, 4H]
@@ -413,16 +427,19 @@ __global__ void __launch_bounds__(NT)
         cst[b * numax + u] = c;
         // staged in the free ring: [row][z i, g, f, o, c, hid][unit]
         bf16* st = ring + r * 6 * numax + u;
+        if constexpr (RES) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) st[q * numax] = from_float<bf16>(z[q]);
-        st[4 * numax] = from_float<bf16>(c);
+          for (int q = 0; q < 4; ++q) st[q * numax] = from_float<bf16>(z[q]);
+          st[4 * numax] = from_float<bf16>(c);
+        }
         st[5 * numax] = from_float<bf16>(sigmoid(z[3]) * tanhf(c));
       });
       __syncthreads();
-      // the pass's residuals and hid, written out row by row
-      for (int i = threadIdx.x; i < nb * 6 * nu; i += NT) {
-        const int r = i / (6 * nu), k = i - r * 6 * nu, q = k / nu;
-        const int u = k - q * nu;
+      // the pass's residuals and hid (!RES: hid alone), row by row
+      constexpr int nq = RES ? 6 : 1, q0 = 6 - nq;
+      for (int i = threadIdx.x; i < nb * nq * nu; i += NT) {
+        const int r = i / (nq * nu), k = i - r * nq * nu, q = q0 + k / nu;
+        const int u = k - (q - q0) * nu;
         const bf16 v = ring[(r * 6 + q) * numax + u];
         const size_t row = (size_t)t * B + b0 + r;
         if (q < 4)
@@ -460,9 +477,431 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// K4 in bf16 runs lstm_fwd_mma_kernel where its plan fits, else, as K2 and
-// fp32 K4 always do, the template above; the choice is the plan's, never a
-// failed launch's, and lstm_last_design() reports it.
+// ---- K2 in bf16 at B <= LAT_MAX_B: the latency-first step (LAT) ----
+
+// A value of the exchange is one 32-bit word: the bf16 bits low, the tag of
+// the step that wrote it high, stored with one 32-bit store, so a reader
+// that sees the tag sees the value.  Tags run 1 .. 65535 and never 0, the
+// value of the words the launcher zeroes.
+__device__ __forceinline__ unsigned step_tag(int s) {
+  return 1u + (unsigned)(s % 65535);
+}
+__device__ __forceinline__ unsigned tag_word(bf16 v, unsigned tag) {
+  return (tag << 16) | (unsigned)__bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ void st_word(unsigned* p, unsigned w) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(w)
+               : "memory");
+}
+// Four words from L2 (relaxed, device scope: never a stale L1 line); each
+// word is read whole.
+__device__ __forceinline__ uint4 ld_words(const unsigned* p) {
+  uint4 v;
+  asm volatile("ld.relaxed.gpu.global.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+// Whether the first nv words of v carry `tag` (nv >= 4: all four; nv <= 0:
+// none is needed).
+__device__ __forceinline__ bool tagged(uint4 v, unsigned tag, int nv) {
+  return (nv <= 0 || v.x >> 16 == tag) && (nv <= 1 || v.y >> 16 == tag) &&
+         (nv <= 2 || v.z >> 16 == tag) && (nv <= 3 || v.w >> 16 == tag);
+}
+
+#ifndef LAT_MAX_B
+#define LAT_MAX_B 8  // batch rows of one n8 tile
+#endif
+constexpr int LAT_G = 4;    // k16 slices whose words a lane polls at once
+constexpr int LAT_MT = 6;   // m16 tiles of the Wh slice: 96 rows
+constexpr int LAT_UPW = 4;  // hidden units a warp owns in the epilogue
+
+// Diagnostics only (off unless built with -DLSTM_PHASE_TIMERS, as
+// kernels/lstm_ab.py can): thread 0 of block 0 adds the cycles since its
+// last mark to phase i of the LAT step, in registers, and adds them to
+// g_k2_phases at the end of the launch (read back through k2_phases()).
+#ifdef LSTM_PHASE_TIMERS
+__device__ unsigned long long g_k2_phases[8];
+#endif
+struct LatTimer {
+#ifdef LSTM_PHASE_TIMERS
+  long long mark = 0, ph[8] = {};
+  __device__ bool mine() const {
+    return blockIdx.x == 0 && threadIdx.x == 0;
+  }
+  __device__ void start() { mark = clock64(); }
+  __device__ void at(int i) {
+    if (mine()) {
+      const long long now = clock64();
+      ph[i] += now - mark;
+      mark = now;
+    }
+  }
+  __device__ void flush() {
+    if (mine())
+      for (int i = 0; i < 8; ++i)
+        atomicAdd(&g_k2_phases[i], (unsigned long long)ph[i]);
+  }
+#else
+  __device__ void start() {}
+  __device__ void at(int) {}
+  __device__ void flush() {}
+#endif
+};
+
+struct LatPlan {
+  int ldp, ldh;    // exchange row strides in words: P, H padded to 16
+  int sa, sb;      // resident column strides: Wh slice (k over P), Wp (H)
+  int numax, ncmax;
+  int mta, mtb;    // m16 tiles of the Wh slice (4 numax rows), Wp (ncmax)
+  int xw;          // values a (row, gate) of an xp slot holds
+  size_t wp, red_a, red_b, c, xp, bytes;  // byte offsets (Wh at 0), total
+};
+
+__host__ __device__ inline LatPlan lat_plan(int nblk, int H, int P) {
+  LatPlan p;
+  p.ldp = round_up(P, 16);
+  p.ldh = round_up(H, 16);
+  p.sa = col_stride(p.ldp);
+  p.sb = col_stride(p.ldh);
+  p.numax = (H + nblk - 1) / nblk;
+  p.ncmax = (P + nblk - 1) / nblk;
+  p.mta = (4 * p.numax + 15) / 16;
+  p.mtb = (p.ncmax + 15) / 16;
+  p.wp = sizeof(bf16) * (size_t)4 * p.numax * p.sa;
+  p.red_a = p.wp + sizeof(bf16) * (size_t)p.ncmax * p.sb;
+  p.red_b = p.red_a + sizeof(float) * (size_t)NWARP * p.mta * 128;
+  p.c = p.red_b + sizeof(float) * (size_t)NWARP * p.mtb * 128;
+  p.xw = round_up(p.numax + 1, 2);
+  p.xp = p.c + (sizeof(float) * (size_t)LAT_MAX_B * p.numax + 15) / 16 * 16;
+  p.bytes = p.xp + sizeof(bf16) * (size_t)2 * LAT_MAX_B * 4 * p.xw;
+  return p;
+}
+
+// Whether the LAT design takes the shape: one n8 tile of batch rows; the
+// slices, partial tiles and c in one block's shared memory; at most LAT_MT
+// m-tiles of Wh and one of Wp; at most 62 units a block (32 xp pairs, a
+// lane each); every block owning at least one column of h (a block's reads
+// of hid are then witnessed by the h it writes, which keeps one buffer of
+// each exchange safe); and the xp prefetch's 4-byte copies aligned (H
+// even, xp too).
+inline bool lat_plan_fits(const LatPlan& p, int nblk, int B, int H, int P,
+                          size_t optin, const void* xp) {
+  return B >= 1 && B <= LAT_MAX_B && p.bytes <= optin && p.mta <= LAT_MT &&
+         p.mtb == 1 && p.numax <= 62 && P >= nblk && H % 2 == 0 &&
+         (reinterpret_cast<size_t>(xp) & 3) == 0;
+}
+
+// As grid_barrier: a wait over 2^35 cycles is a fault, not a hang.
+__device__ __forceinline__ void lat_watchdog(long long& t0) {
+  if (t0 == 0) t0 = clock64();
+  if (clock64() - t0 > (1LL << 35)) __trap();
+}
+
+// acc += ws[rows m * 16 + g and + 8 of the MT m-tiles, k .. k+3] x (b0,
+// b1), with wg = ws + g * wst + the lane's k of slice 0 and ko the slice's
+// offset from it (a constant once unrolled), ms = 16 * wst, and rows past
+// nrows zero.
+template <int MT>
+__device__ __forceinline__ void lat_mma(float (&acc)[MT][4], const bf16* wg,
+                                        int ms, int nrows, int g, int ko,
+                                        unsigned b0, unsigned b1) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const bf16* w = wg + m * ms + ko;
+    uint2 a0 = make_uint2(0u, 0u), a1 = make_uint2(0u, 0u);
+    if (m * 16 + g < nrows) a0 = *reinterpret_cast<const uint2*>(w);
+    if (m * 16 + 8 + g < nrows)
+      a1 = *reinterpret_cast<const uint2*>(w + ms / 2);
+    mma_bf16_16816(acc[m], a0.x, a1.x, a0.y, a1.y, b0, b1);
+  }
+}
+
+// One step product on the tensor cores with the weights as the A operand:
+// out[r, b] = sum_k ws[r, k] x[b, k] for the nrows rows of ws (column r at
+// ws + r * wst, k-contiguous, zero past kvalid) and the B <= 8 rows of x,
+// read from the tagged words (row b at words + b * ldw) of the step `tag`.
+// Warp w is k-group w: it takes the k16 slices w, w + 16, ... for every
+// m-tile, so no two warps poll the same words, and its chain is a few
+// slices deep (one accumulator an m-tile, two when MT = 1).  A lane polls
+// its words until every one it needs carries the tag (k >= kvalid and rows
+// >= B are not read: zero), then the MMAs run.
+//  - B = 1: lane l loads the four words at k = 16 s + 4 (l % 4) of slice
+//    l / 4 of each group of 8, so one load a lane brings a whole group, and
+//    two shuffles a slice hand the values to the lanes of batch row 0.
+//  - B > 1: lane (g, t) loads row g at k = 16 s + 4t of each slice, up to
+//    LAT_G slices at once, after the group's first slice alone is ready (so
+//    a wait polls one slice, not LAT_G).
+// The partial tiles go to red [warp][m-tile][16 rows][8 batch rows]; the
+// caller synchronises before summing them in warp order.
+template <int MT>
+__device__ __forceinline__ void tagged_products(
+    const bf16* ws, int wst, int nrows, const unsigned* words, int ldw,
+    int kvalid, int B, unsigned tag, float* red, int phase, LatTimer& tm) {
+  constexpr int NACC = MT == 1 ? 2 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = 4 * (lane & 3);
+  const int nsl = (kvalid + 15) / 16;
+  const int nw = warp < nsl ? (nsl - warp + NWARP - 1) / NWARP : 0;
+  float acc[NACC][MT][4] = {};
+  long long t0 = 0;
+  const bf16* wg = ws + (size_t)g * wst + warp * 16 + t4;  // slice warp
+  const int ms = 16 * wst;
+  if (B == 1) {
+    for (int i0 = 0; i0 < nw; i0 += 8) {
+      const int li = i0 + (lane >> 2);
+      const int kl = (warp + NWARP * li) * 16 + t4;  // this lane's load
+      const bool mine = li < nw;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (mine) v = ld_words(words + kl);
+      while (!__all_sync(0xffffffffu, !mine || tagged(v, tag, kvalid - kl))) {
+        lat_watchdog(t0);
+        if (mine && !tagged(v, tag, kvalid - kl)) v = ld_words(words + kl);
+      }
+      tm.at(phase);
+      const unsigned p0 = __byte_perm(v.x, v.y, 0x5410);
+      const unsigned p1 = __byte_perm(v.z, v.w, 0x5410);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i0 + i < nw) {
+          const int src = 4 * i + (lane & 3);
+          unsigned b0 = __shfl_sync(0xffffffffu, p0, src);
+          unsigned b1 = __shfl_sync(0xffffffffu, p1, src);
+          if (g != 0) b0 = b1 = 0u;  // batch rows >= 1
+          lat_mma<MT>(acc[i % NACC], wg, ms, nrows, g,
+                      NWARP * 16 * (i0 + i), b0, b1);
+        }
+      }
+    }
+  } else {
+    const bool live = g < B;
+    const unsigned* xw = words + (size_t)(live ? g : 0) * ldw + t4;
+    for (int i0 = 0; i0 < nw; i0 += LAT_G) {
+      const int n = min(LAT_G, nw - i0);
+      auto kof = [&](int i) { return (warp + NWARP * (i0 + i)) * 16; };
+      uint4 v[LAT_G];
+      if (live) v[0] = ld_words(xw + kof(0));
+      while (!__all_sync(0xffffffffu,
+                         !live || tagged(v[0], tag, kvalid - kof(0) - t4))) {
+        lat_watchdog(t0);
+        if (live) v[0] = ld_words(xw + kof(0));
+      }
+#pragma unroll
+      for (int i = 1; i < LAT_G; ++i)
+        if (live && i < n) v[i] = ld_words(xw + kof(i));
+      for (;;) {
+        bool ok = true;
+#pragma unroll
+        for (int i = 1; i < LAT_G; ++i)
+          if (live && i < n) ok = ok && tagged(v[i], tag, kvalid - kof(i) - t4);
+        if (__all_sync(0xffffffffu, ok)) break;
+        lat_watchdog(t0);
+#pragma unroll
+        for (int i = 1; i < LAT_G; ++i)
+          if (live && i < n && !tagged(v[i], tag, kvalid - kof(i) - t4))
+            v[i] = ld_words(xw + kof(i));
+      }
+      tm.at(phase);
+#pragma unroll
+      for (int i = 0; i < LAT_G; ++i) {
+        if (i < n) {
+          unsigned b0 = 0u, b1 = 0u;
+          if (live) {  // the words' low halves, two bf16 a register
+            b0 = __byte_perm(v[i].x, v[i].y, 0x5410);
+            b1 = __byte_perm(v[i].z, v[i].w, 0x5410);
+          }
+          lat_mma<MT>(acc[i % NACC], wg, ms, nrows, g,
+                      NWARP * 16 * (i0 + i), b0, b1);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float d[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      d[q] = acc[0][m][q];
+      if (NACC == 2) d[q] += acc[NACC - 1][m][q];
+    }
+    float* o = red + ((warp * MT + m) * 16 + g) * 8 + t4 / 2;
+    o[0] = d[0];
+    o[1] = d[1];
+    o[64] = d[2];
+    o[65] = d[3];
+  }
+  tm.at(phase + 1);
+}
+
+// K2 in bf16 for B <= LAT_MAX_B.  The step's critical path is two hops
+// through L2 and two short product chains: no grid barrier and no staging
+// of the exchange in shared memory.
+//  - The slices are resident as in the MMA design, rows as the A operand
+//    (Wh unit-major, 4u + gate; Wp's own columns), so the batch rows are N
+//    and an n8 tile wastes at most 7/8.  K is split over the 16 warps (at
+//    the parity width 2-3 k16 slices a warp for 4 m-tiles in phase A, 8
+//    slices for one m-tile in phase B), and the 16 partial tiles are summed
+//    in a fixed order, so a launch is deterministic.
+//  - The exchange carries its readiness: each value of h [B, ldp] and hid
+//    [B, ldh] is a tagged word (tag_word above), polled straight into the
+//    MMA's B fragments.  One buffer of each is enough: a block writes h of
+//    step t only after reading every block's hid of step t, each written
+//    after its block had read all of h of step t - 1, and likewise for hid.
+//    h0 enters the exchange as the words of step 0 (tag 1); step t reads
+//    h with tag step_tag(t), hid with step_tag(t + 1).
+//  - Epilogues by warp: warp w owns units w, w + 16, .. and columns w, w +
+//    16, ..; in phase A lane (q, b) = (lane / 8, lane % 8) sums gate q of
+//    row b over the 16 partial tiles, adds xp (copied into shared memory
+//    with cp.async during the step before) and the bias (in registers),
+//    and one shuffle per gate gives lane b the four gates for the cell
+//    update; in phase B each quarter of the warp sums 4 partial tiles and
+//    two shuffles add the quarters.  c stays in shared memory; h_seq[t] is
+//    stored beside the h words.
+template <int MTA>  // m16 tiles of the Wh slice (LatPlan::mta)
+__global__ void __launch_bounds__(NT)
+    lstm_infer_lat_kernel(const bf16* __restrict__ xp,    // [T, B, 4H]
+                          const bf16* __restrict__ wh,    // [P, 4H]
+                          const bf16* __restrict__ wp,    // [H, P]
+                          const bf16* __restrict__ bias,  // [4H]
+                          const float* __restrict__ c0,   // [B, H]
+                          const float* __restrict__ h0,   // [B, P], bf16 values
+                          unsigned* hidw,  // [B, ldh] tagged hid, zeroed
+                          unsigned* hw,    // [B, ldp] tagged h, zeroed
+                          bf16* __restrict__ hseq,   // [T, B, P]
+                          float* __restrict__ cfin,  // [B, H]
+                          int T, int B, int H, int P) {
+  extern __shared__ __align__(16) unsigned char smem_lat[];
+  const int nblk = gridDim.x, blk = blockIdx.x;
+  const int u0 = slice_begin(blk, H, nblk);
+  const int nu = slice_begin(blk + 1, H, nblk) - u0;
+  const int j0 = slice_begin(blk, P, nblk);
+  const int ncb = slice_begin(blk + 1, P, nblk) - j0;
+  const LatPlan pl = lat_plan(nblk, H, P);
+  bf16* wsh = reinterpret_cast<bf16*>(smem_lat);
+  bf16* wsp = reinterpret_cast<bf16*>(smem_lat + pl.wp);
+  float* red_a = reinterpret_cast<float*>(smem_lat + pl.red_a);
+  float* red_b = reinterpret_cast<float*>(smem_lat + pl.red_b);
+  float* cst = reinterpret_cast<float*>(smem_lat + pl.c);
+  bf16* xps = reinterpret_cast<bf16*>(smem_lat + pl.xp);
+  const int H4 = 4 * H, tid = threadIdx.x, numax = pl.numax;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int lq = lane >> 3, lb = lane & 7;  // epilogue lane: gate, row
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  // xp[t] of own units into slot t % 2 [row][gate][xw], 4-byte cp.async of
+  // whole pairs from xb on: one group, waited for before step t's epilogue
+  const int xb = u0 & ~1, npair = (u0 + nu - xb + 1) / 2;
+  const int xslot = LAT_MAX_B * 4 * pl.xw;
+  auto prefetch_xp = [&](int t) {
+    bf16* dst = xps + (t & 1) * xslot + 2 * lane;
+    const bf16* src = xp + (size_t)t * B * H4 + xb + 2 * lane;
+    if (lane < npair)  // pair lane of rows r = 4 b + gate
+      for (int r = warp; r < 4 * B; r += NWARP)
+        cp_async4(dst + r * pl.xw, src + (size_t)(r >> 2) * H4 + (r & 3) * H);
+    cp_async_commit();
+  };
+  prefetch_xp(0);
+
+  // h0's own columns into the exchange first: the other blocks wait on them
+  for (int i = tid; i < B * ncb; i += NT) {
+    const int b = i / ncb, c = i - b * ncb;
+    st_word(hw + (size_t)b * pl.ldp + j0 + c,
+            tag_word(from_float<bf16>(h0[(size_t)b * P + j0 + c]),
+                     step_tag(0)));
+  }
+  // the weight slices, resident for the whole launch, and c
+  for (int i = tid; i < pl.ldp * 4 * nu; i += NT) {
+    const int k = i / (4 * nu), n = i - k * 4 * nu;
+    wsh[n * pl.sa + k] =
+        k < P ? wh[(size_t)k * H4 + (n & 3) * H + u0 + (n >> 2)] : zero;
+  }
+  for (int i = tid; i < pl.ldh * ncb; i += NT) {
+    const int k = i / ncb, c = i - k * ncb;
+    wsp[c * pl.sb + k] = k < H ? wp[(size_t)k * P + j0 + c] : zero;
+  }
+  for (int i = tid; i < B * nu; i += NT) {
+    const int b = i / nu, u = i - b * nu;
+    cst[b * numax + u] = c0[(size_t)b * H + u0 + u];
+  }
+  // this lane's gate lq of its units: the bias
+  float bq[LAT_UPW];
+#pragma unroll
+  for (int i = 0; i < LAT_UPW; ++i) {
+    const int u = warp + NWARP * i;
+    bq[i] = u < nu ? to_float(bias[lq * H + u0 + u]) : 0.f;
+  }
+  __syncthreads();
+  LatTimer tm;
+  tm.start();
+
+  for (int t = 0; t < T; ++t) {
+    const unsigned tag_h = step_tag(t), tag_n = step_tag(t + 1);
+    // phase A: z = xp[t] + bias + h @ Wh for own units, then the cell
+    tagged_products<MTA>(wsh, pl.sa, 4 * nu, hw, pl.ldp, P, B, tag_h, red_a,
+                         0, tm);
+    cp_async_wait<0>();  // xp[t], issued a step ago
+    __syncthreads();
+    tm.at(2);
+    const bf16* xrow = xps + (t & 1) * xslot + (4 * lb + lq) * pl.xw + u0 - xb;
+#pragma unroll
+    for (int i = 0; i < LAT_UPW; ++i) {
+      const int u = warp + NWARP * i;
+      if (u < nu) {
+        // gate column 4u + lq of the 16 partial tiles, MTA * 128 apart
+        const float* ra = red_a + (4 * u + lq) * 8 + lb;
+        float z = 0.f;
+#pragma unroll
+        for (int kg = 0; kg < NWARP; ++kg) z += ra[kg * MTA * 128];
+        z += (lb < B ? to_float(xrow[u]) : 0.f) + bq[i];
+        const float zi = __shfl_sync(0xffffffffu, z, lb);
+        const float zg = __shfl_sync(0xffffffffu, z, 8 + lb);
+        const float zf = __shfl_sync(0xffffffffu, z, 16 + lb);
+        const float zo = __shfl_sync(0xffffffffu, z, 24 + lb);
+        if (lane < B) {  // lq = 0, lb = lane
+          float* cp = cst + lane * numax + u;
+          const float c = sigmoid(zf) * *cp + sigmoid(zi) * tanhf(zg);
+          *cp = c;
+          st_word(hidw + (size_t)lane * pl.ldh + u0 + u,
+                  tag_word(from_float<bf16>(sigmoid(zo) * tanhf(c)), tag_n));
+        }
+      }
+    }
+    if (t + 1 < T) prefetch_xp(t + 1);  // lands during phase B
+    tm.at(3);
+    // phase B: own columns of h = hid @ Wp
+    tagged_products<1>(wsp, pl.sb, ncb, hidw, pl.ldh, H, B, tag_n, red_b, 4,
+                       tm);
+    __syncthreads();
+    tm.at(6);
+    if (warp < ncb) {  // column j = warp (ncb <= 16: one m-tile)
+      const int j = warp;
+      const float* rb = red_b + (4 * lq * 16 + j) * 8 + lb;
+      float hs = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hs += rb[q * 128];
+      hs += __shfl_xor_sync(0xffffffffu, hs, 8);
+      hs += __shfl_xor_sync(0xffffffffu, hs, 16);
+      if (lane < B) {
+        const bf16 hv = from_float<bf16>(hs);
+        st_word(hw + (size_t)lane * pl.ldp + j0 + j, tag_word(hv, tag_n));
+        hseq[((size_t)t * B + lane) * P + j0 + j] = hv;
+      }
+    }
+    tm.at(7);
+  }
+#pragma unroll
+  for (int i = 0; i < LAT_UPW; ++i) {
+    const int u = warp + NWARP * i;
+    if (u < nu && lane < B)
+      cfin[(size_t)lane * H + u0 + u] = cst[lane * numax + u];
+  }
+  tm.flush();
+}
+
+// The design is the plan's, chosen before the launch and never after a
+// failed one; lstm_last_design() reports it.  bf16 K2 runs LAT where its
+// plan fits (B <= LAT_MAX_B), else, as bf16 K4 does, lstm_fwd_mma_kernel
+// where that plan fits; the rest (fp32, and bf16 outside both plans) runs
+// the FMA template above.
 template <typename W, bool RES>
 int launch(const void* xp_, const void* wh_, const void* wp_,
            const void* bias_, const float* c0, float* hbuf, float* hidbuf,
@@ -480,19 +919,38 @@ int launch(const void* xp_, const void* wh_, const void* wp_,
   const int err = query_card(card);
   if (err) return err;
   const int nblk = grid_blocks(card, H);
-  if constexpr (RES && std::is_same<W, bf16>::value) {
+  if constexpr (std::is_same<W, bf16>::value) {
+    const float* h0 = hbuf;
+    if constexpr (!RES) {
+      const LatPlan lp = lat_plan(nblk, H, P);
+      if (lat_plan_fits(lp, nblk, B, H, P, card.optin, xp)) {
+        unsigned* hidw = reinterpret_cast<unsigned*>(hidbuf);
+        unsigned* hw = hidw + (size_t)B * lp.ldh;
+        void* args[] = {&xp, &wh,   &wp,   &bias, &c0, &h0, &hidw,
+                        &hw, &hseq, &cfin, &T,    &B,  &H,  &P};
+        const void* kernels[LAT_MT] = {
+            (const void*)lstm_infer_lat_kernel<1>,
+            (const void*)lstm_infer_lat_kernel<2>,
+            (const void*)lstm_infer_lat_kernel<3>,
+            (const void*)lstm_infer_lat_kernel<4>,
+            (const void*)lstm_infer_lat_kernel<5>,
+            (const void*)lstm_infer_lat_kernel<6>};
+        g_last_design = kDesignLat;
+        return coop_launch(kernels[lp.mta - 1], nblk, lp.bytes, args, hidw,
+                           stream, sizeof(unsigned) * B * (lp.ldh + lp.ldp));
+      }
+    }
     int kq = fwd_plan(nblk, B, H, P, 2).bytes <= (size_t)card.optin ? 2 : 1;
     const FwdPlan pl = fwd_plan(nblk, B, H, P, kq);
     if (fwd_plan_fits(pl, B, H, card.optin, xp)) {
-      const float* h0 = hbuf;
       bf16* hx = reinterpret_cast<bf16*>(hbuf + round_up(B * P, 4));
       bf16* hidx = reinterpret_cast<bf16*>(hidbuf);
       void* args[] = {&xp,   &wh,   &wp,   &bias, &c0,  &h0, &hx,
                       &hidx, &hseq, &cfin, &zseq, &cseq, &bar, &T,
                       &B,    &H,    &P,    &kq};
       g_last_design = kDesignMma;
-      return coop_launch((const void*)lstm_fwd_mma_kernel, nblk, pl.bytes,
-                         args, bar, stream);
+      return coop_launch((const void*)lstm_fwd_mma_kernel<RES>, nblk,
+                         pl.bytes, args, bar, stream);
     }
   }
   void* args[] = {&xp,   &wh,   &wp,   &bias, &c0, &hbuf, &hidbuf, &hseq,
@@ -508,10 +966,11 @@ int launch(const void* xp_, const void* wh_, const void* wp_,
 // xp [T, B, 4H], wh [P, 4H], wp [H, P], bias [4H], h_seq [T, B, P] in the
 // weight type; c0 [B, H], c_fin [B, H] f32; hbuf f32 holding h0 [B, P]
 // (rounded to the weight type) followed, from float round_up(B P, 4), by
-// room for B round_up(P, 16) floats; hidbuf f32 scratch of B round_up(H,
-// 16) floats (the MMA design's bf16 exchange uses the tail of hbuf and the
-// bytes of hidbuf; the FMA design, hbuf's first B P floats and hidbuf as
-// [B, H]); bar one uint32 scratch.  Returns a CUDA error code (0 =
+// room for B round_up(P, 16) floats; hidbuf f32 scratch of B (round_up(H,
+// 16) + round_up(P, 16)) floats; bar one uint32 scratch.  The FMA design
+// uses hbuf's first B P floats and hidbuf as [B, H]; the MMA design's bf16
+// exchange, the tail of hbuf and the bytes of hidbuf; the LAT design's
+// tagged words, all of hidbuf (hid, then h).  Returns a CUDA error code (0 =
 // launched); lstm_last_design() then says which design ran.
 extern "C" int lstm_infer_f32(const void* xp, const void* wh, const void* wp,
                               const void* bias, const float* c0, float* hbuf,
@@ -552,3 +1011,15 @@ extern "C" int lstm_fwd_bf16(const void* xp, const void* wh, const void* wp,
                                      cfin, zseq, cseq, bar, T, B, H, P,
                                      stream);
 }
+
+#ifdef LSTM_PHASE_TIMERS
+// Block 0's cycles by phase of the LAT step, summed over launches since the
+// last reset (reset != 0 zeroes them); out holds 8 values.
+extern "C" int k2_phases(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long z[8] = {};
+    return (int)cudaMemcpyToSymbol(g_k2_phases, z, sizeof z);
+  }
+  return (int)cudaMemcpyFromSymbol(out, g_k2_phases, sizeof(unsigned long long) * 8);
+}
+#endif

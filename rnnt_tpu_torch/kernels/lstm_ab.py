@@ -1,13 +1,15 @@
-"""A/B timing of builds of the training kernels K4, K5 and K7 on one card.
+"""A/B timing of builds of the LSTM kernels K2, K4, K5 and of K7 on one card.
 
-  python3 -m rnnt_tpu_torch.kernels.lstm_ab A.cu B.cu [...]
-      [--kernel fwd|bwd|lattice] [--batch 32 96] [--steps 256] [--reps 10]
+  python3 -m rnnt_tpu_torch.kernels.lstm_ab A.cu B.cu[:NAME=V,...] [...]
+      [--kernel infer|fwd|bwd|lattice] [--batch 32 96] [--steps 256]
+      [--shape 1x512 1x1 ...] [--reps 10]
 
-Each source is a copy of `csrc/lstm_infer.cu` (`--kernel fwd`, K4) or of
-`csrc/lstm_bwd.cu` (`--kernel bwd`, the default, K5): the parent's, the
-change's, or an edited copy.  All are built at once with the package's nvcc
-flags into `rnnt_tpu_torch/_build/ab/`; a header beside a source is used
-before the package's.  At each batch B (T = --steps, H=2048, P=640, bf16,
+Each source is a copy of `csrc/lstm_infer.cu` (`--kernel infer`, K2, entry
+`lstm_infer_bf16`; `--kernel fwd`, K4) or of `csrc/lstm_bwd.cu` (`--kernel
+bwd`, the default, K5): the parent's, the change's, or an edited copy.
+All are built at once with the package's nvcc flags into
+`rnnt_tpu_torch/_build/ab/`; a header beside a source is used before the
+package's.  At each batch B (T = --steps, H=2048, P=640, bf16,
 random inputs, seed 0; K5 gets the residuals of the plain forward) every
 build is checked once against the plain version (`lstm_cuda.lstm_fwd_plain`
 or `lstm_bwd_plain`; its largest relative error over the outputs is
@@ -16,17 +18,25 @@ printed, not gated) and then timed in turns, first source to last and back
 CUDA-event runs each.  With `--kernel fwd` cuDNN's training forward of
 `torch.nn.LSTM(proj_size=640)` on the same widths (input projection
 included) takes its turn as one more source, `cudnn`, so one call settles
-K4's ratio against it.  A build that exports `lstm_last_design()` reports
-the design it ran ("mma" or "fma"); one that exports `int
-k4_phases(unsigned long long* out, int reset)` or `k5_phases` (a copy with
-clock64 timers in block 0) also reports its cycles a step by phase.  Prints
-one JSON line a batch, then the card's name and power limit.  The scratch
-buffers fit both exchange layouts (the fp32 one of the FMA design and the
-padded bf16 one of the MMA design), so builds of either design time alike.
-With `--kernel lattice` the sources are copies of `csrc/rnnt_lattice.cu`
-(K7), run on random log-probability planes [B, T, U+1] (T = --steps, U+1
-= --labels, emit masked from U_b on) and checked against
-`rnnt_loss_ref.lattice_scan_plain` over the valid cells.
+K4's ratio against it; with `--kernel infer` (K2, checked against
+`lstm_seq_infer_plain` with a nonzero carried state) cuDNN's inference
+forward of the same LSTM under `torch.no_grad()` does.  `--shape BxT`
+gives (B, T) pairs in place of `--batch` x `--steps` (`--kernel infer`
+defaults to B=1 at T=512, 2 and 1, and B=32 at T=256).  A source may
+carry macro definitions, `new.cu:LAT_MAX_B=0` (built with
+`-DLAT_MAX_B=0`: the change without K2's LAT design), so one file can
+stand for several builds.  A build that exports `lstm_last_design()`
+reports the design it ran ("lat", "mma" or "fma"); one that exports `int
+k2_phases(unsigned long long* out, int reset)`, `k4_phases` or `k5_phases`
+(block-0 clock64 timers: for K2, `new.cu:LSTM_PHASE_TIMERS=1`; for K4 and
+K5, an edited copy) also reports its cycles a step by phase.  Prints one
+JSON line a shape, then the card's name and power limit.  The scratch
+buffers fit every exchange layout (the fp32 one of the FMA design, the
+padded bf16 one of the MMA design, K2's tagged words), so builds of any
+design time alike.  With `--kernel lattice` the sources are copies of
+`csrc/rnnt_lattice.cu` (K7), run on random log-probability planes [B, T,
+U+1] (T = --steps, U+1 = --labels, emit masked from U_b on) and checked
+against `rnnt_loss_ref.lattice_scan_plain` over the valid cells.
 """
 
 from __future__ import annotations
@@ -47,13 +57,18 @@ from rnnt_tpu_torch.ops import lstm_cuda, rnnt_loss_ref
 H, P, F_IN = 2048, 640, 240
 PHASES = ("A products", "A epilogue", "A barrier", "B products",
           "B epilogue", "B barrier", "chunk wait and sync (in products)")
+# K2's LAT timers (LSTM_PHASE_TIMERS): thread 0 of block 0, in warp 0
+K2_PHASES = ("A poll", "A MMAs", "A sync", "A epilogue", "B poll",
+             "B MMAs", "B sync", "B epilogue")
 # kernel: (entry, pointer arguments, phase-timer export, its phase names)
-ENTRY = {"fwd": ("lstm_fwd_bf16", 12, "k4_phases",
+ENTRY = {"infer": ("lstm_infer_bf16", 10, "k2_phases", K2_PHASES),
+         "fwd": ("lstm_fwd_bf16", 12, "k4_phases",
                  ("A products: wait for the other warps",) + PHASES[1:]
                  + ("A products: ring and MMAs",)),
          "bwd": ("lstm_bwd_bf16", 13, "k5_phases", PHASES),
          "lattice": ("rnnt_lattice", 7, None, ())}
-DESIGNS = ("fma", "mma")
+DESIGNS = ("fma", "mma", "lat")
+INFER_SHAPES = ((1, 512), (1, 2), (1, 1), (32, 256))
 
 
 def _round16(n):
@@ -61,16 +76,19 @@ def _round16(n):
 
 
 def _build_all(sources, kernel):
-    """{source: (library, ctypes entry)}, all nvcc processes at once."""
+    """{source spec: (library, ctypes entry)}, all nvcc processes at once; a
+    spec is a path, optionally with `:NAME=V,...` macro definitions."""
     entry, n_ptr, _, _ = ENTRY[kernel]
     out_dir = os.path.join(build._BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for i, src in enumerate(sources):
+    for i, spec in enumerate(sources):
+        src, _, defs = spec.partition(":")
         lib = os.path.join(out_dir, f"lib{i}_{os.path.basename(src)}.so")
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", build._CSRC, "-o", lib,
-               src]
-        procs[src] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        cmd = [build._nvcc(), *build.NVCC_FLAGS,
+               *(f"-D{d}" for d in defs.split(",") if d), "-I", build._CSRC,
+               "-o", lib, src]
+        procs[spec] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True))
     libs = {}
@@ -109,6 +127,29 @@ def _launch_fwd(fn, args):
     if err != 0:
         raise RuntimeError(f"K4 launch failed with {err}")
     return h_seq, z_seq, c_seq, c_fin
+
+
+def _launch_infer(fn, args):
+    xp, wh, wp, bias, h0, c0 = args
+    T, B, _ = xp.shape
+    dev, dt = xp.device, wh.dtype
+    # as lstm_cuda._forward_launch: h0 then room for the padded bf16
+    # exchange; hid and h at 4 bytes a padded value
+    off = -(-B * P // 4) * 4
+    hbuf = torch.empty((off + B * _round16(P),), dtype=torch.float32,
+                       device=dev)
+    hbuf[:B * P] = h0.reshape(-1).float()
+    hidbuf = torch.empty((B * (_round16(H) + _round16(P)),),
+                         dtype=torch.float32, device=dev)
+    h_seq = torch.empty((T, B, P), dtype=dt, device=dev)
+    c_fin = torch.empty((B, H), dtype=torch.float32, device=dev)
+    bar = torch.empty((1,), dtype=torch.int32, device=dev)
+    err = fn(*(a.data_ptr() for a in (xp, wh, wp, bias, c0, hbuf, hidbuf,
+                                      h_seq, c_fin, bar)),
+             T, B, H, P, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with {err}")
+    return h_seq, c_fin
 
 
 def _launch_bwd(fn, args):
@@ -181,8 +222,9 @@ def _median_ms(fn, reps):
 
 
 def _inputs(kernel, B, T, seed=0):
-    """The kernel's arguments, and a cuDNN training forward on the same
-    widths for K4 (None for K5)."""
+    """The kernel's arguments, and cuDNN's forward on the same widths: in
+    training mode for K4, under no_grad from the same carried state for K2
+    (None for K5)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(shape, scale):
@@ -193,11 +235,21 @@ def _inputs(kernel, B, T, seed=0):
            rand((H, P), 0.1).to(dt), rand((4 * H,), 1.0).to(dt),
            torch.zeros((B, P), dtype=dt, device="cuda"),
            torch.zeros((B, H), device="cuda"))
-    if kernel == "fwd":
+    if kernel in ("fwd", "infer"):
         ref = torch.nn.LSTM(F_IN, H, proj_size=P).to("cuda", dt)
         ref.flatten_parameters()  # as a cuDNN user would (`.to()` does not)
-        x = rand((T, B, F_IN), 2.0).to(dt).requires_grad_()
-        return fwd, lambda: ref(x)[0]
+        x = rand((T, B, F_IN), 2.0).to(dt)
+        if kernel == "fwd":
+            x.requires_grad_()
+            return fwd, lambda: ref(x)[0]
+        # K2 with a nonzero carried state, as in streaming
+        fwd = fwd[:4] + (rand((B, P), 0.5).to(dt), rand((B, H), 0.5))
+        state = (fwd[4][None], fwd[5].to(dt)[None])
+
+        def infer():
+            with torch.no_grad():
+                return ref(x, state)[0]
+        return fwd, infer
     _, z, c, _ = lstm_cuda.lstm_fwd_plain(*fwd)
     return (z, c, fwd[5], rand((T, B, P), 1.0).to(dt),
             fwd[1].t().contiguous(), fwd[2].t().contiguous()), None
@@ -215,6 +267,9 @@ def main(argv=None) -> int:
     p.add_argument("--kernel", choices=tuple(ENTRY), default="bwd")
     p.add_argument("--batch", type=int, nargs="+", default=[32, 96])
     p.add_argument("--steps", type=int, default=256)
+    p.add_argument("--shape", nargs="+", default=None,
+                   help="BxT pairs (default: --batch x --steps; for "
+                   "--kernel infer 1x512 1x2 1x1 32x256)")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--labels", type=int, default=65, help="U+1 (lattice)")
     a = p.parse_args(argv)
@@ -222,17 +277,24 @@ def main(argv=None) -> int:
         print("lstm_ab: CUDA is not available", file=sys.stderr)
         return 2
     libs = _build_all(a.sources, a.kernel)
-    launch = {"fwd": _launch_fwd, "bwd": _launch_bwd,
+    launch = {"infer": _launch_infer, "fwd": _launch_fwd, "bwd": _launch_bwd,
               "lattice": _launch_lattice}[a.kernel]
     _, _, phases_fn, names = ENTRY[a.kernel]
-    for B in a.batch:
+    if a.shape:
+        shapes = [tuple(int(v) for v in s.split("x")) for s in a.shape]
+    elif a.kernel == "infer":
+        shapes = INFER_SHAPES
+    else:
+        shapes = [(B, a.steps) for B in a.batch]
+    plain = {"infer": lstm_cuda.lstm_seq_infer_plain,
+             "fwd": lstm_cuda.lstm_fwd_plain, "bwd": lstm_cuda.lstm_bwd_plain}
+    for B, T in shapes:
         if a.kernel == "lattice":
-            args, cudnn = _lattice_inputs(B, a.steps, a.labels), None
+            args, cudnn = _lattice_inputs(B, T, a.labels), None
             check = lambda got: _lattice_err(got, args)  # noqa: E731
         else:
-            args, cudnn = _inputs(a.kernel, B, a.steps)
-            want = (lstm_cuda.lstm_fwd_plain if a.kernel == "fwd"
-                    else lstm_cuda.lstm_bwd_plain)(*args)
+            args, cudnn = _inputs(a.kernel, B, T)
+            want = plain[a.kernel](*args)
             check = lambda got: _rel_err(got, want)  # noqa: E731
         rel, design = {}, {}
         for s, (lib, fn) in libs.items():
@@ -245,8 +307,9 @@ def main(argv=None) -> int:
             runs["cudnn"] = cudnn
         order = list(runs)
         ms = {s: [] for s in order}
+        reps = a.reps * (5 if T <= 2 else 1)  # short launches: more runs
         for s in order + order[::-1]:
-            ms[s].append(_median_ms(runs[s], a.reps))
+            ms[s].append(_median_ms(runs[s], reps))
         phases = {}
         for s, (lib, fn) in libs.items():
             if phases_fn and hasattr(lib, phases_fn):
@@ -255,10 +318,10 @@ def main(argv=None) -> int:
                 launch(fn, args)
                 torch.cuda.synchronize()
                 getattr(lib, phases_fn)(buf, 0)
-                phases[s] = {n: buf[i] / a.steps for i, n in enumerate(names)}
+                phases[s] = {n: buf[i] / T for i, n in enumerate(names)}
         shape = ({"U+1": a.labels, "dtype": "float32"} if a.kernel == "lattice"
                  else {"H": H, "P": P, "dtype": "bfloat16"})
-        print(json.dumps({"kernel": a.kernel, "B": B, "T": a.steps, **shape,
+        print(json.dumps({"kernel": a.kernel, "B": B, "T": T, **shape,
                           "ms": ms,
                           "rel_err": rel, "design": design,
                           "block0_cycles_a_step": phases}), flush=True)

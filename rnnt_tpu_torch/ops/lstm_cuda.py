@@ -11,14 +11,21 @@ versions, and the differentiable sequence op `lstm_seq`.
   weight dtype, dh0 [B, P] and dc0 [B, H] in fp32.
 
 Each launch runs a whole sequence: one persistent cooperative launch, one
-block per SM (at most H; fewer with `set_block_cap`), two grid barriers a
-step.  The steps are a sequential chain, so what sets the pace is the
-latency of a step: its products, its grid-wide exchange (h and hid in the
-forward, dh_total and dz in the backward), and the barriers.  Two designs
-fill that structure, and the launcher picks one from the shape's
+block per SM (at most H; fewer with `set_block_cap`), two grid-wide
+exchanges a step.  The steps are a sequential chain, so what sets the pace
+is the latency of a step: its products, its grid-wide exchange (h and hid
+in the forward, dh_total and dz in the backward), and the barriers.  Three
+designs fill that structure, and the launcher picks one from the shape's
 shared-memory plan before it launches, never after a failed launch:
 
-- MMA (bf16 K4 and K5, where the plan fits): each block keeps its weight
+- LAT (bf16 K2 at B <= 8, the serving batch, where its plan fits): the
+  weight slices resident as in MMA, K of both products split over all 16
+  warps with the batch rows as the MMA's N, and an exchange of tagged
+  words (value and step tag in one 32-bit store) polled straight into the
+  MMA fragments: no grid barrier.  The parity width fits on 114 to 132
+  SMs; H=3072, P=768 does not (FMA).
+- MMA (bf16 K4 and K5, and bf16 K2 above LAT's batch, where the plan
+  fits): each block keeps its weight
   slices in shared memory for the whole launch, runs both step products on
   the tensor cores (mma.sync m16n8k16, fp32 accumulation, batch rows as M
   in passes of up to 64) and streams the bf16 exchange through a cp.async
@@ -26,15 +33,16 @@ shared-memory plan before it launches, never after a failed launch:
   K5 82 KB + 21 KB.  K4's plan takes any number of units a block within the
   shared memory (so also 114 SMs at the parity width); K5's takes at most
   16 units and 8 P columns a block (128 SMs or more at the parity width).
-- FMA (K2; fp32 K4 and K5; bf16 outside the plan, e.g. H=3072, P=768):
+- FMA (fp32 K2, K4 and K5; bf16 outside the plans, e.g. H=3072, P=768):
   block_dots on the FMA units, the weights re-read from L2 every pass of 4
   batch rows (8 in bf16), an fp32 exchange.  fp32 stays here: TF32 tensor
   cores would break the 1e-4 agreement with the plain version.
 
-`lstm_fwd.launches_by_design` and `lstm_bwd.launches_by_design` count the
-launches of each design beside `launches`.  The scratch buffers hold 4 bytes
-a padded value (rows padded to a multiple of 16), which fits both designs'
-exchange.
+`lstm_seq_infer.launches_by_design`, `lstm_fwd.launches_by_design` and
+`lstm_bwd.launches_by_design` count the launches of each design beside
+`launches`.  The scratch buffers hold 4 bytes a padded value (rows padded
+to a multiple of 16), which fits every design's exchange; K2's hid scratch
+also holds the h words of LAT's exchange, which the launcher zeroes.
 
 Inputs follow the TPU kernels: xp [T, B, 4H] in the weight dtype, Wh
 [P, 4H], Wp [H, P], bias [4H], h0 [B, P], c0 [B, H] (fp32).  On a CPU
@@ -152,7 +160,7 @@ def _lib(entry):
     return lib, fn
 
 
-_DESIGNS = ("fma", "mma")  # lstm_last_design(): 0, 1
+_DESIGNS = ("fma", "mma", "lat")  # lstm_last_design(): 0, 1, 2
 _LIBS = ("lstm_infer", "lstm_bwd")
 
 
@@ -194,12 +202,13 @@ def _forward_launch(kind, xp, wh, wp, bias, h0, c0, residuals: bool):
     c0 = c0.float().contiguous()
     # the kernel's own h buffer: h0 rounded to dt (a copy, never the
     # caller's), then room for the MMA design's padded bf16 exchange;
-    # 4 bytes a padded value of hid, which fits both designs
+    # 4 bytes a padded value of hid and h (LAT's tagged words of both)
     off = -(-B * P // 4) * 4
     hbuf = torch.empty((off + B * _round16(P),), dtype=torch.float32,
                        device=dev)
     hbuf[:B * P].copy_(h0.to(dt).reshape(-1))  # one device op
-    hidbuf = torch.empty((B * _round16(H),), dtype=torch.float32, device=dev)
+    hidbuf = torch.empty((B * (_round16(H) + _round16(P)),),
+                         dtype=torch.float32, device=dev)
     bar = torch.empty((1,), dtype=torch.int32, device=dev)
     h_seq = torch.empty((T, B, P), dtype=dt, device=dev)
     c_fin = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -225,12 +234,13 @@ def lstm_seq_infer(xp, wh, wp, bias, h0, c0) -> Tuple[torch.Tensor,
     _check_shapes(xp, wh, wp)
     if not xp.is_cuda:
         return lstm_seq_infer_plain(xp, wh, wp, bias, h0, c0)
-    _, out = _forward_launch("lstm_infer", xp, wh, wp, bias, h0, c0, False)
-    lstm_seq_infer.launches += 1
+    lib, out = _forward_launch("lstm_infer", xp, wh, wp, bias, h0, c0, False)
+    _count(lstm_seq_infer, lib)
     return out
 
 
 lstm_seq_infer.launches = 0
+lstm_seq_infer.launches_by_design = {"lat": 0, "mma": 0, "fma": 0}
 
 
 def lstm_fwd(xp, wh, wp, bias, h0, c0):
