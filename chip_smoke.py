@@ -86,7 +86,8 @@ worst case.
    a one-step launch and at B=32, T=256 and each case's design, for K4 and
    K5 also the time at B=96; for K3 also the
    weight traffic of re-reading the weights at every product, and its time
-   split over the phases of a search), the card's
+   split over the phases of a search from the timed build: block 0's, the
+   heaviest block's and each phase's maximum over blocks), the card's
    name and power limit, and last the line
    {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -1004,12 +1005,16 @@ def check_beam(model32, served, cfg, cases):
                      reps=5)
         plain_ms = cuda_ms(lambda: beam_search_encoded_plain(
             served, enc, enc_len, **kw), reps=1, warmup=0)
-        phase_ns = torch.zeros(len(beam_cuda.PHASES), dtype=torch.int64,
-                               device=enc.device)
+        phase_ns = torch.zeros(
+            (beam_cuda.grid_blocks(enc.device), len(beam_cuda.PHASES)),
+            dtype=torch.int64, device=enc.device)
         beam_cuda.beam_search(served, enc, enc_len, phase_ns=phase_ns, **kw)
     torch.cuda.synchronize()
-    phases = {n: v / 1e6 for n, v in zip(beam_cuda.PHASES, phase_ns.tolist())}
-    log("K3 phases of block 0 (ms): " + json.dumps(phases))
+    split = beam_cuda.phase_split(phase_ns)
+    log(f"K3 phases (ms) of block 0: {json.dumps(split['block0'])}; of the "
+        f"heaviest block ({split['heaviest_block']}, the most time outside "
+        f"the barrier wait): {json.dumps(split['heaviest'])}; maximum over "
+        f"blocks: {json.dumps(split['max'])}")
     entry = {
         "name": "beam_search",
         "route": "cuda",
@@ -1023,7 +1028,10 @@ def check_beam(model32, served, cfg, cases):
         "shape": f"enc [{enc.shape[1]},1,{enc.shape[2]}] "
                  f"{str(served.dtype)[6:]}, {frames} frames, K={BEAM} E={E} "
                  f"L={MAX_TOKENS}",
-        "phase_ms": phases,
+        "phase_ms_block0": split["block0"],
+        "phase_ms_heaviest": split["heaviest"],
+        "heaviest_block": split["heaviest_block"],
+        "phase_ms_max": split["max"],
     }
     return entry
 

@@ -103,7 +103,8 @@ struct Args {
   float* sc_out;    // [B, K]
   float* ws;        // workspace, carve() words
   unsigned int* bar;
-  unsigned long long* phase_ns;  // [N_PHASES] or null: block 0's time a phase
+  // [nblk, N_PHASES] or null: each block's time a phase (the TIMED kernel)
+  unsigned long long* phase_ns;
   // null, or the search's trace [T * E * 2, N]: the picks (label moves as
   // parent hypothesis * V + label, pool winners as the pool index) and their
   // scores of every selection, frame by frame, labels before the pool
@@ -112,8 +113,9 @@ struct Args {
   Dims d;
 };
 
-// Phases of block 0's timeline that `phase_ns` accumulates (nanoseconds of
-// %globaltimer), in the order of the frame.
+// Phases of a block's timeline that `phase_ns` accumulates (nanoseconds of
+// %globaltimer, thread 0 of each block into its own row), in the order of
+// the frame.
 enum Phase {
   PH_FJ_JOINT,     // F0: fj and the beam's joint hidden
   PH_LOGITS,       // F1 and F4: logits and partial sums
@@ -421,7 +423,10 @@ __device__ void stage_ln(float* xs, float* stat, const float* hnew, int n0,
   __syncthreads();
 }
 
-template <typename W>
+// TIMED: thread 0 of every block keeps its phase totals in registers and
+// adds them to its row of a.phase_ns at the end (a diagnostic build of the
+// same code; the serving path launches the untimed one).
+template <typename W, bool TIMED>
 __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
   extern __shared__ float smem[];
   const Dims d = a.d;
@@ -461,12 +466,14 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
   auto j_col = [=](int vc) { return j0 + vc * VEC; };
   auto v_col = [=](int vc) { return v0 + vc * VEC; };
   unsigned int target = 0;
-  unsigned long long t_mark = globaltimer();
-  // the time since the last mark goes to phase `ph` (block 0, if asked)
+  unsigned long long t_mark = TIMED ? globaltimer() : 0ull;
+  unsigned long long ph_ns[N_PHASES] = {};
+  // the time since the last mark goes to phase `ph` (TIMED only); `ph` is a
+  // constant at every call, so ph_ns stays in registers
   auto mark = [&](int ph) {
-    if (a.phase_ns != nullptr && blk == 0 && tid == 0) {
+    if (TIMED && tid == 0) {
       const unsigned long long now = globaltimer();
-      a.phase_ns[ph] += now - t_mark;
+      ph_ns[ph] += now - t_mark;
       t_mark = now;
     }
   };
@@ -936,6 +943,9 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
     for (int b = tid; b < B; b += NT) a.len_out[b] = __ldcg(s0.len + b * K);
     for (int n = tid; n < N; n += NT) a.sc_out[n] = __ldcg(s0.score + n);
   }
+  if (TIMED && tid == 0)
+    for (int i = 0; i < N_PHASES; ++i)
+      a.phase_ns[(size_t)blk * N_PHASES + i] += ph_ns[i];
 }
 
 // Grid size: one block per SM.
@@ -998,7 +1008,8 @@ int launch(void* const* ptrs, const int* dims, void* stream_) {
   if (ge != 0) return ge;
   Smem sm;
   const size_t smem = carve_smem(nullptr, a.d, nblk, &sm) * sizeof(float);
-  auto kernel = beam_kernel<W>;
+  auto kernel = a.phase_ns != nullptr ? beam_kernel<W, true>
+                                      : beam_kernel<W, false>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -1033,7 +1044,8 @@ extern "C" int beam_workspace_words(const int* dims, long long* words) {
 // wp [H, P], ln_scale [P], ln_bias [P], init_c [N, H] f32, init_h [N, P]
 // f32; then tokens [B, L] i32, lengths [B] i32, scores [B, K] f32, the
 // workspace, one uint32 barrier counter, null or a zeroed uint64
-// [N_PHASES] that receives block 0's nanoseconds in each phase (Phase), and
+// [grid blocks, N_PHASES] to which each block adds its nanoseconds in each
+// phase (Phase; the grid is one block per SM), and
 // null or the trace's int32 picks and fp32 scores, [T * E * 2, B, K] each.
 // Weights in the kernel's type.
 // Returns a CUDA error code (0 = launched).

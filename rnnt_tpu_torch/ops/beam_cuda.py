@@ -27,9 +27,31 @@ _ENTRY = {torch.float32: "beam_search_f32", torch.bfloat16: "beam_search_bf16"}
 MAX_LAYERS = 4  # prediction-net layers the launcher takes
 SLICE = 8  # H, P, J and V are cut into column groups of 8 (SLICE in the source)
 _N_PTRS = 8 + 8 * MAX_LAYERS + 8
-# block 0's timeline phases that `phase_ns` receives (enum Phase in the source)
+# the timeline phases whose nanoseconds each block adds to its row of
+# `phase_ns` (enum Phase in the source)
 PHASES = ("fj_joint", "logits", "lse", "candidates", "choose", "gates",
           "proj", "joint", "merge", "gather", "barrier")
+
+
+def grid_blocks(device) -> int:
+    """Blocks of a launch on `device`: one per SM, as the launcher sizes
+    the grid (the rows of `phase_ns`)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def phase_split(phase_ns: torch.Tensor) -> dict:
+    """Milliseconds by phase from a timed launch's `phase_ns` [blocks,
+    PHASES]: block 0's row, the row of the block that spends the most time
+    outside the barrier wait (the pace setter), and each phase's maximum
+    over blocks."""
+    ms = phase_ns.double().cpu() / 1e6
+    busy = ms.sum(1) - ms[:, PHASES.index("barrier")]
+    heavy = int(busy.argmax())
+
+    def named(row):
+        return {n: float(v) for n, v in zip(PHASES, row)}
+    return {"block0": named(ms[0]), "heaviest_block": heavy,
+            "heaviest": named(ms[heavy]), "max": named(ms.max(0).values)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,17 +70,20 @@ def _lib(dtype):
 def beam_search(model, encoded: torch.Tensor, enc_lengths: torch.Tensor, *,
                 beam_width: int, max_output_length: int,
                 expansions_per_frame: int, merge_duplicates: bool = True,
-                phase_ns=None, trace=None):
+                phase_ns=None, trace=None, library=None):
     """Beam search from encoder output [B, T', P] and lengths [B]: the
     kernel on CUDA, the plain version on CPU.  Returns (best tokens [B, L]
     int32, best lengths [B] int32, beam scores [B, K] fp32).
 
-    phase_ns: optionally a zeroed int64 CUDA tensor [len(PHASES)] to which
-    the kernel adds block 0's nanoseconds in each phase of its timeline (a
-    diagnostic of where a search's time goes; off on the serving path).
+    phase_ns: optionally a zeroed int64 CUDA tensor [grid_blocks(device),
+    len(PHASES)]: the kernel's timed build adds each block's nanoseconds in
+    each phase of its timeline to the block's row (a diagnostic of where a
+    search's time goes, `phase_split`; off on the serving path).
     trace: optionally a dict that receives the search's trace, "idx" and
     "val" [S, B, K] (see `decode.beam.trace_divergence`); on a CPU tensor
-    the plain version's whole `stats`.  Off on the serving path."""
+    the plain version's whole `stats`.  Off on the serving path.
+    library: optionally (CDLL, entry) of another build of the source to
+    launch in place of the package's (`kernels/beam_ab.py` times copies)."""
     if not encoded.is_cuda:
         return beam_mod.beam_search_encoded_plain(
             model, encoded, enc_lengths, beam_width=beam_width,
@@ -87,11 +112,12 @@ def beam_search(model, encoded: torch.Tensor, enc_lengths: torch.Tensor, *,
                          f"vocab_size must be multiples of {SLICE}, not "
                          f"{widths}")
     dev = encoded.device
+    rows = (grid_blocks(dev), len(PHASES))
     if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype
-                                 != torch.int64 or phase_ns.numel()
-                                 != len(PHASES)):
-        raise ValueError(f"phase_ns must be an int64 tensor of "
-                         f"{len(PHASES)} on {dev}")
+                                 != torch.int64 or tuple(phase_ns.shape)
+                                 != rows or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 tensor "
+                         f"{list(rows)} on {dev}")
     if model.joint.w1.device != dev:
         raise ValueError("the model and the encoder output must be on one "
                          "device")
@@ -132,7 +158,7 @@ def beam_search(model, encoded: torch.Tensor, enc_lengths: torch.Tensor, *,
                                    device=dev)
         trace["val"] = torch.empty((n_sel, B, K), dtype=torch.float32,
                                    device=dev)
-    lib, fn = _lib(dt)
+    lib, fn = _lib(dt) if library is None else library
     # the launcher sizes the grid for, and launches on, the current device
     with torch.cuda.device(dev):
         words = ctypes.c_longlong(0)
