@@ -18,7 +18,8 @@ worst case.
 3. drives five paths, each with every kernel's launch count set to 0 just
    before it and read just after: POSTs of WAVs of 2 s, 5 s and 15 s (the
    128-, 256- and 512-frame buckets) decoded greedily, the same WAVs with
-   ?beam=4 (one beam-kernel launch a request), a TCP streaming session of
+   ?beam=4 (one beam-kernel launch a request, every one running the
+   streamed advance), a TCP streaming session of
    the 5 s WAV in 1024-sample frames, then training through
    rnnt_tpu_torch.cli.run_rnnt on synthetic .rnr shards written by the
    port's writer (random-normal 240-wide features, 200-256 frames, 40-64
@@ -51,9 +52,14 @@ worst case.
    score within 1e-4 (fp32) or 1e-2 (bf16) relative error, the two
    searches' picks identical at every selection up to the first near tie
    (a gap below 1e-4 plus twice the score drift so far), slot-0 tokens and
-   lengths identical unless such a tie precedes; the bf16 gate must reject
-   a control (the kernel reading W2 with the halves of its 16-byte groups
-   swapped); the fp32 stream through the kernels and through the plain
+   lengths identical unless such a tie precedes; every bf16 case runs the
+   streamed advance (B=1, and B=3: two n8 tiles) and every fp32 case the
+   FMA design; the bf16 gate must reject a control (the kernel reading W2
+   with the halves of its 16-byte groups swapped); after an in-place
+   perturbation of layer 0's Wh the bf16 5 s sharp-joint search repacks
+   and holds to the plain search on the perturbed weights, which reject the
+   unperturbed run (a stale copy); the fp32 stream through the kernels and
+   through the plain
    versions, greedy argmaxes identical up to a near tie (margin < 1e-4);
    and at the train shapes: K4 (h, z, c, c_fin) and K5 (dz, dh_total, dh0,
    dc0, fed the same residuals) at B=32 (T=256, 128 and 65), B=96 (T=256),
@@ -218,10 +224,12 @@ def read_launches() -> dict:
 
 
 def read_designs() -> dict:
-    """The LSTM kernels' launches by design ("lat", "mma", "fma")."""
+    """Launches by design: the LSTM kernels' ("lat", "mma", "fma") and
+    the beam kernel's ("stream", "fma")."""
     w = kernel_wrappers()
     return {name: dict(w[name].launches_by_design)
-            for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd")}
+            for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd",
+                         "beam_search")}
 
 
 def require_resident_k2(name, launches) -> None:
@@ -230,6 +238,14 @@ def require_resident_k2(name, launches) -> None:
     d = launches["lstm_seq_infer_by_design"]
     require(d["fma"] == 0 and d["lat"] + d["mma"] == launches[
         "lstm_seq_infer"], f"path {name}: K2 launches by design {d}")
+
+
+def require_streamed_k3(name, launches) -> None:
+    """Every bf16 K3 launch of a driven path at the parity width ran the
+    streamed advance, none the FMA design."""
+    d = launches["beam_search_by_design"]
+    require(d["fma"] == 0 and d["stream"] == launches["beam_search"],
+            f"path {name}: K3 launches by design {d}")
 
 
 def synthetic_pieces(n: int):
@@ -705,8 +721,7 @@ def drive_path(name, fn, expect):
     launches = read_launches()
     designs = read_designs()
     log(f"path {name}: {time.perf_counter() - t0:.1f} s, launches "
-        f"{json.dumps(launches)}, LSTM kernels by design "
-        f"{json.dumps(designs)}")
+        f"{json.dumps(launches)}, by design {json.dumps(designs)}")
     launches.update({f"{k}_by_design": v for k, v in designs.items()})
     for k in expect:
         require(launches[k] > 0, f"path {name}: {k} never launched")
@@ -946,7 +961,8 @@ def check_beam(model32, served, cfg, cases):
 
     E = default_expansions(cfg)
     worst_bf16 = 0.0
-    control = None
+    control = stale = None
+    designs = {}
     for label, mel_p, lengths, sharp, cap in cases:
         kw = dict(beam_width=BEAM, max_output_length=cap,
                   expansions_per_frame=E)
@@ -959,19 +975,29 @@ def check_beam(model32, served, cfg, cases):
                 trace, stats = {}, {}
                 got = beam_cuda.beam_search(model, enc, enc_len, trace=trace,
                                             **kw)
+                design = beam_cuda.beam_search.last_design
                 want = beam_search_encoded_plain(model, enc, enc_len,
                                                  stats=stats, **kw)
                 torch.cuda.synchronize()
             fails, notes, max_abs, rel = gate_beam(
                 got, trace, want, stats, enc_len, E, cfg.vocab_size,
                 BEAM_SCORE_TOL[dt])
-            log(f"K3 beam {label} L={cap} {dt} enc {tuple(enc.shape)}: "
+            log(f"K3 beam {label} L={cap} {dt} enc {tuple(enc.shape)} "
+                f"({design} design): "
                 f"lengths {got[1].tolist()} (plain {want[1].tolist()}), "
                 f"scores max |d| {max_abs:.3e} rel {rel:.3e}, merges "
                 f"{stats['merges']}, {stats['idx'].shape[0]} selections "
                 + ("identical" if not notes and not fails else
                    "; ".join(notes + fails)))
             require(not fails, f"beam kernel {label} {dt}: {fails}")
+            # bf16 at B <= 4 is inside the streamed advance's plan, fp32
+            # outside it
+            must = "stream" if dt == "bfloat16" else "fma"
+            require(design == must, f"beam kernel {label} {dt} ran the "
+                    f"{design} design, not {must}")
+            designs[f"{label} {dt}"] = design
+            if model is served and sharp and cap == MAX_TOKENS:
+                stale = (label, enc, enc_len, kw, got, trace)
             if dt == "bfloat16":
                 worst_bf16 = max(worst_bf16, max_abs)
             if cap < MAX_TOKENS:
@@ -992,6 +1018,7 @@ def check_beam(model32, served, cfg, cases):
     log(f"K3 control ({label}, W2 halves swapped) bf16: lengths "
         f"{got[1].tolist()}, rel err {rel:.3e}, rejected by: {fails}")
     require(fails, "the bf16 beam gate let the swapped-W2 control through")
+    check_beam_staleness(served, cfg, stale)
     # times, bound and phases at the 512-frame request in bf16
     _, mel_p, lengths, _, _ = [c for c in cases if c[1].shape[0] == 1
                                and c[4] == MAX_TOKENS][-1]
@@ -1028,12 +1055,70 @@ def check_beam(model32, served, cfg, cases):
         "shape": f"enc [{enc.shape[1]},1,{enc.shape[2]}] "
                  f"{str(served.dtype)[6:]}, {frames} frames, K={BEAM} E={E} "
                  f"L={MAX_TOKENS}",
+        "design_by_case": designs,
         "phase_ms_block0": split["block0"],
         "phase_ms_heaviest": split["heaviest"],
         "heaviest_block": split["heaviest_block"],
         "phase_ms_max": split["max"],
     }
     return entry
+
+
+def check_beam_staleness(served, cfg, case):
+    """The streamed advance's packed weights follow an in-place update:
+    after a run of K3 on `case` (the bf16 sharp-joint request), layer 0's
+    Wh gets uniform noise of its own Glorot scale in place; the next run
+    must repack, hold to the plain search on the perturbed weights, and the
+    first run's result (what a stale copy would give) must fail that gate.
+    The weights are restored after."""
+    import torch
+
+    from rnnt_tpu_torch.decode.beam import (beam_search_encoded_plain,
+                                            default_expansions)
+    from rnnt_tpu_torch.ops import beam_cuda
+
+    require(case is not None, "no bf16 sharp-joint case for the staleness "
+            "check")
+    label, enc, enc_len, kw, before, before_trace = case
+    E = default_expansions(cfg)
+    wh = served.prediction.layers[0].lstm.wh
+    lim = (6.0 / (wh.shape[0] + wh.shape[1])) ** 0.5
+    g = torch.Generator(device=wh.device).manual_seed(9)
+    with torch.no_grad(), sharp_joint(served):
+        orig = wh.clone()
+        packed = beam_cuda.packed_slices(served, beam_cuda.grid_blocks(
+            wh.device))
+        try:
+            wh.add_(((torch.rand(wh.shape, generator=g, device=wh.device)
+                      * 2 - 1) * lim).to(wh.dtype))
+            trace, stats = {}, {}
+            got = beam_cuda.beam_search(served, enc, enc_len, trace=trace,
+                                        **kw)
+            design = beam_cuda.beam_search.last_design
+            repacked = beam_cuda.packed_slices(
+                served, beam_cuda.grid_blocks(wh.device)) is not packed
+            want = beam_search_encoded_plain(served, enc, enc_len,
+                                             stats=stats, **kw)
+            torch.cuda.synchronize()
+        finally:
+            wh.copy_(orig)
+    fails, notes, max_abs, rel = gate_beam(got, trace, want, stats, enc_len,
+                                           E, cfg.vocab_size,
+                                           BEAM_SCORE_TOL["bfloat16"])
+    stale_fails, _, _, stale_rel = gate_beam(
+        before, before_trace, want, stats, enc_len, E, cfg.vocab_size,
+        BEAM_SCORE_TOL["bfloat16"])
+    log(f"K3 staleness ({label}, layer 0 Wh perturbed in place) bf16 "
+        f"({design} design, repacked {repacked}): scores max |d| "
+        f"{max_abs:.3e} rel {rel:.3e} "
+        + ("; ".join(notes + fails) if notes or fails else "identical")
+        + f"; the unperturbed run against it: rel {stale_rel:.3e}, "
+        f"rejected by {stale_fails}")
+    require(design == "stream" and repacked,
+            f"staleness: design {design}, repacked {repacked}")
+    require(not fails, f"beam kernel after an in-place update: {fails}")
+    require(stale_fails, "the perturbation did not change the search: the "
+            "staleness check cannot tell a stale copy")
 
 
 def profile_beam(served, mel_p, t, label):
@@ -1690,6 +1775,7 @@ def main(argv=None) -> int:
             ("log_mel_frontend", "lstm_seq_infer", "beam_search"))
         require(all(r["launches"]["beam_search"] == 1 for r in beam_records),
                 "one beam launch a request")
+        require_streamed_k3("beam_http", paths["beam_http"])
         _, paths["stream_tcp"] = drive_path(
             "stream TCP", lambda: tcp_session(srv, audios[1]),
             ("log_mel_frontend", "lstm_seq_infer"))

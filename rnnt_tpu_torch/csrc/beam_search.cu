@@ -26,9 +26,9 @@
 // Rounding points follow the TPU kernel: fj = enc_t @ W1 + b1 and
 // g = pred @ W1 in fp32, tanh(fj + g) rounded to the weight type, @ W2 + b2
 // and the log-softmax in fp32; a layer's z = x @ Wx + h @ Wh + bias with x
-// and h in the weight type and fp32 sums (Wx and Wh read in place), c in
-// fp32, hid rounded, h_new = hid @ Wp in fp32, LayerNorm of the unrounded
-// h_new, the state keeping h_new rounded.
+// and h in the weight type and fp32 sums, c in fp32, hid rounded, h_new =
+// hid @ Wp in fp32, LayerNorm of the unrounded h_new, the state keeping
+// h_new rounded.
 //
 // Bound on the H100, at the parity width (pred net 2 x 2048/640, embedding
 // 500, joint 640, V = 4096) in bf16: the inputs are mostly the decode-side
@@ -39,8 +39,8 @@
 // plus E x 45 MB of prediction net, ~0.3 GB a frame, and the 50 MB L2 holds
 // only part of that, so streaming the weights costs ~90 us a frame.  The
 // steps form a dependent chain of ~7E + 3 grid-wide phases a frame, so at
-// small B the real limit is latency: barriers and the per-phase weight
-// stream.
+// small B the real limit is latency: barriers, round trips to L2 and the
+// per-phase weight stream.
 //
 // Design: one persistent launch covers the whole search, as K2 covers a
 // sequence.  The grid is one block per SM (checked against
@@ -69,12 +69,36 @@
 // load is one 16-byte vector.  Within a block, vector rows are staged in
 // shared memory and block_dots_vec splits each vector column's dot products
 // over threads; per-utterance selections run one warp per utterance with
-// shuffles, the prefix comparisons one warp per pair of rows.  Weights come
-// from L2 or device memory at every phase: pinning slices in shared memory
-// and wgmma are later work.
+// shuffles, the prefix comparisons one warp per pair of rows.
+//
+// F3's products have two designs, chosen by the wrapper's plan before the
+// launch (ops/beam_cuda.stream_plan) and reported by beam_last_design():
+//  - FMA (fp32, and bf16 outside the plan): block_dots_vec over Wx, Wh and
+//    Wp in place, as every other phase reads its weights.
+//  - Streamed (bf16 at N = B K <= 16, a ring in shared memory): the
+//    wrapper packs each layer's gate columns ([Wx; Wh], unit-major 4u + g)
+//    and Wp columns once into per-block runs in the order the warps read
+//    them (the packed layout, below).  Each warp streams its own k16
+//    slices through a ring of 2 slots with 1D bulk copies (TMA,
+//    cp.async.bulk + mbarrier), issuing the next chunk as soon as one is
+//    consumed, across layers and into the next expansion: so the slices of
+//    the next advance land while the block is in F4, F5 and F2, marked
+//    evict-first in L2.  The products run on the FMA units, K split over
+//    the 16 warps (a layer's x slices on warps 0-7, its h slices on 8-15,
+//    so z = (x @ Wx + h @ Wh) + bias as the reference sums it), lane r
+//    taking rows r and r + 32 of the slice (Wp's 8 rows: 4 lanes a row)
+//    against the hypothesis rows staged in bf16; the warps' partial sums
+//    are added in warp order in the cell update.
+//    (mma.sync ran the products 2% faster, but its accumulation, which
+//    truncates inside each instruction, moved a 15 s search's picks off
+//    the reference's: PERF.md.)  The 7E + 3 barriers, the joint and the
+//    selections are the FMA design's.  Its pace at the 15 s search is set
+//    by the staging's L2 round trips and the L1 the ring leaves for the
+//    kernel's stack (PERF.md).
 
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -98,6 +122,10 @@ struct Args {
   const W *wx[MAXL], *wh[MAXL], *bias[MAXL], *wp[MAXL], *ln_s[MAXL],
       *ln_b[MAXL];
   const float *init_c[MAXL], *init_h[MAXL];  // [N, H], [N, P] (h rounded)
+  // the streamed advance (slots > 0): each layer's packed gate and Wp
+  // slices (the packed layout, below), ring slots a warp
+  const __nv_bfloat16 *pk_g[MAXL], *pk_p[MAXL];
+  int slots;
   int* tok_out;     // [B, L]
   int* len_out;     // [B]
   float* sc_out;    // [B, K]
@@ -128,6 +156,11 @@ enum Phase {
   PH_MERGE,        // F5: blank settle, prefix merge, pool top-K
   PH_GATHER,       // F5: the winners into the new settled set
   PH_BARRIER,      // waiting at grid barriers
+  // F3 of the streamed advance (gates and proj are then its products):
+  PH_STAGE,        // the products' rows into xb
+  PH_RING_WAIT,    // waiting for weight chunks (thread 0: warp 0's)
+  PH_WARP_SYNC,    // after its products, waiting for the other warps'
+  PH_CELL,         // summing the warps' partial sums: cell update, h_new
   N_PHASES
 };
 
@@ -160,6 +193,10 @@ struct Carver {
     float* p = base ? base + off : nullptr;
     off += n;
     return p;
+  }
+  // the next take starts at a multiple of `words`
+  __host__ __device__ void align(size_t words) {
+    off = (off + words - 1) / words * words;
   }
 };
 
@@ -233,21 +270,99 @@ struct Smem {
   int *par, *lab, *zsrc, *kil, *xlen, *slen, *ylen;
   int *cand_idx;
   int* eq;  // [N, K]: settled row n matches advanced row k of its utterance
+  // the streamed advance only: the product's hypothesis rows in bf16 [N,
+  // xb_stride], each warp's ring slots and their mbarriers
+  __nv_bfloat16* xb;
+  unsigned long long* mbar;
+  unsigned char* ring;
 };
 
+// ---- the streamed advance (bf16): layout of the packed weight slices ----
+//
+// Every product of the advance, a layer's gates (rows: gate columns 4u + g
+// of the units, k: x padded to 16 then h padded to 16) and its Wp (rows: P
+// columns, k: H padded to 16), is cut by rows into the blocks' slices and
+// by k into k16 slices.  A block's slice of a product is one contiguous
+// run: its k16 slices in warp order (dealt to the warps as warp_share below
+// says; all of warp 0's first), each slice its rows in order, 16 bf16 values
+// (32 bytes) a row.  Block b's run starts after those of the blocks
+// before it: at (4 u0 / 8) x nsl x 128 values for the gates, (p0 / 8) x nsl
+// x 128 for Wp (nsl: the product's k16 slices).  ops/beam_cuda.pack_layer
+// writes it; each warp streams its own slices through its own ring of
+// `slots` slots of slot_bytes.
+constexpr int NWARP = NT / 32;
+constexpr int HALF = 256;   // bytes of 8 rows of a k16 slice
+constexpr int MAXR = 64;    // rows of a block's slice of a product
+constexpr int MAXN = 16;    // hypothesis rows N = B K
+
+__host__ __device__ inline int r16(int n) { return (n + 15) / 16 * 16; }
+
+// k of layer l's gate product: x (din padded to 16), then h (P padded).
+__host__ __device__ inline int gate_k(const Dims& d, int l) {
+  return r16(l == 0 ? d.D : d.P) + r16(d.P);
+}
+
+// Bytes of a ring slot: a k16 slice of the widest slice of any product.
+__host__ __device__ inline int slot_bytes(const Dims& d, int nblk) {
+  const int g = 4 * slice_max(d.H, nblk), p = slice_max(d.P, nblk);
+  return (g > p ? g : p) / 8 * HALF;
+}
+
+// Row stride (bf16 values) of the staged hypothesis rows: the widest k of
+// any product (gates or Wp), a multiple of 16.
+__host__ __device__ inline int xb_stride(const Dims& d) {
+  int k = r16(d.H);
+  for (int l = 0; l < d.nl && l < 2; ++l) k = k > gate_k(d, l) ? k : gate_k(d, l);
+  return k;
+}
+
+// A product's k16 slices come in one segment (Wp's k) or two (a layer's x,
+// then its h).  The warps are dealt evenly to the segments, and within one
+// the lw-th of its ws warps takes the slices lw, lw + ws, ...: so a layer's
+// z sums x @ Wx (warps 0-7) and h @ Wh (warps 8-15) apart and adds them,
+// as the reference does.  A warp's share: its first slice and stride, its
+// slice count, and the position of its first slice in warp order (the
+// packed run holds warp 0's slices first, then warp 1's, ...).
+struct Share {
+  int s0, step, cnt, first;
+};
+__host__ __device__ inline Share warp_share(int seg0, int seg1, int w) {
+  const int ws = seg1 > 0 ? NWARP / 2 : NWARP, sg = w / ws, lw = w % ws;
+  const int n = sg ? seg1 : seg0, base = sg ? seg0 : 0, r = n % ws;
+  Share sh;
+  sh.s0 = base + lw;
+  sh.step = ws;
+  sh.cnt = lw < n ? (n - lw + ws - 1) / ws : 0;
+  sh.first = base + lw * (n / ws) + (lw < r ? lw : r);
+  return sh;
+}
+
+// Whether the streamed advance takes the shape, shared memory aside: at
+// most MAXN hypothesis rows and MAXR rows a block's slice of a product (two
+// a lane), whole 16-byte vectors a block; the 16 warps' partial sums then
+// fit in red.
+__host__ __device__ inline bool stream_shape_ok(const Dims& d, int nblk) {
+  return d.B * d.K <= MAXN && 4 * slice_max(d.H, nblk) <= MAXR &&
+         slice_max(d.P, nblk) <= MAXR && d.H % SLICE == 0 &&
+         d.P % SLICE == 0 &&
+         (size_t)NWARP * MAXR * MAXN <= (size_t)NT * SLICE * BCH;
+}
+
 // Carves shared memory (4-byte words) into `s`; returns its size in words.
+// slots > 0: the streamed advance's layout (no xs2, xs without H; the
+// staged rows, mbarriers and ring after the rest).
 __host__ __device__ inline size_t carve_smem(float* base, const Dims& d,
-                                             int nblk, Smem* s) {
+                                             int nblk, int slots, Smem* s) {
   Carver cv{base, 0};
   const size_t N = (size_t)d.B * d.K;
   int kx = d.D > d.P ? d.D : d.P;
-  kx = kx > d.H ? kx : d.H;
+  if (slots == 0) kx = kx > d.H ? kx : d.H;
   kx = kx > d.J ? kx : d.J;
   const size_t ncand = (size_t)cand_group(d) * nblk * d.K;
   s->red = cv.take((size_t)NT * SLICE * BCH);
   s->out = cv.take((size_t)ncmax(d, nblk) * BCH);
   s->xs = cv.take((size_t)BCH * kx);
-  s->xs2 = cv.take((size_t)BCH * d.P);
+  s->xs2 = slots == 0 ? cv.take((size_t)BCH * d.P) : nullptr;
   s->fj = cv.take((size_t)d.B * slice_max(d.J, nblk));
   s->lg = cv.take(N * slice_max(d.V, nblk));
   s->cand_sc = cv.take(ncand);
@@ -260,7 +375,107 @@ __host__ __device__ inline size_t carve_smem(float* base, const Dims& d,
                 &s->ylen};
   for (int** p : in) *p = (int*)cv.take(N);
   s->eq = (int*)cv.take(N * d.K);
+  s->xb = nullptr;
+  s->mbar = nullptr;
+  s->ring = nullptr;
+  if (slots > 0) {
+    cv.align(4);
+    s->xb = (__nv_bfloat16*)cv.take(N * xb_stride(d) / 2);
+    cv.align(2);
+    s->mbar = (unsigned long long*)cv.take((size_t)2 * NWARP * slots);
+    cv.align(32);
+    s->ring = (unsigned char*)cv.take((size_t)NWARP * slots *
+                                      slot_bytes(d, nblk) / 4);
+  }
   return cv.off;
+}
+
+// C bf16 values at p (C = 4, 8 or 16; p aligned to 2C bytes, at most 16)
+// as floats, in 8- or 16-byte loads.
+template <int C>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p,
+                                          float (&o)[C]) {
+  constexpr int V = C == 4 ? 1 : C / 8;  // loads
+  constexpr int W = C == 4 ? 2 : 4;      // bf16 pairs a load
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    unsigned u[4];
+    if (W == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      u[0] = v.x;
+      u[1] = v.y;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + 8 * q);
+      u[0] = v.x;
+      u[1] = v.y;
+      u[2] = v.z;
+      u[3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+      o[q * 2 * W + 2 * i] = f.x;
+      o[q * 2 * W + 2 * i + 1] = f.y;
+    }
+  }
+}
+
+// ---- bulk asynchronous copies (TMA, 1D) with mbarrier completion ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* b,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; the barrier's phase completes when they land.
+// Issued by one thread: it arrives on the barrier expecting the bytes.  The
+// lines are marked evict-first in L2: each weight slice is read once an
+// expansion, and 45 MB of them would otherwise push the joint's weights,
+// the workspace and the code out of the 50 MB L2 (without the hint the 15 s
+// search ran 25% slower on the H100, PERF.md).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* b) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b)), "l"(pol)
+      : "memory");
+}
+__device__ __forceinline__ bool mbar_done(unsigned long long* b,
+                                          unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Waits for the barrier's phase of parity `parity` to complete; as
+// grid_barrier, a wait over 2^35 cycles is a fault and traps.
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          unsigned parity) {
+  if (mbar_done(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_done(b, parity))
+    if (clock64() - t0 > (1LL << 35)) __trap();
 }
 
 // Selection order: higher score first, then the lower index.
@@ -423,12 +638,94 @@ __device__ void stage_ln(float* xs, float* stat, const float* hnew, int n0,
   __syncthreads();
 }
 
-// TIMED: thread 0 of every block keeps its phase totals in registers and
-// adds them to its row of a.phase_ns at the end (a diagnostic build of the
-// same code; the serving path launches the untimed one).
-template <typename W, bool TIMED>
+// dst[n * ld + k] = get(n, k) rounded to T, for n < rows, k < kc.  (Each
+// thread's loads one at a time: batching 16 of them before the stores ran
+// slower on the H100, PERF.md.)
+template <typename T, typename Get>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, int rows, int kc,
+                                           Get get) {
+  for (int i = threadIdx.x; i < rows * kc; i += NT) {
+    const int n = i / kc, k = i - n * kc;
+    dst[(size_t)n * ld + k] = from_float<T>(get(n, k));
+  }
+}
+
+// dst[n * ld + k] = src(n)[k] for k < kvalid, zero up to kc, rounded to T,
+// for n < rows: rows of fp32 (kvalid and kc multiples of 4) read with one
+// 16-byte load a 4 values where every row is 16-byte aligned (`aligned`;
+// at K = 4 every workspace buffer is), else one value a load.
+template <typename T, typename Src>
+__device__ __forceinline__ void stage_f32_rows(T* dst, int ld, int rows,
+                                               int kc, int kvalid, bool aligned,
+                                               Src src) {
+  if (!aligned) {
+    stage_rows(dst, ld, rows, kc, [&](int n, int k) {
+      return k < kvalid ? __ldcg(src(n) + k) : 0.f;
+    });
+    return;
+  }
+  const int q4 = kc / 4;
+  for (int i = threadIdx.x; i < rows * q4; i += NT) {
+    const int n = i / q4, k = 4 * (i - n * q4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k < kvalid) v = __ldcg(reinterpret_cast<const float4*>(src(n) + k));
+    T* o = dst + (size_t)n * ld + k;
+    o[0] = from_float<T>(v.x);
+    o[1] = from_float<T>(v.y);
+    o[2] = from_float<T>(v.z);
+    o[3] = from_float<T>(v.w);
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// xb rows n0 .. n0+nb, k < kx: the LayerNorm (eps 1e-3) of hnew rows n0 ..
+// n0+nb, rounded to bf16, zero from P on (stage_ln's arithmetic, written to
+// xb); xs and stat are scratch.
+template <typename W>
+__device__ void stage_ln_xb(__nv_bfloat16* xb, int xstr, int kx, float* xs,
+                            float* stat, const float* hnew, int n0, int nb,
+                            int P, const W* sc, const W* bi) {
+  stage_f32_rows(xs, P, nb, P, P, aligned16(hnew), [&](int bb) {
+    return hnew + (size_t)(n0 + bb) * P;
+  });
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < nb) {
+    const float* x = xs + warp * P;
+    float s = 0.f;
+    for (int k = lane; k < P; k += 32) s += x[k];
+    const float mean = warp_sum(s) / P;
+    float q = 0.f;
+    for (int k = lane; k < P; k += 32) q += (x[k] - mean) * (x[k] - mean);
+    const float var = warp_sum(q) / P;
+    if (lane == 0) {
+      stat[2 * warp] = mean;
+      stat[2 * warp + 1] = rsqrtf(var + 1e-3f);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb * kx; i += NT) {
+    const int bb = i / kx, k = i - bb * kx;
+    xb[(size_t)(n0 + bb) * xstr + k] = from_float<__nv_bfloat16>(
+        k < P ? round_to<W>((xs[bb * P + k] - stat[2 * bb]) * stat[2 * bb + 1] *
+                                to_float(sc[k]) +
+                            to_float(bi[k]))
+              : 0.f);
+  }
+  __syncthreads();
+}
+
+// STREAM (bf16 only): the advance's products on streamed weight slices
+// (see the kernel's F3).  TIMED: thread 0 of every block keeps its phase
+// totals in registers and adds them to its row of a.phase_ns at the end (a
+// diagnostic build of the same code; the serving path launches the untimed
+// one).
+template <typename W, bool STREAM, bool TIMED>
 __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(128) float smem[];
   const Dims d = a.d;
   const int nblk = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, nwarp = NT / 32;
@@ -437,7 +734,7 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
   Work w;
   carve(a.ws, d, nblk, &w);
   Smem s;
-  carve_smem(smem, d, nblk, &s);
+  carve_smem(smem, d, nblk, STREAM ? a.slots : 0, &s);
   float* const red = s.red;
   float* const out = s.out;
   float* const xs = s.xs;
@@ -739,6 +1036,176 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
       }
   };
 
+  // ---- the streamed advance (STREAM): each warp's ring of weight chunks ----
+  // Per expansion the products run in the order gates of layer 0, its Wp,
+  // gates of layer 1, ..., and each warp streams its own k16 slices of them
+  // in that order, wrapping to the next expansion, through `slots` slots
+  // of sbytes: a chunk is as many whole slices of a product as fill a slot.
+  // Lane 0 issues chunk q into slot q % slots as soon as chunk q - slots
+  // has been consumed, so the next expansion's first chunks land while the
+  // block is at the barriers and the selection phases.
+  const int slots = STREAM ? a.slots : 0;
+  const int sbytes = slot_bytes(d, nblk), xstr = xb_stride(d);
+  const int nprod = 2 * d.nl;
+  struct Prod {
+    const __nv_bfloat16* src;  // the block's run
+    int seg0, seg1, nh;        // k16 slices of each segment, 8-row halves
+  };
+  auto prod = [&](int pi) -> Prod {
+    const int l = pi >> 1;
+    if ((pi & 1) == 0) {
+      const int sx = r16(l == 0 ? D : P) / 16, sh = r16(P) / 16;
+      return {a.pk_g[l] + (size_t)(u0 / 2) * (sx + sh) * 128, sx, sh, nu / 2};
+    }
+    const int nsl = r16(H) / 16;
+    return {a.pk_p[l] + (size_t)(p0 / 8) * nsl * 128, nsl, 0, np / 8};
+  };
+  auto chunks = [&](const Prod& pr) {  // this warp's chunks of a product
+    return pr.nh == 0 ? 0
+                      : cdiv(warp_share(pr.seg0, pr.seg1, warp).cnt,
+                             sbytes / (pr.nh * HALF));
+  };
+  int q_cons = 0, q_iss = 0, pi_iss = 0, c_iss = 0, total = 0;
+  // the next chunk of this warp's sequence into the slot it goes to
+  auto issue = [&]() {
+    if (q_iss >= total) return;
+    while (c_iss >= chunks(prod(pi_iss))) {
+      c_iss = 0;
+      pi_iss = pi_iss + 1 == nprod ? 0 : pi_iss + 1;
+    }
+    const Prod pr = prod(pi_iss);
+    const Share sh = warp_share(pr.seg0, pr.seg1, warp);
+    const int cpc = sbytes / (pr.nh * HALF), i0 = c_iss * cpc;
+    const int cnt = min(cpc, sh.cnt - i0);
+    if (lane == 0) {
+      const int slot = warp * slots + q_iss % slots;
+      // the slot's last reads (generic proxy) before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_load(s.ring + (size_t)slot * sbytes,
+                pr.src + (size_t)(sh.first + i0) * pr.nh * 128,
+                (unsigned)(cnt * pr.nh * HALF), s.mbar + slot);
+    }
+    ++c_iss;
+    ++q_iss;
+  };
+  // This warp's share of product pi: its k16 slices times every hypothesis
+  // row n of the staged rows xb (bf16, zero past N), summed in fp32 FMAs
+  // over k in order, as the reference's fp32 products round; the partial
+  // sums go to red [warp][MAXR rows][N].  A slice of more than 8 rows takes
+  // rows lane and lane + 32, all 16 k; one of at most 8 (Wp's) takes row
+  // lane % 8 on 4 lanes, 4 k each, summed by shuffles at the end.  The
+  // caller's red_sum adds the warps' sums in warp order after the
+  // __syncthreads that products ends with.
+  auto products = [&](int pi) {
+    const Prod pr = prod(pi);
+    const int R = 8 * pr.nh;
+    auto run = [&](auto rpl_c, auto kpl_c, auto mn_c) {
+      constexpr int RPL = decltype(rpl_c)::value;  // rows a lane
+      constexpr int KPL = decltype(kpl_c)::value;  // k of a slice a lane
+      constexpr int MN = decltype(mn_c)::value;    // most hypothesis rows
+      constexpr int KC = KPL < 8 ? KPL : 8;        // k a load
+      constexpr int RL = 32 * KPL / 16;            // rows the warp covers
+      const int rl = lane % RL, kq = lane / RL * KPL;
+      float acc[RPL][MN] = {};
+      if (pr.nh > 0) {
+        const int cpc = sbytes / (pr.nh * HALF);
+        const Share sh = warp_share(pr.seg0, pr.seg1, warp);
+        for (int i0 = 0; i0 < sh.cnt; i0 += cpc) {
+          const int slot = warp * slots + q_cons % slots;
+          if (pi & 1)
+            mark(PH_PROJ);
+          else
+            mark(PH_GATES);
+          mbar_wait(s.mbar + slot, (q_cons / slots) & 1);
+          mark(PH_RING_WAIT);
+          const __nv_bfloat16* cb =
+              reinterpret_cast<const __nv_bfloat16*>(s.ring +
+                                                     (size_t)slot * sbytes);
+          const int cnt = min(cpc, sh.cnt - i0);
+          for (int i = 0; i < cnt; ++i) {
+            const int k0 = (sh.s0 + sh.step * (i0 + i)) * 16 + kq;
+#pragma unroll
+            for (int kc = 0; kc < KPL; kc += KC) {
+              float wv[RPL][KC];
+#pragma unroll
+              for (int rr = 0; rr < RPL; ++rr) {
+                const int r = rl + RL * rr;
+                if (r < R)
+                  load_bf16<KC>(cb + ((size_t)i * R + r) * 16 + kq + kc,
+                                wv[rr]);
+                else
+#pragma unroll
+                  for (int j = 0; j < KC; ++j) wv[rr][j] = 0.f;
+              }
+#pragma unroll
+              for (int n = 0; n < MN; ++n) {
+                if (n < N) {
+                  float xv[KC];
+                  load_bf16<KC>(s.xb + (size_t)n * xstr + k0 + kc, xv);
+#pragma unroll
+                  for (int rr = 0; rr < RPL; ++rr)
+#pragma unroll
+                    for (int j = 0; j < KC; ++j)
+                      acc[rr][n] = fmaf(wv[rr][j], xv[j], acc[rr][n]);
+                }
+              }
+            }
+          }
+          __syncwarp();  // every lane's reads of the slot are done
+          ++q_cons;
+          issue();
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RPL; ++rr)
+#pragma unroll
+        for (int n = 0; n < MN; ++n)
+          if (n < N) {
+            float v = acc[rr][n];
+#pragma unroll
+            for (int o = RL; o < 32; o <<= 1)
+              v += __shfl_xor_sync(FULL, v, o);
+            if (lane < RL && rl + RL * rr < R)
+              red[((size_t)warp * MAXR + rl + RL * rr) * N + n] = v;
+          }
+    };
+    using I1 = std::integral_constant<int, 1>;
+    using I2 = std::integral_constant<int, 2>;
+    using I4 = std::integral_constant<int, 4>;
+    using I16 = std::integral_constant<int, 16>;
+    if (R > 8) {
+      if (N <= 4)
+        run(I2{}, I16{}, I4{});  // B = 1: 8 accumulators a lane
+      else
+        run(I2{}, I16{}, I16{});
+    } else {
+      if (N <= 4)
+        run(I1{}, I4{}, I4{});
+      else
+        run(I1{}, I4{}, I16{});
+    }
+    if (pi & 1)
+      mark(PH_PROJ);
+    else
+      mark(PH_GATES);
+    __syncthreads();
+    mark(PH_WARP_SYNC);
+  };
+  // row r (of the block's product rows), hypothesis row n of the sum of
+  // warps q0 .. q1-1's partial sums, in warp order
+  auto red_sum = [&](int r, int n, int q0, int q1) {
+    float z = 0.f;
+    for (int q = q0; q < q1; ++q) z += red[((size_t)q * MAXR + r) * N + n];
+    return z;
+  };
+  if constexpr (STREAM) {
+    if (lane == 0) {
+      for (int i = 0; i < slots; ++i) mbar_init(s.mbar + warp * slots + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+  }
+
   // ---- the beam starts from the wrapper's initial state, in set 0 ----
   {
     const HypSet& s0 = w.set[0];
@@ -765,6 +1232,12 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
   }
   int tmax = 0;  // frames past every utterance's length change nothing
   for (int b = 0; b < B; ++b) tmax = max(tmax, min(d.T, a.enc_len[b]));
+  if constexpr (STREAM) {  // the first chunks, in flight from here on
+    int per_exp = 0;
+    for (int pi = 0; pi < nprod; ++pi) per_exp += chunks(prod(pi));
+    total = per_exp * tmax * d.E;
+    for (int i = 0; i < slots; ++i) issue();
+  }
   grid_barrier(a.bar, target);
   mark(PH_BARRIER);
 
@@ -828,6 +1301,67 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
       mark(PH_CHOOSE);
       // prediction-net layers of the advanced set
       for (int l = 0; l < d.nl; ++l) {
+        if constexpr (STREAM) {
+          // the rows [x | h] of every hypothesis in bf16, zero-padded to
+          // the packed k: x the label's embedding (layer 0) or the
+          // LayerNorm of the last layer's h_new, h the parent's state
+          const int kx = r16(l == 0 ? D : P), kh = r16(P);
+          if (l == 0) {
+            stage_rows(s.xb, xstr, N, kx, [&](int n, int k) {
+              return k < D ? to_float(a.embed[(size_t)s.lab[n] * D + k]) : 0.f;
+            });
+          } else {
+            for (int n0 = 0; n0 < N; n0 += BCH)
+              stage_ln_xb(s.xb, xstr, kx, xs, s.stat, w.hnew, n0,
+                          min(BCH, N - n0), P, a.ln_s[l - 1], a.ln_b[l - 1]);
+          }
+          stage_f32_rows(s.xb + kx, xstr, N, kh, P, aligned16(X.h[l]),
+                         [&](int n) { return X.h[l] + (size_t)s.par[n] * P; });
+          __syncthreads();
+          mark(PH_STAGE);
+          // thread n * nu + u owns unit u of row n (N nu <= 256 in the
+          // plan): its parent's c and the bias, loaded before the products
+          const int n = tid / max(nu, 1), u = tid - n * nu;
+          const bool own = nu > 0 && n < N;
+          float cpar = 0.f, bz[4] = {};
+          if (own) {
+            cpar = __ldcg(X.c[l] + (size_t)s.par[n] * H + u0 + u);
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              bz[g] = to_float(a.bias[l][g * H + u0 + u]);
+          }
+          products(2 * l);
+          if (own) {
+            float z[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g)  // (x @ Wx + h @ Wh) + bias
+              z[g] = (red_sum(4 * u + g, n, 0, NWARP / 2) +
+                      red_sum(4 * u + g, n, NWARP / 2, NWARP)) +
+                     bz[g];
+            const float c = sigmoid(z[2]) * cpar + sigmoid(z[0]) * tanhf(z[1]);
+            Y.c[l][(size_t)n * H + u0 + u] = c;
+            w.hid[(size_t)n * H + u0 + u] =
+                round_to<W>(sigmoid(z[3]) * tanhf(c));
+          }
+          barrier(PH_CELL);
+          if (np > 0) {  // block-uniform: blocks without Wp columns skip
+            stage_f32_rows(s.xb, xstr, N, r16(H), H, aligned16(w.hid),
+                           [&](int n) { return w.hid + (size_t)n * H; });
+            __syncthreads();
+            mark(PH_STAGE);
+            products(2 * l + 1);
+            for (int i = tid; i < N * np; i += NT) {
+              const int n = i / np, c = i - n * np;
+              const float hv = red_sum(c, n, 0, NWARP);
+              const size_t o = (size_t)n * P + p0 + c;
+              w.hnew[o] = hv;
+              Y.h[l][o] = round_to<W>(hv);
+            }
+          }
+          barrier(PH_CELL);
+          continue;
+        }
+        // the FMA design: block_dots_vec over the weights in place
         const int din = l == 0 ? D : P;
         for (int n0 = 0; n0 < N; n0 += BCH) {
           const int nb = min(BCH, N - n0);
@@ -962,6 +1496,14 @@ Dims dims_of(const int* v) {
               v[6], v[7], v[8], v[9], v[10], v[11]};
 }
 
+// The design of the last launch: 0 = FMA, 1 = the streamed advance.
+int g_last_design = 0;
+
+// dims[12] asks for the design (0 FMA, 1 streamed), dims[13] its ring slots
+// a warp.  The wrapper's plan chose them (ops/beam_cuda.stream_plan); the
+// launcher refuses a streamed launch that the card cannot take (fp32, a
+// shape outside stream_shape_ok, missing packed slices, a ring past the
+// shared memory) instead of running another design.
 template <typename W>
 int launch(void* const* ptrs, const int* dims, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
@@ -988,6 +1530,8 @@ int launch(void* const* ptrs, const int* dims, void* stream_) {
     a.ln_b[l] = (const W*)q[5];
     a.init_c[l] = (const float*)q[6];
     a.init_h[l] = (const float*)q[7];
+    a.pk_g[l] = (const __nv_bfloat16*)ptrs[48 + 2 * l];
+    a.pk_p[l] = (const __nv_bfloat16*)ptrs[49 + 2 * l];
   }
   a.tok_out = (int*)ptrs[40];
   a.len_out = (int*)ptrs[41];
@@ -997,19 +1541,41 @@ int launch(void* const* ptrs, const int* dims, void* stream_) {
   a.phase_ns = (unsigned long long*)ptrs[45];
   a.tr_idx = (int*)ptrs[46];
   a.tr_val = (float*)ptrs[47];
+  const bool streamed = dims[12] == 1;
+  a.slots = streamed ? dims[13] : 0;
 
-  int dev = 0, coop = 0, nblk = 0, per_sm = 0;
+  int dev = 0, coop = 0, nblk = 0, per_sm = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   const int ge = grid_blocks(&nblk);
   if (ge != 0) return ge;
   Smem sm;
-  const size_t smem = carve_smem(nullptr, a.d, nblk, &sm) * sizeof(float);
-  auto kernel = a.phase_ns != nullptr ? beam_kernel<W, true>
-                                      : beam_kernel<W, false>;
+  const size_t smem =
+      carve_smem(nullptr, a.d, nblk, a.slots, &sm) * sizeof(float);
+  const bool timed = a.phase_ns != nullptr;
+  void (*kernel)(Args<W>) =
+      timed ? beam_kernel<W, false, true> : beam_kernel<W, false, false>;
+  if (streamed) {
+    if constexpr (!std::is_same<W, __nv_bfloat16>::value) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      bool ok = a.slots >= 1 && stream_shape_ok(a.d, nblk) &&
+                smem <= (size_t)optin;
+      for (int l = 0; l < a.d.nl; ++l)
+        ok = ok && a.pk_g[l] != nullptr && a.pk_p[l] != nullptr &&
+             ((size_t)a.pk_g[l] | (size_t)a.pk_p[l]) % 16 == 0;
+      if (!ok) return (int)cudaErrorInvalidValue;
+      kernel = timed ? beam_kernel<W, true, true> : beam_kernel<W, true, false>;
+    }
+  } else if (dims[12] != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -1020,12 +1586,33 @@ int launch(void* const* ptrs, const int* dims, void* stream_) {
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned int), stream);
   if (e != cudaSuccess) return (int)e;
+  g_last_design = streamed ? 1 : 0;
   void* args[] = {&a};
   return launch_status(cudaLaunchCooperativeKernel(
       (void*)kernel, dim3(nblk), dim3(NT), args, smem, stream));
 }
 
 }  // namespace
+
+// The design of this library's last launch: 0 = FMA, 1 = the streamed
+// advance (chosen before the launch, never after a failed one).
+extern "C" int beam_last_design() { return g_last_design; }
+
+// Columns of a row of phase_ns: the phases of enum Phase.
+extern "C" int beam_phase_count() { return N_PHASES; }
+
+// The current device's SMs (the grid's blocks) and the shared memory a
+// block may opt in to, into out[0] and out[1].  Returns a CUDA error code.
+extern "C" int beam_card(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out + 1,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)e;
+}
 
 // dims: B, T, K, L, E, merge, V, P, J, D, H, n_layers.  Writes the number of
 // 4-byte workspace words the search needs on the current device to *words.
@@ -1038,7 +1625,7 @@ extern "C" int beam_workspace_words(const int* dims, long long* words) {
   return 0;
 }
 
-// ptrs (48): enc [T, B, P], enc_len [B] i32, embed [V, D], w1 [P, J],
+// ptrs (56): enc [T, B, P], enc_len [B] i32, embed [V, D], w1 [P, J],
 // b1 [J], w2 [J, V], b2 [V], init_pred [N, P] f32; then for each of 4 layer
 // slots (unused past n_layers): wx [Din, 4H], wh [P, 4H], bias [4H],
 // wp [H, P], ln_scale [P], ln_bias [P], init_c [N, H] f32, init_h [N, P]
@@ -1046,9 +1633,12 @@ extern "C" int beam_workspace_words(const int* dims, long long* words) {
 // workspace, one uint32 barrier counter, null or a zeroed uint64
 // [grid blocks, N_PHASES] to which each block adds its nanoseconds in each
 // phase (Phase; the grid is one block per SM), and
-// null or the trace's int32 picks and fp32 scores, [T * E * 2, B, K] each.
-// Weights in the kernel's type.
-// Returns a CUDA error code (0 = launched).
+// null or the trace's int32 picks and fp32 scores, [T * E * 2, B, K] each;
+// then for each of the 4 layer slots the packed gate and Wp slices of the
+// streamed advance (bf16, 16-byte aligned; null for the FMA design).
+// Weights in the kernel's type.  dims (14): as beam_workspace_words', then
+// the design (0 FMA, 1 streamed) and the streamed design's ring slots a
+// warp.  Returns a CUDA error code (0 = launched).
 extern "C" int beam_search_f32(void* const* ptrs, const int* dims,
                                void* stream) {
   return launch<float>(ptrs, dims, stream);

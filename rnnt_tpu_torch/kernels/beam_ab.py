@@ -45,7 +45,6 @@ from rnnt_tpu_torch.kernels import build
 from rnnt_tpu_torch.ops import beam_cuda
 
 FRAMES, T_PAD, K, E, L = 250, 256, 4, 6, 256
-DESIGNS = ("fma", "stream")  # beam_last_design(): 0, 1
 
 
 def _build_all(sources, ptxas):
@@ -77,6 +76,14 @@ def _build_all(sources, ptxas):
         lib.beam_workspace_words.argtypes = [ctypes.c_void_p] * 2
         libs[spec] = (lib, fn, _ptxas_report(out) if ptxas else None)
     return libs
+
+
+def _launcher(lib, fn, model, enc, enc_len, kw):
+    """beam_search through one build."""
+    def run(**extra):
+        return beam_cuda.beam_search(model, enc, enc_len, library=(lib, fn),
+                                     **kw, **extra)
+    return run
 
 
 def _ptxas_report(out):
@@ -139,8 +146,8 @@ def main(argv=None) -> int:
         runs, report = {}, {}
         for spec, (lib, fn, ptx) in libs.items():
             trace = {}
-            got = beam_cuda.beam_search(model, enc, enc_len, trace=trace,
-                                        library=(lib, fn), **kw)
+            runs[spec] = _launcher(lib, fn, model, enc, enc_len, kw)
+            got = runs[spec](trace=trace)
             torch.cuda.synchronize()
             live = (got[2] > -1e29) & (want[2] > -1e29)
             rel = float((got[2] - want[2]).abs()[live].max()
@@ -154,12 +161,10 @@ def main(argv=None) -> int:
                 "first_differing_selection": first,
                 "plain_gap_there": None if first is None
                 else float(stats["gap"][first, 0]),
-                "design": DESIGNS[lib.beam_last_design()]
+                "design": beam_cuda.DESIGNS[lib.beam_last_design()]
                 if hasattr(lib, "beam_last_design") else "fma"}
             if ptx is not None:
                 report[spec]["ptxas"] = ptx
-            runs[spec] = (lambda lib=lib, fn=fn: beam_cuda.beam_search(
-                model, enc, enc_len, library=(lib, fn), **kw))
         order = list(runs)
         times = {s: [] for s in order}
         for _ in range(a.turns):
@@ -178,14 +183,19 @@ def main(argv=None) -> int:
             report[spec]["ms"] = _median_min_max(times[spec])
             report[spec]["ms_by_turn"] = times[spec]
             if a.phases:
+                # a build's own row width (an older one times fewer
+                # phases, or block 0 alone: row 0)
+                cols = (lib.beam_phase_count()
+                        if hasattr(lib, "beam_phase_count") else 11)
                 phase_ns = torch.zeros(
                     (beam_cuda.grid_blocks(enc.device),
                      len(beam_cuda.PHASES)), dtype=torch.int64,
                     device="cuda")
-                beam_cuda.beam_search(model, enc, enc_len, phase_ns=phase_ns,
-                                      library=(lib, fn), **kw)
+                runs[spec](phase_ns=phase_ns)
                 torch.cuda.synchronize()
-                report[spec]["phase_ms"] = beam_cuda.phase_split(phase_ns)
+                rows = phase_ns.reshape(-1)[:phase_ns.shape[0] * cols]
+                report[spec]["phase_ms"] = beam_cuda.phase_split(
+                    rows.reshape(-1, cols))
     for spec in order:
         print(json.dumps({"kernel": "beam", "source": spec, "frames": FRAMES,
                           "K": K, "E": E, "L": L, "dtype": "bfloat16",

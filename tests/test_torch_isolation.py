@@ -30,6 +30,7 @@ import rnnt_tpu_torch.ops.lattice_cuda, rnnt_tpu_torch.ops.planes_cuda
 import rnnt_tpu_torch.ops.joint_loss_fused, rnnt_tpu_torch.ops.matmul
 import rnnt_tpu_torch.data.records, rnnt_tpu_torch.data.pipeline
 import rnnt_tpu_torch.metrics.edit_distance, rnnt_tpu_torch.kernels.lstm_ab
+import rnnt_tpu_torch.kernels.beam_ab
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
