@@ -104,8 +104,9 @@ def slot_bytes(H: int, P: int, nblk: int) -> int:
 
 def xb_stride(D: int, P: int, H: int, n_layers: int) -> int:
     """Row stride (values) of the staged bf16 hypothesis rows: the widest
-    k of any product."""
-    return max([_r16(H)] + [gate_k(D, P, i) for i in range(min(n_layers, 2))])
+    k of any product rounded to 64, plus 16 (`xb_stride` in the source)."""
+    k = max([_r16(H)] + [gate_k(D, P, i) for i in range(min(n_layers, 2))])
+    return -(-k // 64) * 64 + 16
 
 
 def smem_bytes(B, K, nblk, *, V, P, J, D, H, n_layers, slots) -> int:
