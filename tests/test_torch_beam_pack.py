@@ -177,13 +177,13 @@ def test_plan_admits_the_serving_shapes_and_refuses_the_rest():
 def _emulate_products(prods, nblk, slots, sbytes, n_exp=3):
     """Every block's warps as the kernel runs them.  prods: the products of
     an expansion in order, (packed run, block row bounds, k, rows x [N,
-    k], k16 slices a segment).  Lane 0 issues chunk q of the warp's sequence into slot q % slots
-    as soon as chunk q - slots is consumed, its cursor skipping products
-    where the warp has no chunk and wrapping to the next expansion (the
-    kernel's `issue`); the consumer reads each slot's slices (rows of 16
-    values) against the hypothesis rows and adds the 16 warps' partial
-    products.  Returns each product's out [rows, N] of the last
-    expansion."""
+    k], k16 slices a segment).  Lane 0 issues chunk q of the warp's
+    sequence into slot q % slots as soon as chunk q - slots is consumed,
+    its cursor skipping products where the warp has no chunk and wrapping
+    to the next expansion (the kernel's `issue`); the consumer reads each
+    slot's slices (rows of 16 values) against the hypothesis rows and adds
+    the 16 warps' partial products.  Returns each product's out [rows, N]
+    of the last expansion."""
     outs = [torch.zeros((b[-1], x.shape[0])) for _, b, _, x, _ in prods]
     for blk in range(nblk):
         def shape(pi, w):  # (base, nh, cpc, warp's share)
