@@ -56,6 +56,59 @@ struct Tile<float> {
 };
 constexpr int LPAD = 4;  // row padding of the fp32 logits chunk
 
+// Phases of a block's time (enum PlanePhase).  Diagnostics only, off unless
+// built with -DPLANES_PHASE_TIMERS (kernels/lstm_ab.py --kernel planes
+// src.cu:PLANES_PHASE_TIMERS=1): thread 0 of every block adds the
+// nanoseconds of %globaltimer since its last mark to the phase it just
+// finished, in registers, and adds its totals to its block's row of
+// g_planes_ns at the end (read back through planes_phases()).
+enum PlanePhase {
+  PP_BUILD,       // the tanh tile (and the cells' offsets)
+  PP_W2_WAIT,     // W2 into shared memory: staging loads
+  PP_PRODUCTS,    // the tensor-core (or FMA) products
+  PP_LOGITS_OUT,  // the accumulators out to the fp32 logits chunk
+  PP_FOLD,        // the online logsumexp, blank and emit
+  PP_BARRIER,     // waiting at __syncthreads
+  PP_N
+};
+constexpr int PP_MAX_BLOCKS = 16384;  // rows of g_planes_ns
+#ifdef PLANES_PHASE_TIMERS
+__device__ unsigned long long g_planes_ns[PP_MAX_BLOCKS][PP_N];
+#endif
+int g_last_grid = 0;  // blocks of the last launch (host side)
+
+struct PlaneTimer {
+#ifdef PLANES_PHASE_TIMERS
+  unsigned long long mark = 0, ph[PP_N] = {};
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ bool mine() const {
+    return threadIdx.x == 0 && blockIdx.x < PP_MAX_BLOCKS;
+  }
+  __device__ void start() {
+    if (mine()) mark = now();
+  }
+  __device__ void at(int i) {
+    if (mine()) {
+      const unsigned long long t = now();
+      ph[i] += t - mark;
+      mark = t;
+    }
+  }
+  __device__ void flush() {
+    if (mine())
+      for (int i = 0; i < PP_N; ++i) g_planes_ns[blockIdx.x][i] += ph[i];
+  }
+#else
+  __device__ void start() {}
+  __device__ void at(int) {}
+  __device__ void flush() {}
+#endif
+};
+
 template <typename W>
 inline size_t plane_smem(int J) {
   using T = Tile<W>;
@@ -68,13 +121,14 @@ inline size_t plane_smem(int J) {
 template <typename W>
 __device__ void chunk_product(const W* hs, W* ws, float* ls,
                               const W* __restrict__ w2, int J, int Vp,
-                              int v0);
+                              int v0, PlaneTimer& tm);
 
 template <>
 __device__ void chunk_product<__nv_bfloat16>(const __nv_bfloat16* hs,
                                              __nv_bfloat16* ws, float* ls,
                                              const __nv_bfloat16* __restrict__ w2,
-                                             int J, int Vp, int v0) {
+                                             int J, int Vp, int v0,
+                                             PlaneTimer& tm) {
   using namespace nvcuda;
   using T = Tile<__nv_bfloat16>;
   const int warp = threadIdx.x / 32;
@@ -92,7 +146,9 @@ __device__ void chunk_product<__nv_bfloat16>(const __nv_bfloat16* hs,
           __ldg(reinterpret_cast<const uint4*>(w2 + (size_t)(k0 + r) * Vp +
                                                v0 + c8));
     }
+    tm.at(PP_W2_WAIT);
     __syncthreads();
+    tm.at(PP_BARRIER);
     for (int kk = 0; kk < ks; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                      wmma::row_major> a;
@@ -105,18 +161,21 @@ __device__ void chunk_product<__nv_bfloat16>(const __nv_bfloat16* hs,
         wmma::mma_sync(acc[i], a, bf, acc[i]);
       }
     }
+    tm.at(PP_PRODUCTS);
     __syncthreads();
+    tm.at(PP_BARRIER);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     wmma::store_matrix_sync(ls + rw * 16 * (VT + LPAD) + cw * 64 + i * 16,
                             acc[i], VT + LPAD, wmma::mem_row_major);
+  tm.at(PP_LOGITS_OUT);
 }
 
 template <>
 __device__ void chunk_product<float>(const float* hs, float* ws, float* ls,
                                      const float* __restrict__ w2, int J,
-                                     int Vp, int v0) {
+                                     int Vp, int v0, PlaneTimer& tm) {
   // thread: rows r0..r0+3, columns lane + 32q (q < 4)
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 4;
   float acc[4][4];
@@ -131,7 +190,9 @@ __device__ void chunk_product<float>(const float* hs, float* ws, float* ls,
       *reinterpret_cast<float4*>(ws + r * VT + c4) = __ldg(
           reinterpret_cast<const float4*>(w2 + (size_t)(k0 + r) * Vp + v0 + c4));
     }
+    tm.at(PP_W2_WAIT);
     __syncthreads();
+    tm.at(PP_BARRIER);
     for (int kk = 0; kk < ks; ++kk) {
       float a[4], bv[4];
 #pragma unroll
@@ -143,13 +204,16 @@ __device__ void chunk_product<float>(const float* hs, float* ws, float* ls,
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], bv[q], acc[i][q]);
     }
+    tm.at(PP_PRODUCTS);
     __syncthreads();
+    tm.at(PP_BARRIER);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       ls[(r0 + i) * (VT + LPAD) + lane + 32 * q] = acc[i][q];
+  tm.at(PP_LOGITS_OUT);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -192,6 +256,8 @@ __global__ void __launch_bounds__(PT)
   const long long N = (long long)B * T * U1;
   const long long n0 = (long long)blockIdx.x * CT;
   const int hld = J + Tl::HPAD;
+  PlaneTimer tm;
+  tm.start();
 
   for (int r = threadIdx.x; r < CT; r += PT) {
     const long long n = n0 + r;
@@ -221,13 +287,16 @@ __global__ void __launch_bounds__(PT)
                 to_float(g[(size_t)goff[r] * J + j]) + to_float(b1[j]));
     hs[r * hld + j] = from_float<W>(v);
   }
+  tm.at(PP_BUILD);
   __syncthreads();
+  tm.at(PP_BARRIER);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   constexpr int ROWS_PER_WARP = CT / (PT / 32);
   for (int v0 = 0; v0 < Vp; v0 += VT) {
-    chunk_product<W>(hs, ws, ls, w2, J, Vp, v0);
+    chunk_product<W>(hs, ws, ls, w2, J, Vp, v0, tm);
     __syncthreads();
+    tm.at(PP_BARRIER);
     // fold the chunk into each cell's running logsumexp (a warp per row)
     for (int k = 0; k < ROWS_PER_WARP; ++k) {
       const int r = warp * ROWS_PER_WARP + k;
@@ -255,7 +324,9 @@ __global__ void __launch_bounds__(PT)
       if (yc >= v0 && yc < v0 + VT && (yc - v0) % 32 == lane)
         run_em[r] = vals[(yc - v0) / 32];
     }
+    tm.at(PP_FOLD);
     __syncthreads();
+    tm.at(PP_BARRIER);
   }
   for (int r = threadIdx.x; r < CT; r += PT) {
     const long long n = n0 + r;
@@ -265,6 +336,8 @@ __global__ void __launch_bounds__(PT)
       emit[n] = run_em[r];
     }
   }
+  tm.at(PP_FOLD);
+  tm.flush();
 }
 
 template <typename W>
@@ -281,6 +354,7 @@ int launch(const void* f, const void* g, const int* y, const void* b1,
   if (e != cudaSuccess) return (int)e;
   const long long N = (long long)B * T * U1;
   const int blocks = (int)((N + Tile<W>::CT - 1) / Tile<W>::CT);
+  g_last_grid = blocks;
   kernel<<<blocks, PT, smem, (cudaStream_t)stream>>>(
       (const W*)f, (const W*)g, y, (const W*)b1, (const W*)w2, b2, denom,
       blank, emit, B, T, U1, J, V, Vp);
@@ -309,3 +383,26 @@ extern "C" int joint_planes_bf16(const void* f, const void* g, const int* y,
   return launch<__nv_bfloat16>(f, g, y, b1, w2, b2, denom, blank, emit, B, T,
                                U1, J, V, Vp, stream);
 }
+
+// Columns of a row of planes_phases(): the phases of enum PlanePhase.
+extern "C" int planes_phase_count() { return PP_N; }
+// Blocks of the last launch: the rows planes_phases() fills (at most
+// PP_MAX_BLOCKS).
+extern "C" int planes_phase_rows() {
+  return g_last_grid < PP_MAX_BLOCKS ? g_last_grid : PP_MAX_BLOCKS;
+}
+
+#ifdef PLANES_PHASE_TIMERS
+// Every block's nanoseconds by phase, summed over the launches since the
+// last reset (reset != 0 zeroes them): out holds planes_phase_rows() rows
+// of planes_phase_count() values.
+extern "C" int planes_phases(unsigned long long* out, int reset) {
+  if (reset) {
+    static unsigned long long zero[PP_MAX_BLOCKS][PP_N];
+    return (int)cudaMemcpyToSymbol(g_planes_ns, zero, sizeof zero);
+  }
+  return (int)cudaMemcpyFromSymbol(
+      out, g_planes_ns,
+      sizeof(unsigned long long) * PP_N * planes_phase_rows());
+}
+#endif

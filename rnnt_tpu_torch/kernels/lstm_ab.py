@@ -1,8 +1,9 @@
-"""A/B timing of builds of the LSTM kernels K2, K4, K5 and of K7 on one card.
+"""A/B timing of builds of the LSTM kernels K2, K4, K5 and of K6 and K7 on
+one card.
 
   python3 -m rnnt_tpu_torch.kernels.lstm_ab A.cu B.cu[:NAME=V,...] [...]
-      [--kernel infer|fwd|bwd|lattice] [--batch 32 96] [--steps 256]
-      [--shape 1x512 1x1 ...] [--reps 10]
+      [--kernel infer|fwd|bwd|planes|lattice] [--batch 32 96] [--steps 256]
+      [--shape 1x512 1x1 ...] [--reps 10] [--ptxas]
 
 Each source is a copy of `csrc/lstm_infer.cu` (`--kernel infer`, K2, entry
 `lstm_infer_bf16`; `--kernel fwd`, K4) or of `csrc/lstm_bwd.cu` (`--kernel
@@ -36,7 +37,17 @@ padded bf16 one of the MMA design, K2's tagged words), so builds of any
 design time alike.  With `--kernel lattice` the sources are copies of
 `csrc/rnnt_lattice.cu` (K7), run on random log-probability planes [B, T,
 U+1] (T = --steps, U+1 = --labels, emit masked from U_b on) and checked
-against `rnnt_loss_ref.lattice_scan_plain` over the valid cells.
+against `rnnt_loss_ref.lattice_scan_plain` over the valid cells.  With
+`--kernel planes` the sources are copies of `csrc/joint_planes.cu` (K6),
+run through `ops.planes_cuda.launch` (each call as the training step makes
+it, any packing of W2 included) at T' = --steps (default 128), U+1 =
+--labels, J=640, V=4096 in bf16, on `chip_smoke.planes_inputs`'s inputs
+(seed 4), checked against `planes_cuda.joint_planes_plain` (the largest
+relative error over denom, blank and emit); cuBLAS's bare bf16 [C,J] x
+[J,V] product (`torch.mm`) takes a turn as `cublas`.  A build with
+`PLANES_PHASE_TIMERS=1` also reports its per-block phase split in ms of
+one launch: block 0's, the heaviest block's and each phase's maximum over
+blocks.  `--ptxas` adds `-Xptxas -v` and prints each build's report.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import sys
 import torch
 
 from rnnt_tpu_torch.kernels import build
-from rnnt_tpu_torch.ops import lstm_cuda, rnnt_loss_ref
+from rnnt_tpu_torch.ops import lstm_cuda, planes_cuda, rnnt_loss_ref
 
 H, P, F_IN = 2048, 640, 240
 PHASES = ("A products", "A epilogue", "A barrier", "B products",
@@ -66,8 +77,12 @@ ENTRY = {"infer": ("lstm_infer_bf16", 10, "k2_phases", K2_PHASES),
                  ("A products: wait for the other warps",) + PHASES[1:]
                  + ("A products: ring and MMAs",)),
          "bwd": ("lstm_bwd_bf16", 13, "k5_phases", PHASES),
-         "lattice": ("rnnt_lattice", 7, None, ())}
+         "lattice": ("rnnt_lattice", 7, None, ()),
+         "planes": (None, 0, "planes_phases", (
+             "build", "w2_wait", "products", "logits_out", "fold",
+             "barrier"))}
 DESIGNS = ("fma", "mma", "lat")
+PLANES_J, PLANES_V = 640, 4096  # the parity joint
 INFER_SHAPES = ((1, 512), (1, 2), (1, 1), (32, 256))
 
 
@@ -75,7 +90,7 @@ def _round16(n):
     return -(-n // 16) * 16
 
 
-def _build_all(sources, kernel):
+def _build_all(sources, kernel, ptxas=False):
     """{source spec: (library, ctypes entry)}, all nvcc processes at once; a
     spec is a path, optionally with `:NAME=V,...` macro definitions."""
     entry, n_ptr, _, _ = ENTRY[kernel]
@@ -86,6 +101,7 @@ def _build_all(sources, kernel):
         src, _, defs = spec.partition(":")
         lib = os.path.join(out_dir, f"lib{i}_{os.path.basename(src)}.so")
         cmd = [build._nvcc(), *build.NVCC_FLAGS,
+               *(["-Xptxas", "-v"] if ptxas else []),
                *(f"-D{d}" for d in defs.split(",") if d), "-I", build._CSRC,
                "-o", lib, src]
         procs[spec] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -96,7 +112,12 @@ def _build_all(sources, kernel):
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{out}")
+        if ptxas:
+            print(f"ptxas {src}:\n{out}", flush=True)
         lib = ctypes.CDLL(path)
+        if kernel == "planes":
+            libs[src] = (planes_cuda.bind(lib), None)
+            continue
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (
@@ -206,6 +227,48 @@ def _lattice_err(got, args):
                     [want[0][valid], want[1][valid], want[2]])
 
 
+def _planes_inputs(B, T, U1, seed=4):
+    """`chip_smoke.planes_inputs` at the parity joint, in bf16, and the
+    operands of cuBLAS's bare product."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    J, V = PLANES_J, PLANES_V
+    lim = (6.0 / (J + V)) ** 0.5
+
+    def rand(shape, scale):
+        return (torch.rand(shape, generator=g, device="cuda") * 2 - 1) * scale
+
+    y = torch.randint(1, V, (B, U1), generator=g, device="cuda")
+    y[:, -1] = 0
+    f, gg, b1, w2, b2 = (rand((B, T, J), 1.0), rand((B, U1, J), 1.0),
+                         rand((J,), 0.1), rand((J, V), lim),
+                         rand((V,), 0.1))
+    dt = torch.bfloat16
+    args = (f.to(dt), gg.to(dt), y, b1.to(dt), w2.to(dt), b2.to(dt))
+    h2d = torch.randn((B * T * U1, J), device="cuda").to(dt)
+    return args, lambda: torch.mm(h2d, args[4])
+
+
+def _planes_split(lib, args):
+    """A timed build's per-block phase split of one launch, in ms: block
+    0's row, the heaviest block's and each phase's maximum over blocks."""
+    names = ENTRY["planes"][3]
+    lib.planes_phases(None, 1)
+    planes_cuda.launch(lib, *args)
+    torch.cuda.synchronize()
+    rows = lib.planes_phase_rows()
+    n = lib.planes_phase_count()
+    buf = (ctypes.c_ulonglong * (rows * n))()
+    lib.planes_phases(buf, 0)
+    ns = [[buf[r * n + i] for i in range(n)] for r in range(rows)]
+    heavy = max(range(rows), key=lambda r: sum(ns[r]))
+
+    def ms(row):
+        return {k: v / 1e6 for k, v in zip(names, row)}
+    return {"block0": ms(ns[0]), f"heaviest (block {heavy})": ms(ns[heavy]),
+            "max": ms([max(r[i] for r in ns) for i in range(n)]),
+            "blocks": rows}
+
+
 def _median_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -266,19 +329,28 @@ def main(argv=None) -> int:
     p.add_argument("sources", nargs="+")
     p.add_argument("--kernel", choices=tuple(ENTRY), default="bwd")
     p.add_argument("--batch", type=int, nargs="+", default=[32, 96])
-    p.add_argument("--steps", type=int, default=256)
+    p.add_argument("--steps", type=int, default=None,
+                   help="T (default 256; T' = 128 for --kernel planes)")
     p.add_argument("--shape", nargs="+", default=None,
                    help="BxT pairs (default: --batch x --steps; for "
                    "--kernel infer 1x512 1x2 1x1 32x256)")
     p.add_argument("--reps", type=int, default=10)
-    p.add_argument("--labels", type=int, default=65, help="U+1 (lattice)")
+    p.add_argument("--labels", type=int, default=65,
+                   help="U+1 (lattice, planes)")
+    p.add_argument("--ptxas", action="store_true")
     a = p.parse_args(argv)
+    if a.steps is None:
+        a.steps = 128 if a.kernel == "planes" else 256
     if not torch.cuda.is_available():
         print("lstm_ab: CUDA is not available", file=sys.stderr)
         return 2
-    libs = _build_all(a.sources, a.kernel)
+    libs = _build_all(a.sources, a.kernel, a.ptxas)
+    if a.kernel == "planes":
+        libs = {s: (lib, lib) for s, (lib, _) in libs.items()}
     launch = {"infer": _launch_infer, "fwd": _launch_fwd, "bwd": _launch_bwd,
-              "lattice": _launch_lattice}[a.kernel]
+              "lattice": _launch_lattice,
+              "planes": lambda lib, args: planes_cuda.launch(lib, *args)
+              }[a.kernel]
     _, _, phases_fn, names = ENTRY[a.kernel]
     if a.shape:
         shapes = [tuple(int(v) for v in s.split("x")) for s in a.shape]
@@ -292,6 +364,10 @@ def main(argv=None) -> int:
         if a.kernel == "lattice":
             args, cudnn = _lattice_inputs(B, T, a.labels), None
             check = lambda got: _lattice_err(got, args)  # noqa: E731
+        elif a.kernel == "planes":
+            args, cudnn = _planes_inputs(B, T, a.labels)
+            want = planes_cuda.joint_planes_plain(*args)
+            check = lambda got: _rel_err(got, want)  # noqa: E731
         else:
             args, cudnn = _inputs(a.kernel, B, T)
             want = plain[a.kernel](*args)
@@ -301,10 +377,12 @@ def main(argv=None) -> int:
             rel[s] = check(launch(fn, args))
             if hasattr(lib, "lstm_last_design"):
                 design[s] = DESIGNS[lib.lstm_last_design()]
+            if hasattr(lib, "planes_last_design"):
+                design[s] = planes_cuda.DESIGNS[lib.planes_last_design()]
         runs = {s: (lambda fn=fn: launch(fn, args))
                 for s, (_, fn) in libs.items()}
         if cudnn is not None:
-            runs["cudnn"] = cudnn
+            runs["cublas" if a.kernel == "planes" else "cudnn"] = cudnn
         order = list(runs)
         ms = {s: [] for s in order}
         reps = a.reps * (5 if T <= 2 else 1)  # short launches: more runs
@@ -312,7 +390,10 @@ def main(argv=None) -> int:
             ms[s].append(_median_ms(runs[s], reps))
         phases = {}
         for s, (lib, fn) in libs.items():
-            if phases_fn and hasattr(lib, phases_fn):
+            if a.kernel == "planes":
+                if hasattr(lib, phases_fn):
+                    phases[s] = _planes_split(lib, args)
+            elif phases_fn and hasattr(lib, phases_fn):
                 buf = (ctypes.c_ulonglong * 8)()
                 getattr(lib, phases_fn)(buf, 1)
                 launch(fn, args)
@@ -320,11 +401,14 @@ def main(argv=None) -> int:
                 getattr(lib, phases_fn)(buf, 0)
                 phases[s] = {n: buf[i] / T for i, n in enumerate(names)}
         shape = ({"U+1": a.labels, "dtype": "float32"} if a.kernel == "lattice"
+                 else {"U+1": a.labels, "J": PLANES_J, "V": PLANES_V,
+                       "dtype": "bfloat16"} if a.kernel == "planes"
                  else {"H": H, "P": P, "dtype": "bfloat16"})
         print(json.dumps({"kernel": a.kernel, "B": B, "T": T, **shape,
                           "ms": ms,
                           "rel_err": rel, "design": design,
-                          "block0_cycles_a_step": phases}), flush=True)
+                          ("phase_ms" if a.kernel == "planes" else
+                           "block0_cycles_a_step"): phases}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

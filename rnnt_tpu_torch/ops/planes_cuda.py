@@ -49,16 +49,22 @@ def joint_planes_plain(f, g, labels_pad, b1, w2, b2):
     return tuple(out)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a K6 library's entry points (the package's
+    build, or a copy that `kernels/lstm_ab.py --kernel planes` built)."""
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
-def _lib(dtype):
+def _lib():
     from rnnt_tpu_torch.kernels import build
 
-    lib = build.load("joint_planes")
-    fn = getattr(lib, _ENTRY[dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    return lib, fn
+    return bind(build.load("joint_planes"))
 
 
 def joint_planes(f, g, labels_pad, b1, w2, b2):
@@ -74,8 +80,19 @@ def joint_planes(f, g, labels_pad, b1, w2, b2):
                          f"w2 {tuple(w2.shape)} do not fit one joint")
     if not f.is_cuda:
         return joint_planes_plain(f, g, labels_pad, b1, w2, b2)
+    planes = launch(_lib(), f, g, labels_pad, b1, w2, b2)
+    joint_planes.launches += 1
+    return planes
+
+
+def launch(lib, f, g, labels_pad, b1, w2, b2):
+    """One launch of library `lib`'s kernel on CUDA tensors (shapes as
+    `joint_planes` checks them)."""
     from rnnt_tpu_torch.kernels import build
 
+    B, T, J = f.shape
+    U1 = g.shape[1]
+    V = w2.shape[1]
     dt = w2.dtype
     if dt not in _ENTRY:
         raise TypeError(f"the plane kernel takes float32 or bfloat16 "
@@ -94,14 +111,13 @@ def joint_planes(f, g, labels_pad, b1, w2, b2):
     y = labels_pad.to(torch.int32).contiguous()
     planes = [torch.empty((B, T, U1), dtype=torch.float32, device=dev)
               for _ in range(3)]
-    lib, fn = _lib(dt)
     with torch.cuda.device(dev):
-        err = fn(f.data_ptr(), g.data_ptr(), y.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), b2.data_ptr(), *(p.data_ptr() for p in planes),
-                 B, T, U1, J + jp, V, V + vp,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(lib, _ENTRY[dt])(
+            f.data_ptr(), g.data_ptr(), y.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), *(p.data_ptr() for p in planes),
+            B, T, U1, J + jp, V, V + vp,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, _ENTRY[dt])
-    joint_planes.launches += 1
     return tuple(planes)
 
 
