@@ -14,20 +14,55 @@
 //
 // Bound on the H100: the [cells, J] x [J, V] product, 2 x cells x J x V
 // operations (1.40 TFLOP at B=32, T'=128, U+1=65, J=640, V=4096: 1.41 ms at
-// 989 TFLOP/s in bf16); the bytes (f, g, W2 in, three planes out) are a few
-// MB.  So the kernel is bound by its tensor-core rate.
+// 989 TFLOP/s in bf16; 4.23 ms at B=96); the bytes (f, g, W2 in, three
+// planes out) are a few MB.  So the kernel is bound by its tensor-core rate.
 //
-// Design: a block owns CT consecutive cells.  It builds their tanh tile once
-// in shared memory (rounded to W, as the TPU kernel rounds h before its
-// product), then streams V in chunks of VT columns: each chunk's product is
-// computed in the block with W2 staged through shared memory in slabs of KS
-// rows, and folded into a running (max, sum of exp) per cell; blank and emit
-// are picked from the chunk that holds their column.  The product is the
-// kernel's own: for bf16 operands warp-level tensor-core MMA (WMMA 16x16x16,
-// fp32 accumulation; 8 warps, each a 16 x 64 tile of the 64 x 128 chunk);
-// for fp32 operands plain fp32 FMA on the CUDA cores (each thread a 4 x 4
-// tile of the 32 x 128 chunk), no TF32.  wgmma, TMA and double buffering are
-// later work.
+// Three designs; the launcher of each dtype picks one (planes_last_design()):
+//
+// WGMMA (bf16, wherever the padded J's h tile and a ring of >= 3 W2 stages
+// fit in a block's shared memory: J <= 704 on the H100).  A persistent grid
+// of one CTA an SM walks tiles of 128 consecutive cells.  Its threads are two
+// consumer warpgroups, each owning 64 cells of the tile, and one producer
+// warp.  The five things that held the WMMA design back, and what this one
+// does about each:
+//  1. one block of 8 warps an SM with nothing to hide its stalls: the
+//     producer keeps W2's copies in flight while the consumers compute, and
+//     the two consumer warpgroups run their products and folds out of step;
+//  2. W2 staged synchronously behind two barriers a slab: W2 arrives by TMA
+//     bulk copies (`cp.async.bulk`, 16 KB a stage) into a ring of 3-4
+//     stages, each stage completed on its mbarrier and released by the
+//     consumers' own mbarrier arrivals: no block-wide barrier in the loop;
+//  3. W2 read from L2 once every 64 cells: once every 128 cells (h of 128
+//     cells, J=640: 160 KB, built once a tile);
+//  4. the logits' round trip through shared memory before the fold: the
+//     online logsumexp folds straight from the accumulator registers (each
+//     thread 2 rows x 32 columns of a chunk, its own running (max, sum of
+//     exp) per row, merged over its quad at the end); blank and emit are
+//     picked by the thread that holds their column;
+//  5. WMMA 16x16x16 from shared memory: `wgmma.mma_async` m64n128k16, bf16
+//     in, fp32 accumulate, A (h) and B (the W2 tile) both read from shared
+//     memory in the 128-byte-swizzled K-major layout; two accumulator sets,
+//     so the next chunk's first two k-blocks run while a chunk is folded.
+// W2 arrives packed (`ops/planes_cuda.pack_w2`): the padded [Jp, Vp] matrix
+// transposed and cut into [128 v x 64 k] tiles in the order the consumers
+// read them (V chunk, then k-block), each row already swizzled, so every
+// stage is one contiguous 1D bulk copy.  That needs neither the driver's
+// tensor-map encoder (this library links no libcuda) nor an MN-major B
+// operand; the price is a repack of W2 (5.24 MB at the parity width) each
+// call, which the wrapper makes and which counts in the kernel's time.  No
+// L2 eviction hint: the 5.24 MB that every CTA re-reads should stay in L2.
+//
+// WMMA (bf16 outside that plan: a wide joint).  A block owns CT consecutive
+// cells.  It builds their tanh tile once in shared memory (rounded to W, as
+// the TPU kernel rounds h before its product), then streams V in chunks of
+// VT columns: each chunk's product is computed in the block with W2 staged
+// through shared memory in slabs of KS rows, and folded into a running
+// (max, sum of exp) per cell; blank and emit are picked from the chunk that
+// holds their column.  Warp-level tensor-core MMA (WMMA 16x16x16, fp32
+// accumulation; 8 warps, each a 16 x 64 tile of the 64 x 128 chunk).
+//
+// FMA (fp32): the WMMA design's schedule with plain fp32 FMA on the CUDA
+// cores (each thread a 4 x 4 tile of the 32 x 128 chunk), no TF32.
 
 #include <mma.h>
 
@@ -64,11 +99,14 @@ constexpr int LPAD = 4;  // row padding of the fp32 logits chunk
 // g_planes_ns at the end (read back through planes_phases()).
 enum PlanePhase {
   PP_BUILD,       // the tanh tile (and the cells' offsets)
-  PP_W2_WAIT,     // W2 into shared memory: staging loads
-  PP_PRODUCTS,    // the tensor-core (or FMA) products
-  PP_LOGITS_OUT,  // the accumulators out to the fp32 logits chunk
+  PP_W2_WAIT,     // W2 into shared memory: staging loads (WMMA, FMA), or
+                  // waiting for a ring stage (WGMMA)
+  PP_PRODUCTS,    // the products (WGMMA: issue and wait_group)
+  PP_LOGITS_OUT,  // the accumulators out to the fp32 logits chunk (not in
+                  // WGMMA)
   PP_FOLD,        // the online logsumexp, blank and emit
-  PP_BARRIER,     // waiting at __syncthreads
+  PP_BARRIER,     // waiting at __syncthreads (WGMMA: the warpgroup's
+                  // barrier after its h rows)
   PP_N
 };
 constexpr int PP_MAX_BLOCKS = 16384;  // rows of g_planes_ns
@@ -76,6 +114,9 @@ constexpr int PP_MAX_BLOCKS = 16384;  // rows of g_planes_ns
 __device__ unsigned long long g_planes_ns[PP_MAX_BLOCKS][PP_N];
 #endif
 int g_last_grid = 0;  // blocks of the last launch (host side)
+// The design of the last launch, as planes_last_design() reports it.
+enum PlaneDesign { D_WGMMA, D_WMMA, D_FMA };
+int g_last_design = D_FMA;
 
 struct PlaneTimer {
 #ifdef PLANES_PHASE_TIMERS
@@ -355,11 +396,503 @@ int launch(const void* f, const void* g, const int* y, const void* b1,
   const long long N = (long long)B * T * U1;
   const int blocks = (int)((N + Tile<W>::CT - 1) / Tile<W>::CT);
   g_last_grid = blocks;
+  g_last_design = sizeof(W) == 2 ? D_WMMA : D_FMA;
   kernel<<<blocks, PT, smem, (cudaStream_t)stream>>>(
       (const W*)f, (const W*)g, y, (const W*)b1, (const W*)w2, b2, denom,
       blank, emit, B, T, U1, J, V, Vp);
   return launch_status(cudaSuccess);
 }
+
+
+// ---------------------------------------------------------------- WGMMA
+
+namespace wg {
+constexpr int CELLS = 128;   // cells a tile: two m64 halves
+constexpr int KB = 64;       // k of a W2 tile and of an h k-block (128 bytes)
+constexpr int NV = 128;      // V columns a chunk: the wgmma's n
+constexpr int STAGE_BYTES = NV * KB * 2;  // one ring stage, 16 KB
+constexpr int HBLK_BYTES = CELLS * KB * 2;  // one k-block of the h tile
+constexpr int MAX_STAGES = 4;
+constexpr int CONSUMERS = 2;  // warpgroups
+// + the producer's warpgroup: ptxas sizes registers by whole warpgroups, so
+// a lone producer warp would cap every thread at 168; instead the producer
+// warpgroup gives its registers to the consumers (setmaxnreg)
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int ALIGN = 1024;  // a 128-byte swizzle atom: 8 rows of 128 bytes
+constexpr int BAR_BYTES = 2 * MAX_STAGES * 8;  // full[] and empty[]
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory a CTA takes for a padded J (a multiple of KB) and a ring of
+// `stages` W2 tiles; the wrapper's plan (`planes_cuda.wgmma_stages`) is the
+// same sum.
+inline size_t smem_bytes(int J, int stages) {
+  return (size_t)ALIGN + (size_t)(J / KB) * HBLK_BYTES +
+         (size_t)stages * STAGE_BYTES + BAR_BYTES;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* b,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+// One thread copies `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory; the barrier's phase completes when they
+// have landed (the thread's arrival expects them).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* b) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+__device__ __forceinline__ bool mbar_done(unsigned long long* b,
+                                          unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Waits for the barrier's phase of parity `parity` to complete.  A wait of
+// over 2^35 cycles (over 10 s) can only be a fault: it traps, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          unsigned parity) {
+  if (mbar_done(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_done(b, parity))
+    if (clock64() - t0 > (1LL << 35)) __trap();
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (the
+// stride byte offset), the leading byte offset unused by this layout.  The
+// operand starts at a 1024-byte boundary; the k16 steps inside its 128-byte
+// rows add 32 bytes (2 in the address field) to the start.
+__device__ __forceinline__ unsigned long long desc128(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         (1ull << 16) |                       // leading byte offset
+         ((unsigned long long)(1024 >> 4) << 32) |  // stride byte offset
+         (1ull << 62);                        // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// d (+)= A[64 x 16] B[16 x 128] for the warpgroup, bf16 in, fp32 out; a and
+// b are descriptors; accumulate != 0 adds to d, else overwrites it.  Thread
+// t of the warpgroup holds d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8
+// (e / 2), column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 unsigned long long a,
+                                                 unsigned long long b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The warpgroup's 64 rows of the tile's h, times one W2 tile (ring stage at
+// `b_addr`): k-block kb of h, four k16 steps.
+__device__ __forceinline__ void kblock_product(float (&d)[64], unsigned a_addr,
+                                               unsigned b_addr, int kb) {
+  wgmma_fence();
+  const unsigned long long a = desc128(a_addr), b = desc128(b_addr);
+#pragma unroll
+  for (int k = 0; k < KB / 16; ++k)
+    wgmma_m64n128k16(d, a + 2 * k, b + 2 * k, kb > 0 || k > 0);
+  wgmma_commit();
+}
+
+// 2^x on the special function unit; results below 2^-126 flush to zero,
+// which no sum of exponentials here can notice (its largest term is 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One thread's rows of the online logsumexp (its two rows of the tile, 32
+// columns of each chunk), and the blank and emit logits it picked.
+struct RowFold {
+  float m[2], s[2], bl[2], em[2];
+  int y[2];
+};
+
+// Folds chunk v's accumulators (columns v0 = 128 v ...) plus b2 into the
+// running (max, sum of exp) of the thread's two rows.  It only reads the
+// accumulators: a write would be a non-wgmma definition of registers that
+// the other set's wgmmas, in flight meanwhile, could share a pipeline stage
+// with, and ptxas then serialises every wgmma.
+__device__ __forceinline__ void fold_chunk(const float (&d)[64], RowFold& r,
+                                           const float* __restrict__ b2,
+                                           int v0, int q) {
+  float2 bb[NV / 8];
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < NV / 8; ++j) {
+    bb[j] = __ldg(reinterpret_cast<const float2*>(b2 + v0 + 8 * j + 2 * q));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mx[h] = fmaxf(mx[h], fmaxf(d[4 * j + 2 * h] + bb[j].x,
+                                 d[4 * j + 2 * h + 1] + bb[j].y));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(r.m[h], mx[h]);
+    const float ml = m_new * LOG2E;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j)
+      sum += ex2(fmaf(d[4 * j + 2 * h] + bb[j].x, LOG2E, -ml)) +
+             ex2(fmaf(d[4 * j + 2 * h + 1] + bb[j].y, LOG2E, -ml));
+    r.s[h] = r.s[h] * ex2(fmaf(r.m[h], LOG2E, -ml)) + sum;
+    r.m[h] = m_new;
+    if (v0 == 0 && q == 0) r.bl[h] = d[2 * h] + bb[0].x;
+    const int c = r.y[h] - v0 - 2 * q;  // this thread's column offset of y
+    if ((unsigned)c < (unsigned)NV) {
+#pragma unroll
+      for (int j = 0; j < NV / 8; ++j) {
+        if (c == 8 * j) r.em[h] = d[4 * j + 2 * h] + bb[j].x;
+        if (c == 8 * j + 1) r.em[h] = d[4 * j + 2 * h + 1] + bb[j].y;
+      }
+    }
+  }
+}
+
+// f [B,T,J], g [B,U1,J], b1 [J] bf16 with J a multiple of KB (zero-padded);
+// w2p: the packed W2 tiles ([Vp/NV][J/KB][NV][KB], each row swizzled); b2
+// [Vp] fp32 padded with NEG.
+__global__ void __launch_bounds__(THREADS, 1)
+    plane_kernel_wgmma(const __nv_bfloat16* __restrict__ f,
+                       const __nv_bfloat16* __restrict__ g,
+                       const int* __restrict__ y,
+                       const __nv_bfloat16* __restrict__ b1,
+                       const __nv_bfloat16* __restrict__ w2p,
+                       const float* __restrict__ b2,
+                       float* __restrict__ denom, float* __restrict__ blank,
+                       float* __restrict__ emit, int B, int T, int U1, int J,
+                       int Vp, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + ALIGN - 1) &
+      ~(size_t)(ALIGN - 1));
+  const int nkb = J / KB, nvc = Vp / NV, nsteps = nkb * nvc;
+  unsigned char* hs = base;                          // [nkb][CELLS][KB]
+  unsigned char* ring = hs + (size_t)nkb * HBLK_BYTES;  // [stages][NV][KB]
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * STAGE_BYTES);
+  unsigned long long* empty = full + MAX_STAGES;
+  const long long N = (long long)B * T * U1;
+  const int ntiles = (int)((N + CELLS - 1) / CELLS);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {
+    // the producer: W2's tiles in the consumers' order, tile after tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp != CONSUMERS * 4 || lane != 0) return;
+    int s = 0;
+    unsigned ph = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      for (int i = 0; i < nsteps; ++i) {
+        mbar_wait(&empty[s], ph ^ 1);
+        bulk_load(ring + (size_t)s * STAGE_BYTES,
+                  w2p + (size_t)i * (NV * KB), STAGE_BYTES, &full[s]);
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wgi * 64 .. of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = warp / 4, t = threadIdx.x % 128, q = lane % 4;
+  const int row0 = wgi * 64 + 16 * (warp % 4) + lane / 4;  // and row0 + 8
+  const unsigned a_base = smem_u32(hs) + wgi * 64 * 128;
+  const unsigned ring_base = smem_u32(ring);
+  const int nch = J / 8;  // 16-byte chunks of an h row
+  PlaneTimer tm;
+  tm.start();
+  int s = 0, rel = 0;  // ring stage of the next step, of the next release
+  unsigned ph = 0;
+  // two accumulator sets, chunks alternating; the first wgmma of a chunk
+  // overwrites its set
+  float acc0[64], acc1[64];
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long n0 = (long long)tile * CELLS;
+    // h of the warpgroup's 64 cells, rounded to bf16, into the swizzled
+    // K-major layout: row m's chunk c (k 8c .. 8c + 7) of k-block c / 8 at
+    // 16-byte position (c % 8) ^ (m % 8) of the row.  Thread t takes rows
+    // t / 16 + 8 i and their chunks t % 16 + 16 k: 16 threads read 256
+    // contiguous bytes of f and g, and 8 of them fill one 128-byte row of a
+    // k-block, conflict-free.
+    for (int m = wgi * 64 + t / 16; m < wgi * 64 + 64; m += 8) {
+      const int n = (int)(n0 + m);
+      const bool live = n < N;
+      const int bt = n / U1, u = n - bt * U1, b = bt / T;
+      const __nv_bfloat16* fr = f + (size_t)bt * J;
+      const __nv_bfloat16* gr = g + ((size_t)b * U1 + u) * J;
+      unsigned char* hrow = hs + m * 128;
+#pragma unroll 4
+      for (int c = t % 16; c < nch; c += 16) {
+        uint4 out = make_uint4(0, 0, 0, 0);
+        if (live) {
+          const uint4 fv = __ldg(reinterpret_cast<const uint4*>(fr + 8 * c));
+          const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gr + 8 * c));
+          const uint4 bv = __ldg(reinterpret_cast<const uint4*>(b1 + 8 * c));
+          const __nv_bfloat162* fp =
+              reinterpret_cast<const __nv_bfloat162*>(&fv);
+          const __nv_bfloat162* gp =
+              reinterpret_cast<const __nv_bfloat162*>(&gv);
+          const __nv_bfloat162* bp =
+              reinterpret_cast<const __nv_bfloat162*>(&bv);
+          __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(fp[e]);
+            const float2 bb = __bfloat1622float2(gp[e]);
+            const float2 cc = __bfloat1622float2(bp[e]);
+            op[e] = __floats2bfloat162_rn(tanhf(a.x + bb.x + cc.x),
+                                          tanhf(a.y + bb.y + cc.y));
+          }
+        }
+        *reinterpret_cast<uint4*>(hrow + (size_t)(c / 8) * HBLK_BYTES +
+                                  ((c % 8) ^ (m % 8)) * 16) = out;
+      }
+    }
+    // the generic-proxy stores, visible to wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    tm.at(PP_BUILD);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+    tm.at(PP_BARRIER);
+
+    RowFold r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long n = n0 + row0 + 8 * h;
+      r.m[h] = NEG;
+      r.s[h] = 0.f;
+      r.bl[h] = NEG;
+      r.em[h] = NEG;
+      r.y[h] = -1;
+      if (n < N) {
+        const int bt = (int)n / U1, u = (int)n - bt * U1, b = bt / T;
+        r.y[h] = y[b * U1 + u];
+      }
+    }
+    // step i = (chunk v, k-block kb): wait for its stage, issue its four
+    // wgmmas into chunk v's accumulator set (`cur`), then with at most two
+    // groups in flight release the stage of step i - 2; at kb = 1 chunk
+    // v - 1 is complete and its set (`prev`) is folded while chunk v's first
+    // two k-blocks run.  Chunks go in pairs, so each set is a fixed set of
+    // registers in each of the two loop bodies.
+    int i = 0;
+    auto chunk = [&](float(&cur)[64], const float(&prev)[64], int v) {
+      for (int kb = 0; kb < nkb; ++kb, ++i) {
+        mbar_wait(&full[s], ph);
+        tm.at(PP_W2_WAIT);
+        kblock_product(cur, a_base + kb * HBLK_BYTES,
+                       ring_base + s * STAGE_BYTES, kb);
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+        wgmma_wait<2>();
+        tm.at(PP_PRODUCTS);
+        if (i >= 2) {
+          if (t == 0) mbar_arrive(&empty[rel]);
+          if (++rel == stages) rel = 0;
+        }
+        if (kb == 1 && v > 0) {
+          fold_chunk(prev, r, b2, (v - 1) * NV, q);
+          tm.at(PP_FOLD);
+        }
+      }
+    };
+    for (int v = 0; v < nvc; v += 2) {
+      chunk(acc0, acc1, v);
+      if (v + 1 < nvc) chunk(acc1, acc0, v + 1);
+    }
+    wgmma_wait<0>();
+    tm.at(PP_PRODUCTS);
+    for (int k = nsteps < 2 ? nsteps : 2; k > 0; --k) {
+      if (t == 0) mbar_arrive(&empty[rel]);
+      if (++rel == stages) rel = 0;
+    }
+    if ((nvc - 1) & 1)
+      fold_chunk(acc1, r, b2, (nvc - 1) * NV, q);
+    else
+      fold_chunk(acc0, r, b2, (nvc - 1) * NV, q);
+    // merge the quad's running sums; the emit logit from the lane holding
+    // y's column
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o *= 2) {
+        const float mo = __shfl_xor_sync(0xffffffffu, r.m[h], o);
+        const float so = __shfl_xor_sync(0xffffffffu, r.s[h], o);
+        const float mn = fmaxf(r.m[h], mo);
+        r.s[h] = r.s[h] * exp2f((r.m[h] - mn) * LOG2E) +
+                 so * exp2f((mo - mn) * LOG2E);
+        r.m[h] = mn;
+      }
+      const float em = __shfl_sync(0xffffffffu, r.em[h],
+                                   (lane & ~3) | ((r.y[h] & 7) >> 1));
+      const long long n = n0 + row0 + 8 * h;
+      if (q == 0 && n < N) {
+        denom[n] = r.m[h] + logf(r.s[h]);
+        blank[n] = r.bl[h];
+        emit[n] = em;
+      }
+    }
+    tm.at(PP_FOLD);
+  }
+  tm.flush();
+}
+
+// W2 [J, V] (bf16, row-major) into the packed tiles the ring streams
+// (`planes_cuda.pack_w2` is its plain version): block (chunk, kb) reads
+// W2[kb*KB .., chunk*NV ..] row by row, zero past J and V, and writes its
+// 16 KB tile, row n = column v0 + n, the 16-byte group c of k at c ^ (n % 8).
+__global__ void __launch_bounds__(256)
+    pack_w2_kernel(const __nv_bfloat16* __restrict__ w2,
+                   __nv_bfloat16* __restrict__ w2p, int J, int V, int nkb) {
+  constexpr int LD = NV + 8;  // padded smem row (elements)
+  __shared__ __align__(16) __nv_bfloat16 tile[KB * LD];
+  const int chunk = blockIdx.x / nkb, kb = blockIdx.x % nkb;
+  const int k0 = kb * KB, v0 = chunk * NV;
+  for (int i = threadIdx.x; i < KB * NV; i += blockDim.x) {
+    const int k = i / NV, n = i % NV;
+    tile[k * LD + n] = (k0 + k < J && v0 + n < V)
+                           ? w2[(size_t)(k0 + k) * V + v0 + n]
+                           : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  uint4* out = reinterpret_cast<uint4*>(w2p + (size_t)blockIdx.x * NV * KB);
+  for (int o = threadIdx.x; o < NV * KB / 8; o += blockDim.x) {
+    const int n = o / 8, grp = (o % 8) ^ (n % 8);
+    uint4 v;
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = tile[(grp * 8 + i) * LD + n];
+    out[o] = v;
+  }
+}
+
+// W2 [Jw, V] packed into w2p (J x Vp values; J a multiple of KB, Vp of NV).
+int pack(const void* w2, void* w2p, int J, int Jw, int V, int Vp,
+         void* stream) {
+  if (J % KB != 0 || Jw > J || Vp % NV != 0 || V > Vp)
+    return (int)cudaErrorInvalidValue;
+  pack_w2_kernel<<<(Vp / NV) * (J / KB), 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)w2, (__nv_bfloat16*)w2p, Jw, V, J / KB);
+  return launch_status(cudaSuccess);
+}
+
+// The WGMMA design on `stages` ring stages; J (padded) a multiple of KB, at
+// least 2 KB (the fold of a chunk waits for the next chunk's second
+// k-block); Vp a multiple of NV.  A shape the design cannot run is an error:
+// the caller planned it, and no other design runs in its place.
+int launch(const void* f, const void* g, const int* y, const void* b1,
+           const void* w2, const float* b2, void* w2p, float* denom,
+           float* blank, float* emit, int B, int T, int U1, int J, int Jw,
+           int V, int Vp, int stages, void* stream) {
+  if (J % KB != 0 || J < 2 * KB || Jw > J || Vp % NV != 0 || V > Vp ||
+      stages < 3 || stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, nsm = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = smem_bytes(J, stages);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(plane_kernel_wgmma,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long N = (long long)B * T * U1;
+  if (N > 0x7fffffff) return (int)cudaErrorInvalidValue;  // int cell index
+  const long long ntiles = (N + CELLS - 1) / CELLS;
+  const int grid = (int)(ntiles < nsm ? ntiles : nsm);
+  g_last_grid = grid;
+  g_last_design = D_WGMMA;
+  const int pe = pack(w2, w2p, J, Jw, V, Vp, stream);
+  if (pe != 0) return pe;
+  plane_kernel_wgmma<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)f, (const __nv_bfloat16*)g, y,
+      (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2p, b2, denom, blank,
+      emit, B, T, U1, J, Vp, stages);
+  return launch_status(cudaSuccess);
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -382,6 +915,44 @@ extern "C" int joint_planes_bf16(const void* f, const void* g, const int* y,
                                  int V, int Vp, void* stream) {
   return launch<__nv_bfloat16>(f, g, y, b1, w2, b2, denom, blank, emit, B, T,
                                U1, J, V, Vp, stream);
+}
+
+// The WGMMA design (bf16): f, g, b1 with J padded to a multiple of 64 (at
+// least 128) with zeros; w2 [Jw, V] unpadded (Jw <= J); w2p scratch of J x
+// Vp values, where the launch packs W2 first (as planes_cuda.pack_w2 does);
+// the rest as joint_planes_bf16.  `stages` W2 tiles in the ring (3 or 4,
+// planes_cuda.wgmma_stages).
+extern "C" int joint_planes_bf16_wgmma(const void* f, const void* g,
+                                       const int* y, const void* b1,
+                                       const void* w2, const float* b2,
+                                       void* w2p, float* denom, float* blank,
+                                       float* emit, int B, int T, int U1,
+                                       int J, int Jw, int V, int Vp,
+                                       int stages, void* stream) {
+  return wg::launch(f, g, y, b1, w2, b2, w2p, denom, blank, emit, B, T, U1, J,
+                    Jw, V, Vp, stages, stream);
+}
+
+// The WGMMA launch's first step alone: w2 [Jw, V] bf16 packed into w2p (J x
+// Vp values) as planes_cuda.pack_w2 packs it.
+extern "C" int planes_pack_w2(const void* w2, void* w2p, int J, int Jw, int V,
+                              int Vp, void* stream) {
+  return wg::pack(w2, w2p, J, Jw, V, Vp, stream);
+}
+
+// The design of the last launch: 0 WGMMA, 1 WMMA, 2 FMA.
+extern "C" int planes_last_design() { return g_last_design; }
+
+// SMs and the shared memory a block may opt in to, of the current device.
+extern "C" int planes_card(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out + 1,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)e;
 }
 
 // Columns of a row of planes_phases(): the phases of enum PlanePhase.

@@ -44,7 +44,9 @@ it, any packing of W2 included) at T' = --steps (default 128), U+1 =
 --labels, J=640, V=4096 in bf16, on `chip_smoke.planes_inputs`'s inputs
 (seed 4), checked against `planes_cuda.joint_planes_plain` (the largest
 relative error over denom, blank and emit); cuBLAS's bare bf16 [C,J] x
-[J,V] product (`torch.mm`) takes a turn as `cublas`.  A build with
+[J,V] product (`torch.mm`) takes a turn as `cublas`, and each build's
+packing of W2 alone (the WGMMA launch's first kernel, where the build has
+it) one as `<source> pack_w2`.  A build with
 `PLANES_PHASE_TIMERS=1` also reports its per-block phase split in ms of
 one launch: block 0's, the heaviest block's and each phase's maximum over
 blocks.  `--ptxas` adds `-Xptxas -v` and prints each build's report.
@@ -248,6 +250,13 @@ def _planes_inputs(B, T, U1, seed=4):
     return args, lambda: torch.mm(h2d, args[4])
 
 
+def _pack_run(lib, args):
+    """The WGMMA launch's packing of W2 alone (a turn of its own)."""
+    w2 = args[4]
+    Jp, Vp = planes_cuda.padded_j(w2.shape[0]), -(-w2.shape[1] // 128) * 128
+    return lambda: planes_cuda.pack_w2_cuda(w2, Jp, Vp, lib)
+
+
 def _planes_split(lib, args):
     """A timed build's per-block phase split of one launch, in ms: block
     0's row, the heaviest block's and each phase's maximum over blocks."""
@@ -383,6 +392,10 @@ def main(argv=None) -> int:
                 for s, (_, fn) in libs.items()}
         if cudnn is not None:
             runs["cublas" if a.kernel == "planes" else "cudnn"] = cudnn
+        if a.kernel == "planes":
+            runs.update({f"{s} pack_w2": _pack_run(lib, args)
+                         for s, (lib, _) in libs.items()
+                         if hasattr(lib, "planes_pack_w2")})
         order = list(runs)
         ms = {s: [] for s in order}
         reps = a.reps * (5 if T <= 2 else 1)  # short launches: more runs
