@@ -30,7 +30,8 @@ worst case.
    port's restore reads back at its step, and launch per train step the
    LSTM forward (K4, every launch its MMA design) and backward (K5) 10
    times each, the lattice (K7) once
-   and, fused, the plane kernel (K6) once; it prints each request's latency
+   and, fused, the plane kernel (K6, every launch its WGMMA design) once;
+   it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
    stream chunk's reply latency (p50, p99, max);
 4. holds each kernel against its plain PyTorch version on the card at the
@@ -69,8 +70,13 @@ worst case.
    and bf16 K5 its FMA design, and at B=32, T=64 for the wide H=3072,
    P=768 (K4 and K5; bf16 K5 must run FMA) and H=4096, P=1024 (K4; bf16
    FMA); K6 (denom, blank,
-   emit) at B=32, T'=128, U+1=65, <= 1e-4 in fp32 and <= PLANES_BF16_TOL in
-   bf16; K7 (alpha and beta over the valid cells, ll) from those planes
+   emit) at B=32, T'=128, U+1=65, <= 1e-4 in fp32 (FMA) and <=
+   PLANES_BF16_TOL in bf16 (WGMMA), in bf16 also at B=96 (WGMMA), at a
+   ragged B=3, T'=7, U+1=5, J=40, V=300 (WGMMA; fp32 FMA) and at J=1024
+   (outside the WGMMA plan: WMMA), inputs untouched, its W2 pack kernel
+   equal to `pack_w2`, and after an in-place change of W2 the next call
+   held to the new W2's plain planes, which reject the old call's; K7
+   (alpha and beta over the valid cells, ll) from those planes
    and from random planes at U+1 = 1025 and 1537 (runs of positions a
    thread), <= 1e-5; and one whole fp32 train step at the parity width (B=32,
    T=256, U=64) through K4-K7 on the card against the same step on the CPU
@@ -84,13 +90,15 @@ worst case.
    3 runs); and times a train step at bench.py's geometry
    (B=96, T=256, U=64, bf16, fused; one warm-up and 5 timed steps) as
    audio-s/s, with one profiled step's idle share and device time by
-   kernel;
+   kernel, every K6 launch of it on the WGMMA design;
 6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
    error; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
    maximum of 30 runs and the launches by design, for K2 also the time of
    a one-step launch and at B=32, T=256 and each case's design, for K4 and
-   K5 also the time at B=96; for K3 also the
+   K5 also the time at B=96; for K6 the time, bound and cuBLAS product
+   at B=96, the W2 packing's own time and the launches by design; for K3
+   also the
    weight traffic of re-reading the weights at every product, and its time
    split over the phases of a search from the timed build: block 0's, the
    heaviest block's and each phase's maximum over blocks), the card's
@@ -224,12 +232,13 @@ def read_launches() -> dict:
 
 
 def read_designs() -> dict:
-    """Launches by design: the LSTM kernels' ("lat", "mma", "fma") and
-    the beam kernel's ("stream", "fma")."""
+    """Launches by design: the LSTM kernels' ("lat", "mma", "fma"), the
+    beam kernel's ("stream", "fma") and the plane kernel's ("wgmma",
+    "wmma", "fma")."""
     w = kernel_wrappers()
     return {name: dict(w[name].launches_by_design)
             for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd",
-                         "beam_search")}
+                         "beam_search", "joint_planes")}
 
 
 def require_resident_k2(name, launches) -> None:
@@ -1228,10 +1237,20 @@ def require_train_launches(name, launches, steps, eval_batches, pallas):
     for k, n in want.items():
         require(launches[k] == n, f"path {name}: {k} launched {launches[k]} "
                 f"times, want {n}")
-    # bf16 K4 at the parity width fits its MMA plan on any H100
+    # bf16 K4 at the parity width fits its MMA plan on any H100, and bf16
+    # K6 its WGMMA plan
     mma = launches["lstm_fwd_by_design"]["mma"]
     require(mma == want["lstm_fwd"], f"path {name}: {mma} of "
             f"{want['lstm_fwd']} K4 launches ran the MMA design")
+    require_wgmma_k6(name, launches["joint_planes_by_design"],
+                     want["joint_planes"])
+
+
+def require_wgmma_k6(name, by_design, n) -> None:
+    """All n K6 launches of a bf16 path at the parity width ran WGMMA."""
+    require(by_design["wgmma"] == n and sum(by_design.values()) == n,
+            f"path {name}: K6 launches by design {by_design}, want {n} "
+            f"wgmma")
 
 
 def lstm_cost(T, B, H, P, esize, backward):
@@ -1445,11 +1464,14 @@ def check_lstm_designs(H, P, device="cuda"):
     return seen
 
 
-def planes_inputs(cfg, B, T, U1, device, seed):
+def planes_inputs(cfg, B, T, U1, device, seed, J=None, V=None):
+    """K6's inputs (f, g, labels, b1, W2, b2) in fp32, random from `seed`
+    at the config's joint width unless J, V say otherwise."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    J, V = cfg.joint_size, cfg.vocab_size
+    J = cfg.joint_size if J is None else J
+    V = cfg.vocab_size if V is None else V
     lim = (6.0 / (J + V)) ** 0.5
 
     def rand(shape, scale):
@@ -1461,39 +1483,113 @@ def planes_inputs(cfg, B, T, U1, device, seed):
             rand((J, V), lim), rand((V,), 0.1))
 
 
-def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
-    """K6 vs its plain version on denom, blank and emit at the train shape
-    (B=32, T'=128, U+1=65, J=640, V=4096): relative error <= 1e-4 in fp32,
-    <= PLANES_BF16_TOL in bf16.  Returns (K6 entry, the fp32 planes)."""
+def planes_case(args, tol, design, what):
+    """One K6 call against its plain version: every plane within `tol`
+    relative error, the inputs untouched, and the launch on `design`.
+    Returns (max |d|, the plain planes)."""
     import torch
 
     from rnnt_tpu_torch.ops import planes_cuda
 
+    before = [a.clone() for a in args]
+    counts = dict(planes_cuda.joint_planes.launches_by_design)
+    got = planes_cuda.joint_planes(*args)
+    ran = [d for d, n in planes_cuda.joint_planes.launches_by_design.items()
+           if n != counts[d]]
+    want = planes_cuda.joint_planes_plain(*args)
+    require(all(torch.equal(a, b) for a, b in zip(args, before)),
+            f"K6 {what} wrote into its inputs")
+    rel = [rel_err(a, b) for a, b in zip(got, want)]
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    log(f"K6 joint_planes {what} on {ran}: rel err denom {rel[0]:.3e} blank "
+        f"{rel[1]:.3e} emit {rel[2]:.3e}, max |d| {max_abs:.3e}")
+    require(max(rel) <= tol, f"K6 {what} disagrees: {rel}")
+    require(ran == [design], f"K6 {what} ran {ran}, want {design}")
+    return max_abs, want
+
+
+def planes_cost(B, T, U1, J, V, esize):
+    """(bytes, operations) of one K6 call: f, g, b1, W2, b2 in the weight
+    type and the labels, each read once, three fp32 planes written once;
+    the [cells, J] x [J, V] product."""
+    C = B * T * U1
+    nbytes = (esize * (B * T * J + B * U1 * J + J * V + J + V) + 4 * B * U1
+              + 3 * 4 * C)
+    return nbytes, 2.0 * C * J * V
+
+
+def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
+    """K6 vs its plain version on denom, blank and emit: relative error <=
+    1e-4 in fp32 (the FMA design), <= PLANES_BF16_TOL in bf16, inputs
+    untouched, each case on the design it must run.  bf16 at the parity
+    joint (J=640, V=4096) runs WGMMA: the train shape (B=32, T'=128,
+    U+1=65), bench.py's (B=96), and a ragged shape (B=3, T'=7, U+1=5, J=40,
+    V=300: 105 cells, a partial tile, J and V padded; fp32 too); a joint too
+    wide for its plan (J=1024) runs WMMA.  The pack kernel must equal
+    `pack_w2` at both widths; after W2 changes in place the next call must
+    hold to the plain planes of the new W2, which reject the planes of the
+    old one (nothing stale).  Returns (K6 entry, the fp32 train-shape
+    planes)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import planes_cuda
+
+    bf16 = torch.bfloat16
+    J, V = cfg.joint_size, cfg.vocab_size
     f, gg, y, b1, w2, b2 = planes_inputs(cfg, B, T, U1, device, 4)
-    errs, planes32 = {}, None
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, PLANES_BF16_TOL)):
-        args = (f.to(dt), gg.to(dt), y, b1.to(dt), w2.to(dt), b2.to(dt))
-        before = [a.clone() for a in args]
-        got = planes_cuda.joint_planes(*args)
-        want = planes_cuda.joint_planes_plain(*args)
-        require(all(torch.equal(a, b) for a, b in zip(args, before)),
-                "K6 wrote into its inputs")
-        rel = [rel_err(a, b) for a, b in zip(got, want)]
-        max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    args32 = (f, gg, y, b1, w2, b2)
+    errs, designs = {}, {}
+    errs["float32"], planes32 = planes_case(args32, 1e-4, "fma",
+                                            f"B={B} T={T} U+1={U1} fp32")
+    designs["train shape fp32"] = "fma"
+    args = tuple(a.to(bf16) if a.is_floating_point() else a for a in args32)
+    errs["bfloat16"], _ = planes_case(args, PLANES_BF16_TOL, "wgmma",
+                                      f"B={B} T={T} U+1={U1} bf16")
+    designs["train shape bf16"] = "wgmma"
+    Bb = BENCH_B
+    fb, gb, yb, b1b, w2b, b2b = planes_inputs(cfg, Bb, T, U1, device, 7)
+    args_b = (fb.to(bf16), gb.to(bf16), yb, b1b.to(bf16), w2b.to(bf16),
+              b2b.to(bf16))
+    errs["bfloat16 B=96"], _ = planes_case(args_b, PLANES_BF16_TOL, "wgmma",
+                                           f"B={Bb} T={T} U+1={U1} bf16")
+    designs["bench shape bf16"] = "wgmma"
+    rag32 = planes_inputs(cfg, 3, 7, 5, device, 8, J=40, V=300)
+    for dt, tol, design in ((bf16, PLANES_BF16_TOL, "wgmma"),
+                            (torch.float32, 1e-4, "fma")):
+        rag = tuple(a.to(dt) if a.is_floating_point() else a for a in rag32)
         name = str(dt)[6:]
-        log(f"K6 joint_planes B={B} T={T} U+1={U1} {name}: rel err denom "
-            f"{rel[0]:.3e} blank {rel[1]:.3e} emit {rel[2]:.3e}, max |d| "
-            f"{max_abs:.3e}")
-        require(max(rel) <= tol, f"K6 {name} disagrees: {rel}")
-        errs[name] = max_abs
-        if dt == torch.float32:
-            planes32 = want
-    dt = torch.bfloat16
-    args = (f.to(dt), gg.to(dt), y, b1.to(dt), w2.to(dt), b2.to(dt))
-    C, J, V = B * T * U1, cfg.joint_size, cfg.vocab_size
-    h2d = torch.randn((C, J), device=device).to(dt)  # the library's operands
-    nbytes = 2 * (B * T * J + B * U1 * J + J * V + J + V) + 4 * B * U1 \
-        + 3 * 4 * C
+        errs[f"{name} ragged"], _ = planes_case(
+            rag, tol, design, f"ragged B=3 T=7 U+1=5 J=40 V=300 {name}")
+        designs[f"ragged {name}"] = design
+    wide = planes_inputs(cfg, 4, 16, 9, device, 9, J=1024, V=512)
+    wide = tuple(a.to(bf16) if a.is_floating_point() else a for a in wide)
+    errs["bfloat16 J=1024"], _ = planes_case(
+        wide, PLANES_BF16_TOL, "wmma", "B=4 T=16 U+1=9 J=1024 V=512 bf16")
+    designs["J=1024 bf16"] = "wmma"
+    for w in (args[4], rag32[4].to(bf16)):
+        Jp, Vp = planes_cuda.padded_j(w.shape[0]), -(-w.shape[1] // 128) * 128
+        require(torch.equal(planes_cuda.pack_w2_cuda(w, Jp, Vp),
+                            planes_cuda.pack_w2(w, Jp, Vp)),
+                f"K6's pack kernel differs from pack_w2 at W2 "
+                f"{tuple(w.shape)}")
+        log(f"K6 pack kernel equals pack_w2 at W2 {tuple(w.shape)}")
+    # staleness: W2 changed in place between two calls
+    st = [args[0][:4], args[1][:4], args[2][:4], args[3], args[4].clone(),
+          args[5]]
+    old = planes_cuda.joint_planes(*st)
+    gen = torch.Generator(device=device).manual_seed(10)
+    st[4].add_((torch.rand(st[4].shape, generator=gen, device=device) - 0.5)
+               * 0.02)
+    _, want_new = planes_case(tuple(st), PLANES_BF16_TOL, "wgmma",
+                              "B=4 after W2 changed in place")
+    stale = max(rel_err(a, b) for a, b in zip(old, want_new))
+    log(f"K6 staleness: the planes before the update against the plain "
+        f"planes after it: rel err {stale:.3e}")
+    require(stale > PLANES_BF16_TOL,
+            f"K6 staleness control not rejected: {stale}")
+    C = B * T * U1
+    h2d = torch.randn((C, J), device=device).to(bf16)  # the library's operands
+    h2d_b = torch.randn((Bb * T * U1, J), device=device).to(bf16)
     entry = {
         "name": "joint_planes", "route": "cuda",
         "source": "rnnt_tpu_torch/csrc/joint_planes.cu",
@@ -1502,11 +1598,21 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
         "ms": cuda_ms(lambda: planes_cuda.joint_planes(*args), reps=5),
         "plain_ms": cuda_ms(lambda: planes_cuda.joint_planes_plain(*args),
                             reps=2, warmup=1),
-        **bound_of(nbytes, 2.0 * C * J * V, PEAK_BF16_FLOPS),
+        **bound_of(*planes_cost(B, T, U1, J, V, 2), PEAK_BF16_FLOPS),
         "library_ms": cuda_ms(lambda: torch.mm(h2d, args[4]), reps=5),
         "library": "cuBLAS bf16 [C,J]x[J,V] product alone (torch.mm), "
                    "without the tanh tile and the logsumexp",
-        "shape": f"B={B} T'={T} U+1={U1} J={J} V={V} bf16 ({C} cells)",
+        "shape": f"B={B} T'={T} U+1={U1} J={J} V={V} bf16 ({C} cells), "
+                 "the on-card packing of W2 included",
+        "ms_b96": cuda_ms(lambda: planes_cuda.joint_planes(*args_b), reps=5),
+        "bound_ms_b96": bound_of(*planes_cost(Bb, T, U1, J, V, 2),
+                                 PEAK_BF16_FLOPS)["bound_ms"],
+        "library_ms_b96": cuda_ms(lambda: torch.mm(h2d_b, args_b[4]),
+                                  reps=5),
+        "pack_ms": cuda_ms(lambda: planes_cuda.pack_w2_cuda(
+            args[4], J, -(-V // 128) * 128), reps=10),
+        "designs_by_case": designs,
+        "max_abs_err_by_case": errs,
         "max_abs_err_fp32": errs["float32"]}
     return entry, planes32
 
@@ -1653,7 +1759,7 @@ def step_split(events):
     """Device ms of a train step's ops by kernel."""
     groups = (("K4 lstm_fwd", ("lstm_infer_kernel", "lstm_fwd_mma_kernel")),
               ("K5 lstm_bwd", "lstm_bwd_kernel"),
-              ("K6 joint_planes", "plane_kernel"),
+              ("K6 joint_planes", ("plane_kernel", "pack_w2_kernel")),
               ("K7 lattice", "lattice_kernel"),
               ("cuBLAS products", ("gemm", "Gemm", "nvjet", "xmma",
                                    "cutlass", "cublas")))
@@ -1681,10 +1787,14 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
     from rnnt_tpu_torch.train.state import create_train_state
     from rnnt_tpu_torch.train.steps import make_train_step
 
+    from rnnt_tpu_torch.ops import planes_cuda
+
     state = create_train_state(cfg, torch.bfloat16, device, seed)
     batch = random_batch(cfg, B, T, U, device, seed)
     step = make_train_step(cfg, loss_impl="fused")
     gen = torch.Generator(device=device).manual_seed(seed)
+    k6 = planes_cuda.joint_planes
+    k6_before = (k6.launches, dict(k6.launches_by_design))
     losses = [float(step(state, batch, gen)["loss"])]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1699,6 +1809,10 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
         lambda: step(state, batch, gen), lstm_cuda.lstm_bwd,
         "lstm_bwd_kernel", events=events)
     require(launches == 10, f"profiled train step: {launches} K5 launches")
+    k6_by_design = {d: n - k6_before[1][d]
+                    for d, n in k6.launches_by_design.items()}
+    require_wgmma_k6("bench step", k6_by_design,
+                     k6.launches - k6_before[0])
     result = {"B": B, "T": T, "U": U, "dtype": "bfloat16", "loss": "fused",
               "step_ms": secs / timed * 1e3,
               "audio_s_per_s": B * T * 0.03 * timed / secs,
@@ -1706,7 +1820,7 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
               "device_busy_ms": busy, "device_ops": ops,
               "idle_share": 1 - busy / wall, "profiled_runs": runs,
               "split_ms": step_split(events), "losses": losses,
-              "card": smi}
+              "k6_launches_by_design": k6_by_design, "card": smi}
     log("bench-geometry train step " + json.dumps(result))
     return result
 
