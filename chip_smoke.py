@@ -1567,9 +1567,8 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
         wide, PLANES_BF16_TOL, "wmma", "B=4 T=16 U+1=9 J=1024 V=512 bf16")
     designs["J=1024 bf16"] = "wmma"
     for w in (args[4], rag32[4].to(bf16)):
-        Jp, Vp = planes_cuda.padded_j(w.shape[0]), -(-w.shape[1] // 128) * 128
-        require(torch.equal(planes_cuda.pack_w2_cuda(w, Jp, Vp),
-                            planes_cuda.pack_w2(w, Jp, Vp)),
+        require(torch.equal(planes_cuda.pack_w2_cuda(w),
+                            planes_cuda.pack_w2(w)),
                 f"K6's pack kernel differs from pack_w2 at W2 "
                 f"{tuple(w.shape)}")
         log(f"K6 pack kernel equals pack_w2 at W2 {tuple(w.shape)}")
@@ -1609,8 +1608,8 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
                                  PEAK_BF16_FLOPS)["bound_ms"],
         "library_ms_b96": cuda_ms(lambda: torch.mm(h2d_b, args_b[4]),
                                   reps=5),
-        "pack_ms": cuda_ms(lambda: planes_cuda.pack_w2_cuda(
-            args[4], J, -(-V // 128) * 128), reps=10),
+        "pack_ms": cuda_ms(lambda: planes_cuda.pack_w2_cuda(args[4]),
+                           reps=10),
         "designs_by_case": designs,
         "max_abs_err_by_case": errs,
         "max_abs_err_fp32": errs["float32"]}

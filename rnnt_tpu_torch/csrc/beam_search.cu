@@ -423,62 +423,10 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p,
   }
 }
 
-// ---- bulk asynchronous copies (TMA, 1D) with mbarrier completion ----
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* b,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
-// global to shared memory; the barrier's phase completes when they land.
-// Issued by one thread: it arrives on the barrier expecting the bytes.  The
-// lines are marked evict-first in L2: each weight slice is read once an
-// expansion, and 45 MB of them would otherwise push the joint's weights,
-// the workspace and the code out of the 50 MB L2 (without the hint the 15 s
-// search ran 25% slower on the H100, PERF.md).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* b) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-  unsigned long long pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(pol));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(b)), "l"(pol)
-      : "memory");
-}
-__device__ __forceinline__ bool mbar_done(unsigned long long* b,
-                                          unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(b)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// Waits for the barrier's phase of parity `parity` to complete; as
-// grid_barrier, a wait over 2^35 cycles is a fault and traps.
-__device__ __forceinline__ void mbar_wait(unsigned long long* b,
-                                          unsigned parity) {
-  if (mbar_done(b, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_done(b, parity))
-    if (clock64() - t0 > (1LL << 35)) __trap();
-}
+// Bulk copies (common.cuh) mark the weight slices evict-first in L2: each
+// slice is read once an expansion, and 45 MB of them would otherwise push
+// the joint's weights, the workspace and the code out of the 50 MB L2
+// (without the hint the 15 s search ran 25% slower on the H100, PERF.md).
 
 // Selection order: higher score first, then the lower index.
 __device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
@@ -1085,7 +1033,7 @@ __global__ void __launch_bounds__(NT) beam_kernel(const Args<W> a) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       bulk_load(s.ring + (size_t)slot * sbytes,
                 pr.src + (size_t)(sh.first + i0) * pr.nh * 128,
-                (unsigned)(cnt * pr.nh * HALF), s.mbar + slot);
+                (unsigned)(cnt * pr.nh * HALF), s.mbar + slot, true);
     }
     ++c_iss;
     ++q_iss;

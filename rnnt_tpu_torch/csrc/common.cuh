@@ -159,3 +159,72 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], unsigned a0,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
+
+// ---- bulk asynchronous copies (TMA, 1D) with mbarrier completion (sm_90) ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* b,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; the barrier's phase completes when they land.
+// Issued by one thread: it arrives on the barrier expecting the bytes.
+// With `evict_first` the lines are marked evict-first in L2, for a stream
+// read once that would otherwise push what is reused out of L2.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* b,
+                                          bool evict_first) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+  if (evict_first) {
+    unsigned long long pol;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(pol));
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(b)), "l"(pol)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(b))
+        : "memory");
+  }
+}
+__device__ __forceinline__ bool mbar_done(unsigned long long* b,
+                                          unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Waits for the barrier's phase of parity `parity` to complete; as
+// grid_barrier, a wait over 2^35 cycles is a fault and traps.
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          unsigned parity) {
+  if (mbar_done(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_done(b, parity))
+    if (clock64() - t0 > (1LL << 35)) __trap();
+}

@@ -431,60 +431,6 @@ inline size_t smem_bytes(int J, int stages) {
          (size_t)stages * STAGE_BYTES + BAR_BYTES;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* b,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-// One thread copies `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from global to shared memory; the barrier's phase completes when they
-// have landed (the thread's arrival expects them).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* b) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(b))
-      : "memory");
-}
-__device__ __forceinline__ bool mbar_done(unsigned long long* b,
-                                          unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(b)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// Waits for the barrier's phase of parity `parity` to complete.  A wait of
-// over 2^35 cycles (over 10 s) can only be a fault: it traps, so the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(unsigned long long* b,
-                                          unsigned parity) {
-  if (mbar_done(b, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_done(b, parity))
-    if (clock64() - t0 > (1LL << 35)) __trap();
-}
-
 // wgmma shared-memory descriptor of a K-major operand in the 128-byte
 // swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (the
 // stride byte offset), the leading byte offset unused by this layout.  The
@@ -519,10 +465,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -631,8 +581,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int nkb = J / KB, nvc = Vp / NV, nsteps = nkb * nvc;
   unsigned char* hs = base;                          // [nkb][CELLS][KB]
   unsigned char* ring = hs + (size_t)nkb * HBLK_BYTES;  // [stages][NV][KB]
-  unsigned long long* full =
-      reinterpret_cast<unsigned long long*>(ring + (size_t)stages * STAGE_BYTES);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      ring + (size_t)stages * STAGE_BYTES);
   unsigned long long* empty = full + MAX_STAGES;
   const long long N = (long long)B * T * U1;
   const int ntiles = (int)((N + CELLS - 1) / CELLS);
@@ -656,8 +606,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       for (int i = 0; i < nsteps; ++i) {
         mbar_wait(&empty[s], ph ^ 1);
+        // no L2 hint: every CTA re-reads these 5.24 MB, which should stay
         bulk_load(ring + (size_t)s * STAGE_BYTES,
-                  w2p + (size_t)i * (NV * KB), STAGE_BYTES, &full[s]);
+                  w2p + (size_t)i * (NV * KB), STAGE_BYTES, &full[s], false);
         if (++s == stages) {
           s = 0;
           ph ^= 1;

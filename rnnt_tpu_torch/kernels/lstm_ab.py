@@ -250,13 +250,6 @@ def _planes_inputs(B, T, U1, seed=4):
     return args, lambda: torch.mm(h2d, args[4])
 
 
-def _pack_run(lib, args):
-    """The WGMMA launch's packing of W2 alone (a turn of its own)."""
-    w2 = args[4]
-    Jp, Vp = planes_cuda.padded_j(w2.shape[0]), -(-w2.shape[1] // 128) * 128
-    return lambda: planes_cuda.pack_w2_cuda(w2, Jp, Vp, lib)
-
-
 def _planes_split(lib, args):
     """A timed build's per-block phase split of one launch, in ms: block
     0's row, the heaviest block's and each phase's maximum over blocks."""
@@ -393,9 +386,10 @@ def main(argv=None) -> int:
         if cudnn is not None:
             runs["cublas" if a.kernel == "planes" else "cudnn"] = cudnn
         if a.kernel == "planes":
-            runs.update({f"{s} pack_w2": _pack_run(lib, args)
-                         for s, (lib, _) in libs.items()
-                         if hasattr(lib, "planes_pack_w2")})
+            runs.update({f"{s} pack_w2": (
+                lambda lib=lib: planes_cuda.pack_w2_cuda(args[4], lib))
+                for s, (lib, _) in libs.items()
+                if hasattr(lib, "planes_pack_w2")})
         order = list(runs)
         ms = {s: [] for s in order}
         reps = a.reps * (5 if T <= 2 else 1)  # short launches: more runs

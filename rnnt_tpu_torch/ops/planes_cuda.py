@@ -45,6 +45,11 @@ def padded_j(J: int) -> int:
     return max(2 * KB, -(-J // KB) * KB)
 
 
+def padded_v(V: int) -> int:
+    """V padded to whole 128-column chunks (every design)."""
+    return -(-V // _VT) * _VT
+
+
 def wgmma_stages(dtype, J: int, optin: int) -> int:
     """Ring stages of the WGMMA design (3 or 4), or 0 where the shape runs
     another design: bf16 only, and the h tile of 128 cells at the padded J,
@@ -57,17 +62,17 @@ def wgmma_stages(dtype, J: int, optin: int) -> int:
     return stages if stages >= 3 else 0
 
 
-def pack_w2(w2: torch.Tensor, Jp: int, Vp: int) -> torch.Tensor:
+def pack_w2(w2: torch.Tensor) -> torch.Tensor:
     """Plain version of the WGMMA launch's first kernel (`pack_w2_kernel`):
-    W2 [J, V] zero-padded to [Jp, Vp] (Jp a multiple of 64, Vp of 128) and
-    laid out in the order the design streams it: [128 v x 64 k] tiles, V
+    W2 [J, V] zero-padded to [padded_j(J), padded_v(V)] and laid out in the
+    order the design streams it: [128 v x 64 k] tiles, V
     chunk by V chunk, k-block by k-block within a chunk, each tile K-major
     (its row n holds W2[k0:k0+64, v0+n]) with the 128-byte swizzle applied:
     the 16-byte group c of row n sits at position c ^ (n % 8).  One flat
     tensor.  The launch packs on every call: in training W2 changes every
     step, so a cached copy would never be reused there, and none can go
     stale."""
-    J, V = w2.shape
+    (J, V), Jp, Vp = w2.shape, padded_j(w2.shape[0]), padded_v(w2.shape[1])
     w2p = Fn.pad(w2, (0, Vp - V, 0, Jp - J))
     tiles = w2p.t().reshape(Vp // _VT, _VT, Jp // KB, 8, 8).permute(
         0, 2, 1, 3, 4)  # [chunk, k-block, n, 16-byte group, 8]
@@ -202,18 +207,19 @@ def launch(lib, f, g, labels_pad, b1, w2, b2):
     return tuple(planes)
 
 
-def pack_w2_cuda(w2, Jp: int, Vp: int, lib=None) -> torch.Tensor:
+def pack_w2_cuda(w2, lib=None) -> torch.Tensor:
     """The WGMMA launch's packing of W2 alone, on the card (what `pack_w2`
     computes; `chip_smoke.py` holds the two to equality)."""
     from rnnt_tpu_torch.kernels import build
 
     lib = _lib() if lib is None else lib
     w2 = w2.contiguous()
+    (J, V), Jp, Vp = w2.shape, padded_j(w2.shape[0]), padded_v(w2.shape[1])
     packed = torch.empty((Jp * Vp,), dtype=w2.dtype, device=w2.device)
     with torch.cuda.device(w2.device):
         err = lib.planes_pack_w2(
-            w2.data_ptr(), packed.data_ptr(), Jp, w2.shape[0], w2.shape[1],
-            Vp, torch.cuda.current_stream(w2.device).cuda_stream)
+            w2.data_ptr(), packed.data_ptr(), Jp, J, V, Vp,
+            torch.cuda.current_stream(w2.device).cuda_stream)
     build.check(lib, err, "planes_pack_w2")
     return packed
 
@@ -229,7 +235,7 @@ def pad_operands(f, g, labels_pad, b1, w2, b2, wgmma: bool):
     dt, (J, V) = w2.dtype, w2.shape
     jp = (padded_j(J) - J if wgmma
           else (-J) % 16 if dt == torch.bfloat16 else 0)
-    vp = (-V) % _VT
+    vp = padded_v(V) - V
     f, g, b1 = (a.to(dt) for a in (f, g, b1))
     if jp:
         f, g, b1 = (Fn.pad(a, (0, jp)) for a in (f, g, b1))

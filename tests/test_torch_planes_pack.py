@@ -65,7 +65,7 @@ def test_operands_padding(J, V):
     for wgmma, jp in ((True, PC.padded_j(J)), (False, -(-J // 16) * 16)):
         pf, pg, py, pb1, pw2, pb2 = PC.pad_operands(f, g, y, b1, w2, b2,
                                                     wgmma=wgmma)
-        vp = -(-V // 128) * 128
+        vp = PC.padded_v(V)
         assert pf.shape == (2, 3, jp) and pg.shape == (2, 4, jp)
         assert pb2.shape == (vp,)
         assert pb1.shape == (jp,) and py.dtype == torch.int32
@@ -102,8 +102,8 @@ def _tile(packed, Jp, Vp, chunk, kb):
 @pytest.mark.parametrize("J,V", [(40, 300), (640, 4096)])
 def test_packed_w2_inverts_to_the_padded_w2(J, V):
     _, (_, _, _, _, w2, _) = _inputs(1, 1, 1, J, V, 3, torch.bfloat16)
-    Jp, Vp = PC.padded_j(J), -(-V // 128) * 128
-    packed = PC.pack_w2(w2, Jp, Vp)
+    Jp, Vp = PC.padded_j(J), PC.padded_v(V)
+    packed = PC.pack_w2(w2)
     assert packed.shape == (Jp * Vp,) and packed.is_contiguous()
     back = torch.cat([torch.cat([_tile(packed, Jp, Vp, c, kb)
                                  for kb in range(Jp // 64)], 0)
@@ -117,11 +117,11 @@ def test_packed_w2_inverts_to_the_padded_w2(J, V):
 
 def test_in_place_update_of_w2_gives_a_new_packed_copy():
     _, (_, _, _, _, w2, _) = _inputs(1, 1, 1, 128, 256, 5, torch.bfloat16)
-    first = PC.pack_w2(w2, 128, 256)
+    first = PC.pack_w2(w2)
     w2.add_(1.0)
-    second = PC.pack_w2(w2, 128, 256)
+    second = PC.pack_w2(w2)
     assert not torch.equal(first, second)
-    assert torch.equal(second, PC.pack_w2(w2.clone(), 128, 256))
+    assert torch.equal(second, PC.pack_w2(w2.clone()))
 
 
 def _merge(a, b):
@@ -138,7 +138,7 @@ def emulate_wgmma_schedule(f, g, y, b1, w2, b2):
     U1, V = g.shape[1], w2.shape[1]
     f, g, y, b1, w2, b2p = PC.pad_operands(f, g, y, b1, w2, b2, wgmma=True)
     Jp, Vp = f.shape[2], b2p.shape[0]
-    packed = PC.pack_w2(w2, Jp, Vp)
+    packed = PC.pack_w2(w2)
     N = B * T * U1
     n = torch.arange(N)
     bt, u = n // U1, n % U1
