@@ -22,12 +22,13 @@
 // WGMMA (bf16, wherever the padded J's h tile and a ring of >= 3 W2 stages
 // fit in a block's shared memory: J <= 704 on the H100).  A persistent grid
 // of one CTA an SM walks tiles of 128 consecutive cells.  Its threads are two
-// consumer warpgroups, each owning 64 cells of the tile, and one producer
-// warp.  The five things that held the WMMA design back, and what this one
-// does about each:
+// consumer warpgroups, each owning 64 cells of the tile, and a producer
+// warpgroup, one thread of which issues the copies (setmaxnreg hands the
+// rest of its registers to the consumers).  The five things that held the
+// WMMA design back, and what this one does about each:
 //  1. one block of 8 warps an SM with nothing to hide its stalls: the
 //     producer keeps W2's copies in flight while the consumers compute, and
-//     the two consumer warpgroups run their products and folds out of step;
+//     a chunk's products run while the previous chunk is folded;
 //  2. W2 staged synchronously behind two barriers a slab: W2 arrives by TMA
 //     bulk copies (`cp.async.bulk`, 16 KB a stage) into a ring of 3-4
 //     stages, each stage completed on its mbarrier and released by the
@@ -43,14 +44,18 @@
 //     in, fp32 accumulate, A (h) and B (the W2 tile) both read from shared
 //     memory in the 128-byte-swizzled K-major layout; two accumulator sets,
 //     so the next chunk's first two k-blocks run while a chunk is folded.
-// W2 arrives packed (`ops/planes_cuda.pack_w2`): the padded [Jp, Vp] matrix
-// transposed and cut into [128 v x 64 k] tiles in the order the consumers
-// read them (V chunk, then k-block), each row already swizzled, so every
-// stage is one contiguous 1D bulk copy.  That needs neither the driver's
-// tensor-map encoder (this library links no libcuda) nor an MN-major B
-// operand; the price is a repack of W2 (5.24 MB at the parity width) each
-// call, which the wrapper makes and which counts in the kernel's time.  No
+// Each launch first packs W2 (`pack_w2_kernel`; `ops/planes_cuda.pack_w2` is
+// its plain version): the padded [Jp, Vp] matrix transposed and cut into
+// [128 v x 64 k] tiles in the order the consumers read them (V chunk, then
+// k-block), each row already swizzled, so every stage is one contiguous 1D
+// bulk copy.  That needs no tensor map (its
+// encoder, cuTensorMapEncodeTiled, lives in libcuda, which this library does
+// not link) and no MN-major B operand; the price is a repack of W2 (5.24 MB
+// at the parity width) at every launch, counted in the kernel's time.  No
 // L2 eviction hint: the 5.24 MB that every CTA re-reads should stay in L2.
+// On the H100 it runs at ~55% of the bound at B=32 (PERF.md): the h build
+// (tanhf, not overlapped) and the fold's exponentials are what remain; the
+// W2 stream costs ~5%.
 //
 // WMMA (bf16 outside that plan: a wide joint).  A block owns CT consecutive
 // cells.  It builds their tanh tile once in shared memory (rounded to W, as
