@@ -29,13 +29,15 @@ worst case.
    must log finite losses and an eval line and leave a checkpoint that the
    port's restore reads back at its step, and launch per train step the
    LSTM forward (K4, every launch its MMA design) and backward (K5) 10
-   times each, the lattice (K7) once
+   times each, the lattice (K7, every launch its warp design) once
    and, fused, the plane kernel (K6, every launch its WGMMA design) once;
    it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
    stream chunk's reply latency (p50, p99, max);
 4. holds each kernel against its plain PyTorch version on the card at the
-   request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4; the
+   request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4 at
+   each request's audio, at every chunk length of the TCP stream, at 8 kHz
+   with 40 mel bins and at a frame length equal to nfft, input untouched; the
    LSTM (K2) for random inputs with a nonzero carried state at B=1 (T=1, 2,
    512), B=5 (T=7), B=8 and 9 (LAT's threshold and one above, T=7) and
    B=32 (T=64), also at 114 blocks and at H=3072, P=768 (fp32 <= 1e-4,
@@ -76,24 +78,33 @@ worst case.
    (outside the WGMMA plan: WMMA), inputs untouched, its W2 pack kernel
    equal to `pack_w2`, and after an in-place change of W2 the next call
    held to the new W2's plain planes, which reject the old call's; K7
-   (alpha and beta over the valid cells, ll) from those planes
-   and from random planes at U+1 = 1025 and 1537 (runs of positions a
-   thread), <= 1e-5; and one whole fp32 train step at the parity width (B=32,
+   (alpha and beta over the valid cells, ll) from those planes at B=32 and
+   B=96 (the planes three times over) with ragged lengths, on its warp
+   design, and from random planes at U+1 = 1 (warp), 257, 1025 and 1537 (the
+   block design; runs of positions a thread above 1024), <= 1e-5, inputs
+   untouched; and one whole fp32 train step at the parity width (B=32,
    T=256, U=64) through K4-K7 on the card against the same step on the CPU
    (every wrapper's plain version): loss <= 1e-4 and every gradient <= 1e-3
    relative error;
 5. profiles each request's encoder, greedy decode and beam decode with
-   torch.profiler: wall time (CUDA events around the run), device ops and
-   device busy time (the union of the ops' intervals) of one profiled run,
-   and the idle share 1 - busy / wall from that same run (a profiled run
-   whose records miss a launch of the profiled kernel is repeated, at most
-   3 runs); and times a train step at bench.py's geometry
-   (B=96, T=256, U=64, bf16, fused; one warm-up and 5 timed steps) as
-   audio-s/s, with one profiled step's idle share and device time by
-   kernel, every K6 launch of it on the WGMMA design;
+   torch.profiler: wall time and device busy time on the profiler's one
+   clock (the wall between two marker kernels launched just before and
+   after the run, busy the union of the run's device records, every one of
+   which must lie between the markers; the CUDA-event wall is printed
+   beside), device ops, and the idle share 1 - busy / wall from that same
+   run (a profiled run whose records miss a marker or a launch of the
+   profiled kernel is repeated, at most 3 runs); and times a train step at
+   bench.py's geometry (B=96, T=256, U=64, bf16, fused; one warm-up and 5
+   timed steps) as audio-s/s, with one profiled step's idle share and
+   device time by kernel, every K6 launch of it on the WGMMA design and
+   every K7 launch on the warp design;
 6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
-   error; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
+   error; for K1 and K7 the device time with a spin kernel queued ahead,
+   since their launches are shorter than their host calls, for K1 also at a
+   7-frame stream chunk, the wrapper's host-bound call time and the plain
+   version's op chain as `composite_ms`, for K7 also at B=96 and at the
+   edge widths; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
    maximum of 30 runs and the launches by design, for K2 also the time of
    a one-step launch and at B=32, T=256 and each case's design, for K4 and
    K5 also the time at B=96; for K6 the time, bound and cuBLAS product
@@ -233,12 +244,12 @@ def read_launches() -> dict:
 
 def read_designs() -> dict:
     """Launches by design: the LSTM kernels' ("lat", "mma", "fma"), the
-    beam kernel's ("stream", "fma") and the plane kernel's ("wgmma",
-    "wmma", "fma")."""
+    beam kernel's ("stream", "fma"), the plane kernel's ("wgmma", "wmma",
+    "fma") and the lattice kernel's ("warp", "block")."""
     w = kernel_wrappers()
     return {name: dict(w[name].launches_by_design)
             for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd",
-                         "beam_search", "joint_planes")}
+                         "beam_search", "joint_planes", "lattice_scan")}
 
 
 def require_resident_k2(name, launches) -> None:
@@ -315,38 +326,96 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def check_frontend(cfg, audios):
-    """K1 vs its plain version on the card, at each request's audio."""
+def device_ms(fn, reps: int) -> float:
+    """Median device ms of fn() for a launch shorter than its host call: a
+    spin kernel queued ahead of each run keeps the card busy while the host
+    enqueues fn's launches, so the CUDA events time the card's work alone."""
     import torch
 
-    from rnnt_tpu_torch.ops import features as F
-    from rnnt_tpu_torch.ops.features_cuda import dft_matrices, log_mel_frontend
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
-    worst = 0.0
-    for audio in audios:
+
+def stream_chunk_samples(cfg, n_samples, chunk=1024):
+    """The audio lengths the frontend gets from a stream of `chunk`-sample
+    frames (decode/streaming.py's framing: whole frames of the carried
+    remainder and the new samples; priming left out)."""
+    L, hop = cfg.frame_length_samples, cfg.frame_step_samples
+    rem, lengths = 0, []
+    for _ in range(n_samples // chunk):
+        buf = rem + chunk
+        n = max(0, 1 + (buf - L) // hop)
+        if n:
+            lengths.append(n * hop + L - hop)
+            rem = buf - n * hop
+        else:
+            rem = buf
+    return sorted(set(lengths))
+
+
+def check_frontend(cfg, audios):
+    """K1 vs its plain version on the card, max |d log-mel| <= 2e-4 after
+    mean subtraction, input untouched: at each request's audio (the greedy
+    and beam paths' launches), at every chunk length of the TCP stream of
+    the 5 s WAV in 1024-sample frames (the stream path's launches), and at
+    two other geometries: 8 kHz with 40 mel bins (nfft 256) and a frame
+    length equal to nfft (32 ms, 512 samples).  Times (device time, a spin
+    queued ahead) at the 15 s request and at the stream's 7-frame chunk,
+    beside the plain version and the plain version's op chain
+    (`kernels.lstm_ab.composite_frontend`)."""
+    import torch
+
+    from rnnt_tpu_torch.kernels.lstm_ab import composite_frontend
+    from rnnt_tpu_torch.ops import features as F
+    from rnnt_tpu_torch.ops.features_cuda import fft_tables, log_mel_frontend
+
+    rng = np.random.default_rng(1)
+    cases = [(f"{a.shape[0]} samples", cfg, a) for a in audios]
+    cases += [(f"stream chunk, {n} samples", cfg, audios[1][:n])
+              for n in stream_chunk_samples(cfg, audios[1].shape[0])]
+    for over in (dict(sample_rate=8000, mel_bins=40),
+                 dict(frame_length=0.032)):
+        c = cfg.replace(**over)
+        a = synthetic_audio(2.0, rng)[: 2 * c.sample_rate]
+        cases.append((f"{over}, {a.shape[0]} samples", c, a))
+    errs = {}
+    for what, c, audio in cases:
         a = torch.from_numpy(audio).cuda()
-        got = F.subtract_mean(log_mel_frontend(a, cfg))
-        want = F.subtract_mean(F.log_mel_plain(a, cfg))
+        kept = a.clone()
+        got = F.subtract_mean(log_mel_frontend(a, c))
+        want = F.subtract_mean(F.log_mel_plain(a, c))
+        require(torch.equal(a, kept), "K1 wrote into its input")
         require(got.shape == want.shape, (got.shape, want.shape))
         err = float((got - want).abs().max())
-        log(f"K1 frontend {audio.shape[0]} samples -> {tuple(got.shape)}: "
-            f"max |d log-mel| {err:.3e}")
-        require(err <= 2e-4, f"frontend kernel disagrees: {err}")
-        worst = max(worst, err)
-    # timing at the longest request
+        log(f"K1 frontend {what} -> {tuple(got.shape)}: max |d log-mel| "
+            f"{err:.3e}")
+        require(err <= 2e-4, f"frontend kernel disagrees at {what}: {err}")
+        errs[what] = err
+    # timing at the longest request and at a 7-frame stream chunk
     a = torch.from_numpy(audios[-1]).cuda()
+    chunk = torch.from_numpy(audios[1][:6 * cfg.frame_step_samples
+                                       + cfg.frame_length_samples]).cuda()
     n_frames = F.num_frames(a.shape[0], cfg)
     L = cfg.frame_length_samples
     nfft = F.next_pow2(L)
     K = nfft // 2 + 1
     M = cfg.mel_bins
-    mel_nnz = int(np.count_nonzero(dft_matrices(cfg)[2]))
+    mel_nnz = fft_tables(cfg).mel_w.shape[0]
     # the function's least work a frame: window, real FFT (2.5 N log2 N),
-    # magnitude, the sparse mel filters, log; the kernel's matrix DFT does
-    # 2 * 2LK instead of the FFT's operations
+    # magnitude, the sparse mel filters, log
     flops = n_frames * (L + 2.5 * nfft * np.log2(nfft) + 4 * K
                         + 2 * mel_nnz + M)
-    kernel_flops = 2.0 * n_frames * (2 * L * K + K * M)
     nbytes = 4.0 * (a.shape[0] + n_frames * M)  # audio in, log-mel out
     t_flops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return {
@@ -354,14 +423,21 @@ def check_frontend(cfg, audios):
         "route": "cuda",
         "source": "rnnt_tpu_torch/csrc/frontend.cu",
         "replaces": "rnnt_tpu/ops/features_pallas.py:81",
-        "max_abs_err": worst,
-        "ms": cuda_ms(lambda: log_mel_frontend(a, cfg), reps=50),
+        "max_abs_err": max(errs.values()),
+        "ms": device_ms(lambda: log_mel_frontend(a, cfg), reps=50),
         "plain_ms": cuda_ms(lambda: F.log_mel_plain(a, cfg), reps=20),
         "bound_ms": max(t_flops, t_bytes) * 1e3,
         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
         "library_ms": None,
+        "composite_ms": device_ms(composite_frontend(a, cfg), reps=20),
+        "call_ms": cuda_ms(lambda: log_mel_frontend(a, cfg), reps=50),
         "shape": f"audio [{a.shape[0]}] -> [{n_frames},{M}] f32",
-        "kernel_matrix_dft_gflop": kernel_flops / 1e9,
+        "ms_chunk": device_ms(lambda: log_mel_frontend(chunk, cfg), reps=50),
+        "composite_ms_chunk": device_ms(composite_frontend(chunk, cfg),
+                                        reps=20),
+        "shape_chunk": f"audio [{chunk.shape[0]}] -> "
+                       f"[{F.num_frames(chunk.shape[0], cfg)},{M}] f32",
+        "max_abs_err_by_case": errs,
     }
 
 
@@ -608,21 +684,36 @@ def busy_ms(device_events) -> float:
     return total / 1e3
 
 
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel; no profiled fn runs it
+MARKER_CYCLES, OPENER_CYCLES = 1000, 400_000  # ~0.5 us and ~200 us spins
+OPENERS = 64  # spins, 10 ms apart, that open a profiled session
+
+
 def device_profile(fn, kernel, symbol, attempts=3, events=None):
     """Run fn() once without and then under torch.profiler.  Returns the
-    host wall ms of the first run, and of the profiled run: its wall ms on
-    the device's clock (CUDA events recorded on the stream just before and
-    after fn(); profiler overhead included), device ops, device busy ms
-    (`busy_ms`, the same clock), `kernel`'s launches and the number of
-    profiled runs; `events`, a list, receives the accepted run's device
-    ops.
+    host wall ms of the first run, and of the profiled run: its wall ms and
+    device busy ms, both on the profiler's one clock, the CUDA-event wall
+    ms (printed only), device ops, `kernel`'s launches and the number of
+    profiled runs; `events`, a list, receives the accepted run's device ops.
 
-    The profiler on the card has dropped every device record of a session
-    (a 15 s beam decode recorded 0 ops), so a profiled run is accepted only
-    when its records hold each launch of the kernel (device ops whose name
+    A marker kernel (a short `torch.cuda._sleep`, which fn() never launches)
+    runs on the stream just before fn() and another just after it.  The wall
+    is the time from the end of the first marker's device record to the
+    start of the second's; busy is the union of fn()'s device records
+    (`busy_ms`).  So busy <= wall compares one clock with itself, and the
+    checks that keep it from being vacuous are that both markers are
+    recorded and every other device record of the session lies between
+    them: an op on another stream, or outside fn(), fails the run.
+
+    The profiler has lost the first records of a session, a prefix that
+    grew from 1 kernel (a beam decode) to 17 (the bench train step, the
+    first 88 ms), markers among them.  So each session starts with OPENERS
+    longer spins, one every 10 ms, and the first marker follows the last by
+    10 ms.  A profiled run is accepted only when its records hold an opener
+    (the losses seen were a prefix of the session, so none was lost after
+    it), both markers and each launch of the kernel (device ops whose name
     contains `symbol`), and is repeated otherwise, at most `attempts` times.
-    The session is opened 10 ms before fn() starts and closed 10 ms after it
-    ends, so that no record falls outside its window."""
+    The session is closed 10 ms after fn() ends."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -635,31 +726,60 @@ def device_profile(fn, kernel, symbol, attempts=3, events=None):
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.01)
+            for _ in range(OPENERS):
+                torch.cuda._sleep(OPENER_CYCLES)
+                torch.cuda.synchronize()
+                time.sleep(0.01)
             n0 = kernel.launches
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(MARKER_CYCLES)
             start.record()
             fn()
             end.record()
+            torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
-            wall_ms = start.elapsed_time(end)
+            event_wall_ms = start.elapsed_time(end)
             launches = kernel.launches - n0
             time.sleep(0.01)
         device = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
+        spins = sorted((e for e in device if MARKER in e.name),
+                       key=lambda e: e.time_range.start)
+        # the openers are the longer spins; the markers last under 50 us
+        markers = [e for e in spins
+                   if e.time_range.end - e.time_range.start < 50]
+        opened = len(spins) - len(markers)
+        device = [e for e in device if MARKER not in e.name]
         recorded = sum(symbol in e.name for e in device)
-        if launches > 0 and recorded == launches:
+        if opened and len(markers) == 2 and launches > 0 and \
+                recorded == launches:
             break
-        log(f"profiled run {attempt}: {len(device)} device ops, {recorded} "
-            f"of {launches} {symbol} launches recorded")
+        edge = sorted(device + markers, key=lambda e: e.time_range.start)
+        log(f"profiled run {attempt}: {len(device)} device ops, {opened} "
+            f"of {OPENERS} openers, "
+            f"{len(markers)} of 2 markers, {recorded} of {launches} {symbol} "
+            f"launches recorded; spins " + ", ".join(
+                f"{e.time_range.start:.1f}-{e.time_range.end:.1f}"
+                for e in spins) + "; first and last records " + "; ".join(
+                f"{e.name[:48]} {e.time_range.start:.1f}-"
+                f"{e.time_range.end:.1f}" for e in edge[:3] + edge[-3:]))
+    require(opened and len(markers) == 2, f"the profiler recorded {opened} "
+            f"of {OPENERS} openers, {len(markers)} of 2 markers in {attempts} "
+            f"runs")
     require(launches > 0 and recorded == launches,
             f"the profiler recorded {recorded} of {launches} {symbol} "
             f"launches in {attempts} runs")
+    lo, hi = markers[0].time_range.end, markers[1].time_range.start
+    outside = [e.name for e in device
+               if e.time_range.start < lo or e.time_range.end > hi]
+    require(not outside, f"{len(outside)} device records outside the "
+            f"marker window, e.g. {outside[:3]}")
+    wall_ms, busy = (hi - lo) / 1e3, busy_ms(device)
     if events is not None:
         events.extend(device)
-    return plain_wall_ms, wall_ms, len(device), busy_ms(device), launches, \
-        attempt
+    return plain_wall_ms, wall_ms, busy, event_wall_ms, len(device), \
+        launches, attempt
 
 
 def profile_request(model, mel_p, t, label):
@@ -678,8 +798,9 @@ def profile_request(model, mel_p, t, label):
                 ("encoder", lambda: model.encode(mel_p)),
                 ("decode", lambda: greedy_decode_encoded(
                     model, enc, enc_len, max_output_length=256))):
-            plain_wall, wall, ops, busy, launches, runs = device_profile(
-                fn, lstm_cuda.lstm_seq_infer, "lstm_infer_lat_kernel")
+            plain_wall, wall, busy, event_wall, ops, launches, runs = \
+                device_profile(fn, lstm_cuda.lstm_seq_infer,
+                               "lstm_infer_lat_kernel")
             what = f"profile {label} {phase}"
             require(busy <= wall, f"{what}: device busy {busy} ms exceeds "
                     f"wall {wall} ms on one stream")
@@ -688,7 +809,8 @@ def profile_request(model, mel_p, t, label):
             steps = launches // 2 - 1
             per = (f", {steps} joint steps, {ops / steps:.1f} device ops a "
                    f"step" if phase == "decode" else "")
-            log(f"{what}: wall {wall:.2f} ms ({plain_wall:.2f} without the "
+            log(f"{what}: wall {wall:.2f} ms between the markers (CUDA "
+                f"events {event_wall:.2f}, {plain_wall:.2f} without the "
                 f"profiler), device busy {busy:.2f} ms ({ops} device "
                 f"ops{per}), idle share {1 - busy / wall:.3f}, profiled "
                 f"runs {runs}")
@@ -1141,19 +1263,20 @@ def profile_beam(served, mel_p, t, label):
     enc_len = served.encoded_length(torch.tensor([t], device=mel_p.device))
     with torch.no_grad():
         enc, _ = served.encode(mel_p)
-        plain_wall, wall, ops, busy, launches, runs = device_profile(
-            lambda: beam_cuda.beam_search(
-                served, enc, enc_len, beam_width=BEAM,
-                max_output_length=MAX_TOKENS,
-                expansions_per_frame=default_expansions(served.cfg)),
-            beam_cuda.beam_search, "beam_kernel")
+        plain_wall, wall, busy, event_wall, ops, launches, runs = \
+            device_profile(
+                lambda: beam_cuda.beam_search(
+                    served, enc, enc_len, beam_width=BEAM,
+                    max_output_length=MAX_TOKENS,
+                    expansions_per_frame=default_expansions(served.cfg)),
+                beam_cuda.beam_search, "beam_kernel")
     what = f"profile {label} beam decode"
     require(launches == 1, f"{what}: {launches} beam launches")
     require(busy <= wall, f"{what}: busy {busy} ms exceeds wall {wall} ms")
-    log(f"{what}: wall {wall:.2f} ms ({plain_wall:.2f} without the "
-        f"profiler), device busy {busy:.2f} ms ({ops} device ops, "
-        f"{launches} beam launch), idle share {1 - busy / wall:.3f}, "
-        f"profiled runs {runs}")
+    log(f"{what}: wall {wall:.2f} ms between the markers (CUDA events "
+        f"{event_wall:.2f}, {plain_wall:.2f} without the profiler), device "
+        f"busy {busy:.2f} ms ({ops} device ops, {launches} beam launch), "
+        f"idle share {1 - busy / wall:.3f}, profiled runs {runs}")
 
 
 # ---------------------------------------------------------------- training
@@ -1244,6 +1367,8 @@ def require_train_launches(name, launches, steps, eval_batches, pallas):
             f"{want['lstm_fwd']} K4 launches ran the MMA design")
     require_wgmma_k6(name, launches["joint_planes_by_design"],
                      want["joint_planes"])
+    require_warp_k7(name, launches["lattice_scan_by_design"],
+                    want["lattice_scan"])
 
 
 def require_wgmma_k6(name, by_design, n) -> None:
@@ -1616,11 +1741,52 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
     return entry, planes32
 
 
+def lattice_case(b, e, fl, yl, design, what):
+    """K7 vs its plain version on one input: alpha and beta over the valid
+    cells and ll within LATTICE_TOL relative error, inputs untouched, the
+    launch on `design`.  Returns (relative errors, max |d| over the valid
+    cells)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lattice_cuda, rnnt_loss_ref
+
+    B, T, U1 = b.shape
+    args = (b, e, fl, yl)
+    kept = [a.clone() for a in args]
+    k7 = lattice_cuda.lattice_scan
+    before = dict(k7.launches_by_design)
+    got = k7(*args)
+    ran = [d for d, n in k7.launches_by_design.items() if n > before[d]]
+    want = rnnt_loss_ref.lattice_scan_plain(*args)
+    require(all(torch.equal(a, c) for a, c in zip(args, kept)),
+            "K7 wrote into its inputs")
+    require(ran == [design], f"K7 {what} ran {ran}, not {design}")
+    t_idx = torch.arange(T, device=b.device)[None, :, None]
+    u_idx = torch.arange(U1, device=b.device)[None, None, :]
+    valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
+    rel = [rel_err(got[i][valid], want[i][valid]) for i in (0, 1)]
+    rel.append(rel_err(got[2], want[2]))
+    max_abs = max(float((got[i][valid] - want[i][valid]).abs().max())
+                  for i in (0, 1))
+    log(f"K7 lattice {what} B={B} T={T} U+1={U1} ({design}): rel err alpha "
+        f"{rel[0]:.3e} beta {rel[1]:.3e} ll {rel[2]:.3e}; max |d| "
+        f"{max_abs:.3e}")
+    require(max(rel) <= LATTICE_TOL, f"K7 {what} U+1={U1} disagrees: {rel}")
+    return rel, max_abs
+
+
+def lattice_design(U1) -> str:
+    from rnnt_tpu_torch.ops import lattice_cuda
+
+    return "warp" if U1 <= lattice_cuda.WARP_MAX_U1 else "block"
+
+
 def check_lattice(planes32, device="cuda", seed=5):
-    """K7 vs its plain version from the fp32 planes of check_planes (b =
-    blank - denom, e = emit - denom masked from u = U_b on), with random
-    frame and label lengths: alpha and beta over the valid cells and ll
-    within LATTICE_TOL relative error.  Returns the K7 entry."""
+    """K7 vs its plain version (`lattice_case`) from the fp32 planes of
+    check_planes (b = blank - denom, e = emit - denom masked from u = U_b
+    on) at B=32, T'=128, U+1=65, and at B=96 from the same planes three
+    times over, each with random ragged frame and label lengths; both on the
+    warp design.  Returns the K7 entry, timed (device time) at both."""
     import torch
 
     from rnnt_tpu_torch.ops import lattice_cuda, rnnt_loss_ref
@@ -1628,76 +1794,75 @@ def check_lattice(planes32, device="cuda", seed=5):
     denom, blank, emit = planes32
     B, T, U1 = denom.shape
     g = torch.Generator(device=device).manual_seed(seed)
-    fl = torch.randint(max(1, T - 28), T + 1, (B,), generator=g, device=device)
-    yl = torch.randint(max(0, U1 - 26), U1, (B,), generator=g, device=device)
     u_idx = torch.arange(U1, device=device)[None, None, :]
-    b = blank - denom
-    e = torch.where(u_idx < yl[:, None, None], emit - denom, rnnt_loss_ref.NEG)
-    args = (b, e, fl, yl)
-    before = [a.clone() for a in args]
-    got = lattice_cuda.lattice_scan(*args)
-    want = rnnt_loss_ref.lattice_scan_plain(*args)
-    require(all(torch.equal(a, c) for a, c in zip(args, before)),
-            "K7 wrote into its inputs")
-    t_idx = torch.arange(T, device=device)[None, :, None]
-    valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
-    rel = [rel_err(got[i][valid], want[i][valid]) for i in (0, 1)]
-    rel.append(rel_err(got[2], want[2]))
-    max_abs = max(float((got[i][valid] - want[i][valid]).abs().max())
-                  for i in (0, 1))
-    log(f"K7 lattice B={B} T={T} U+1={U1}: rel err alpha {rel[0]:.3e} beta "
-        f"{rel[1]:.3e} ll {rel[2]:.3e}; max |d| {max_abs:.3e}")
-    require(max(rel) <= LATTICE_TOL, f"K7 disagrees: {rel}")
+    inputs, errs = {}, {}
+    for nb in (B, 3 * B):
+        fl = torch.randint(max(1, T - 28), T + 1, (nb,), generator=g,
+                           device=device)
+        yl = torch.randint(max(0, U1 - 26), U1, (nb,), generator=g,
+                           device=device)
+        b = (blank - denom).repeat(nb // B, 1, 1)
+        e = torch.where(u_idx < yl[:, None, None],
+                        (emit - denom).repeat(nb // B, 1, 1),
+                        rnnt_loss_ref.NEG)
+        inputs[nb] = (b, e, fl, yl)
+        errs[f"B={nb}"] = lattice_case(*inputs[nb], lattice_design(U1),
+                                       "from the planes")
     cells = B * T * U1
-    # two directions a cell: a logaddexp of two terms (~10 fp32 operations)
+
+    def cost(nb):  # planes in, alpha and beta out; ~10 fp32 ops a cell
+        c = cells * nb // B
+        return 4 * 4 * c + 4 * 3 * nb, 2 * 10.0 * c
+
     return {
         "name": "lattice_scan", "route": "cuda",
         "source": "rnnt_tpu_torch/csrc/rnnt_lattice.cu",
         "replaces": "rnnt_tpu/ops/rnnt_loss_pallas.py:76",
-        "max_abs_err": max_abs,
-        "ms": cuda_ms(lambda: lattice_cuda.lattice_scan(*args), reps=20),
-        "plain_ms": cuda_ms(lambda: rnnt_loss_ref.lattice_scan_plain(*args),
-                            reps=2, warmup=1),
-        **bound_of(4 * 4 * cells + 4 * 3 * B, 2 * 10.0 * cells,
-                   PEAK_FP32_FLOPS),
+        "max_abs_err": max(m for _, m in errs.values()),
+        "rel_err_by_case": {k: max(r) for k, (r, _) in errs.items()},
+        "ms": device_ms(lambda: lattice_cuda.lattice_scan(*inputs[B]),
+                        reps=20),
+        "plain_ms": cuda_ms(lambda: rnnt_loss_ref.lattice_scan_plain(
+            *inputs[B]), reps=2, warmup=1),
+        **bound_of(*cost(B), PEAK_FP32_FLOPS),
         "library_ms": None,
-        "shape": f"B={B} T'={T} U+1={U1} fp32"}
+        "shape": f"B={B} T'={T} U+1={U1} fp32",
+        "ms_b96": device_ms(lambda: lattice_cuda.lattice_scan(
+            *inputs[3 * B]), reps=20),
+        "bound_ms_b96": bound_of(*cost(3 * B), PEAK_FP32_FLOPS)["bound_ms"]}
 
 
 def check_lattice_wide(device="cuda", seed=6, B=2, T=24):
-    """K7 above one thread a label position (U+1 = 1025 and 1537, runs of 2
-    positions a thread): random log-probability planes, emit masked from
-    u = U_b on, random frame and label lengths; alpha and beta over the
-    valid cells and ll within LATTICE_TOL relative error of the plain
-    scans, inputs untouched.  Returns {U+1: ms}."""
+    """K7 at the edges of its designs: U+1 = 1 (the warp design, one
+    position), 257 (the block design's first width) and 1025, 1537 (runs of
+    2 positions a thread): random log-probability planes, emit masked from
+    u = U_b on, random frame and label lengths, `lattice_case`'s gates.
+    Returns {U+1: device ms}."""
     import torch
 
     from rnnt_tpu_torch.ops import lattice_cuda, rnnt_loss_ref
 
     g = torch.Generator(device=device).manual_seed(seed)
     times = {}
-    for U1 in (1025, 1537):
+    for U1 in (1, 257, 1025, 1537):
         b = -3.0 * torch.rand((B, T, U1), generator=g, device=device) - 0.05
         e = -3.0 * torch.rand((B, T, U1), generator=g, device=device) - 0.05
         fl = torch.randint(T - 6, T + 1, (B,), generator=g, device=device)
-        yl = torch.randint(U1 - 60, U1, (B,), generator=g, device=device)
+        yl = torch.randint(max(0, U1 - 60), U1, (B,), generator=g,
+                           device=device)
         u_idx = torch.arange(U1, device=device)[None, None, :]
         e = torch.where(u_idx < yl[:, None, None], e, rnnt_loss_ref.NEG)
         args = (b, e, fl, yl)
-        kept = [a.clone() for a in args]
-        got = lattice_cuda.lattice_scan(*args)
-        want = rnnt_loss_ref.lattice_scan_plain(*args)
-        require(all(torch.equal(a, c) for a, c in zip(args, kept)),
-                "K7 wrote into its inputs")
-        t_idx = torch.arange(T, device=device)[None, :, None]
-        valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
-        rel = [rel_err(got[i][valid], want[i][valid]) for i in (0, 1)]
-        rel.append(rel_err(got[2], want[2]))
-        times[U1] = cuda_ms(lambda: lattice_cuda.lattice_scan(*args), reps=20)
-        log(f"K7 lattice B={B} T={T} U+1={U1}: rel err alpha {rel[0]:.3e} "
-            f"beta {rel[1]:.3e} ll {rel[2]:.3e}; {times[U1]:.4f} ms")
-        require(max(rel) <= LATTICE_TOL, f"K7 U+1={U1} disagrees: {rel}")
+        lattice_case(*args, lattice_design(U1), "random planes")
+        times[U1] = device_ms(lambda: lattice_cuda.lattice_scan(*args),
+                              reps=20)
     return times
+
+
+def require_warp_k7(name, by_design, n) -> None:
+    """Every K7 launch of a driven training path ran the warp design."""
+    require(n > 0 and by_design["warp"] == n,
+            f"{name}: K7 launches by design {by_design} of {n}")
 
 
 def random_batch(cfg, B, T, U, device, seed):
@@ -1759,7 +1924,7 @@ def step_split(events):
     groups = (("K4 lstm_fwd", ("lstm_infer_kernel", "lstm_fwd_mma_kernel")),
               ("K5 lstm_bwd", "lstm_bwd_kernel"),
               ("K6 joint_planes", ("plane_kernel", "pack_w2_kernel")),
-              ("K7 lattice", "lattice_kernel"),
+              ("K7 lattice", ("lattice_warp_kernel", "lattice_kernel")),
               ("cuBLAS products", ("gemm", "Gemm", "nvjet", "xmma",
                                    "cutlass", "cublas")))
     split = {}
@@ -1786,14 +1951,15 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
     from rnnt_tpu_torch.train.state import create_train_state
     from rnnt_tpu_torch.train.steps import make_train_step
 
-    from rnnt_tpu_torch.ops import planes_cuda
+    from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda
 
     state = create_train_state(cfg, torch.bfloat16, device, seed)
     batch = random_batch(cfg, B, T, U, device, seed)
     step = make_train_step(cfg, loss_impl="fused")
     gen = torch.Generator(device=device).manual_seed(seed)
-    k6 = planes_cuda.joint_planes
+    k6, k7 = planes_cuda.joint_planes, lattice_cuda.lattice_scan
     k6_before = (k6.launches, dict(k6.launches_by_design))
+    k7_before = (k7.launches, dict(k7.launches_by_design))
     losses = [float(step(state, batch, gen)["loss"])]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1804,7 +1970,7 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
     losses.append(float(m["loss"]))
     require(all(np.isfinite(losses)), f"bench train losses {losses}")
     events = []
-    plain_wall, wall, ops, busy, launches, runs = device_profile(
+    plain_wall, wall, busy, event_wall, ops, launches, runs = device_profile(
         lambda: step(state, batch, gen), lstm_cuda.lstm_bwd,
         "lstm_bwd_kernel", events=events)
     require(launches == 10, f"profiled train step: {launches} K5 launches")
@@ -1812,14 +1978,20 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
                     for d, n in k6.launches_by_design.items()}
     require_wgmma_k6("bench step", k6_by_design,
                      k6.launches - k6_before[0])
+    k7_by_design = {d: n - k7_before[1][d]
+                    for d, n in k7.launches_by_design.items()}
+    require_warp_k7("bench step", k7_by_design, k7.launches - k7_before[0])
     result = {"B": B, "T": T, "U": U, "dtype": "bfloat16", "loss": "fused",
               "step_ms": secs / timed * 1e3,
               "audio_s_per_s": B * T * 0.03 * timed / secs,
-              "profiled_step_wall_ms": wall, "unprofiled_step_ms": plain_wall,
+              "profiled_step_wall_ms": wall,
+              "profiled_step_event_wall_ms": event_wall,
+              "unprofiled_step_ms": plain_wall,
               "device_busy_ms": busy, "device_ops": ops,
               "idle_share": 1 - busy / wall, "profiled_runs": runs,
               "split_ms": step_split(events), "losses": losses,
-              "k6_launches_by_design": k6_by_design, "card": smi}
+              "k6_launches_by_design": k6_by_design,
+              "k7_launches_by_design": k7_by_design, "card": smi}
     log("bench-geometry train step " + json.dumps(result))
     return result
 

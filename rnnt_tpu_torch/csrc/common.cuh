@@ -135,6 +135,17 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src,
                "l"(src), "r"(src_bytes)
                : "memory");
 }
+// BYTES-byte copy (4, 8 or 16) from global to shared memory through L1
+// (.ca); with in = false it reads nothing and writes zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* smem_dst, const void* src,
+                                            bool in = true) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(BYTES), "r"(in ? BYTES : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

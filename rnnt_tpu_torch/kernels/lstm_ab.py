@@ -1,9 +1,10 @@
-"""A/B timing of builds of the LSTM kernels K2, K4, K5 and of K6 and K7 on
-one card.
+"""A/B timing of builds of the LSTM kernels K2, K4, K5 and of K1, K6 and K7
+on one card.
 
   python3 -m rnnt_tpu_torch.kernels.lstm_ab A.cu B.cu[:NAME=V,...] [...]
-      [--kernel infer|fwd|bwd|planes|lattice] [--batch 32 96] [--steps 256]
-      [--shape 1x512 1x1 ...] [--reps 10] [--ptxas]
+      [--kernel infer|fwd|bwd|planes|lattice|frontend] [--batch 32 96]
+      [--steps 256] [--shape 1x512 1x1 ...] [--samples 240000 1360]
+      [--reps 10] [--ptxas]
 
 Each source is a copy of `csrc/lstm_infer.cu` (`--kernel infer`, K2, entry
 `lstm_infer_bf16`; `--kernel fwd`, K4) or of `csrc/lstm_bwd.cu` (`--kernel
@@ -37,7 +38,8 @@ padded bf16 one of the MMA design, K2's tagged words), so builds of any
 design time alike.  With `--kernel lattice` the sources are copies of
 `csrc/rnnt_lattice.cu` (K7), run on random log-probability planes [B, T,
 U+1] (T = --steps, U+1 = --labels, emit masked from U_b on) and checked
-against `rnnt_loss_ref.lattice_scan_plain` over the valid cells.  With
+against `rnnt_loss_ref.lattice_scan_plain` over the valid cells, and timed
+as device time (a spin kernel queued ahead, see `--kernel frontend`).  With
 `--kernel planes` the sources are copies of `csrc/joint_planes.cu` (K6),
 run through `ops.planes_cuda.launch` (each call as the training step makes
 it, any packing of W2 included) at T' = --steps (default 128), U+1 =
@@ -49,7 +51,20 @@ packing of W2 alone (the WGMMA launch's first kernel, where the build has
 it) one as `<source> pack_w2`.  A build with
 `PLANES_PHASE_TIMERS=1` also reports its per-block phase split in ms of
 one launch: block 0's, the heaviest block's and each phase's maximum over
-blocks.  `--ptxas` adds `-Xptxas -v` and prints each build's report.
+blocks.  With `--kernel frontend` the sources are copies of
+`csrc/frontend.cu` (K1), run at the parity geometry on `--samples` samples
+of `chip_smoke.synthetic_audio`-like audio (default 240000, the 15 s
+request's 1498 frames, and 1360, a 7-frame chunk of the TCP stream in
+1024-sample frames); a build exporting `frontend_log_mel_fft` runs through
+`features_cuda.launch`, one exporting the dense-DFT entry of earlier trees
+`frontend_log_mel` with its window-folded DFT matrices.  Each is checked
+against `features.log_mel_plain` (max |d log-mel| after mean subtraction)
+and timed in turns with `composite`, the plain version's op chain on the
+card (framing and window, `torch.fft.rfft`, `abs`, the mel `torch.mm`,
+`log`): `ms` is device time (a spin kernel queued ahead of each run, so
+the host's enqueueing is hidden), `call_ms` the same runs without the
+spin, which the host's Python and launch overhead sets when it is
+longer.  `--ptxas` adds `-Xptxas -v` and prints each build's report.
 """
 
 from __future__ import annotations
@@ -62,10 +77,14 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from rnnt_tpu_torch.kernels import build
-from rnnt_tpu_torch.ops import lstm_cuda, planes_cuda, rnnt_loss_ref
+from rnnt_tpu_torch.config import RNNTConfig
+from rnnt_tpu_torch.ops import features as F
+from rnnt_tpu_torch.ops import (features_cuda, lattice_cuda, lstm_cuda,
+                                planes_cuda, rnnt_loss_ref)
 
 H, P, F_IN = 2048, 640, 240
 PHASES = ("A products", "A epilogue", "A barrier", "B products",
@@ -80,12 +99,14 @@ ENTRY = {"infer": ("lstm_infer_bf16", 10, "k2_phases", K2_PHASES),
                  + ("A products: ring and MMAs",)),
          "bwd": ("lstm_bwd_bf16", 13, "k5_phases", PHASES),
          "lattice": ("rnnt_lattice", 7, None, ()),
+         "frontend": (None, 0, None, ()),
          "planes": (None, 0, "planes_phases", (
              "build", "w2_wait", "products", "logits_out", "fold",
              "barrier"))}
 DESIGNS = ("fma", "mma", "lat")
 PLANES_J, PLANES_V = 640, 4096  # the parity joint
 INFER_SHAPES = ((1, 512), (1, 2), (1, 1), (32, 256))
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock
 
 
 def _round16(n):
@@ -119,6 +140,9 @@ def _build_all(sources, kernel, ptxas=False):
         lib = ctypes.CDLL(path)
         if kernel == "planes":
             libs[src] = (planes_cuda.bind(lib), None)
+            continue
+        if kernel == "frontend":
+            libs[src] = (lib, _frontend_launcher(lib))
             continue
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
@@ -206,6 +230,95 @@ def _launch_lattice(fn, args):
     return alpha, beta, ll
 
 
+def _frontend_launcher(lib):
+    """audio -> log-mel through a frontend build of either interface."""
+    if hasattr(lib, "frontend_log_mel_fft"):
+        features_cuda.bind(lib)
+        return lambda audio, cfg: features_cuda.launch(lib, audio, cfg)
+    fn = lib.frontend_log_mel  # the dense DFT of earlier trees
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    mats = {}  # window-folded cos, sin and the mel matrix, by config
+
+    def launch(audio, cfg):
+        flen, hop = cfg.frame_length_samples, cfg.frame_step_samples
+        K = F.next_pow2(flen) // 2 + 1
+        if cfg not in mats:
+            k = np.arange(flen, dtype=np.float64)[:, None]
+            ang = np.pi * k * np.arange(K)[None, :] / (K - 1)
+            hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * k / flen)
+            mats[cfg] = [torch.from_numpy(np.ascontiguousarray(m)).cuda()
+                         for m in ((hann * np.cos(ang)).astype(np.float32),
+                                   (-hann * np.sin(ang)).astype(np.float32),
+                                   F.mel_weight_matrix(
+                                       cfg.mel_bins, K, cfg.sample_rate,
+                                       cfg.hertz_low, cfg.hertz_high))]
+        n_frames = F.num_frames(audio.shape[0], cfg)
+        out = torch.empty((n_frames, cfg.mel_bins), device="cuda")
+        err = fn(audio.data_ptr(), *(m.data_ptr() for m in mats[cfg]),
+                 out.data_ptr(), n_frames, flen, hop, K, cfg.mel_bins,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K1 launch failed with {err}")
+        return out
+    return launch
+
+
+def _frontend_audio(n, seed=0):
+    """chip_smoke.synthetic_audio's mix at 16 kHz: three tones, a slow
+    envelope and a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    audio = sum(0.2 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t
+                             + rng.uniform(0, 6.3)) for _ in range(3))
+    audio = audio * (0.5 + 0.5 * np.sin(2 * np.pi * 1.5 * t)) \
+        + 0.02 * rng.standard_normal(n)
+    return torch.from_numpy(audio.astype(np.float32)).cuda()
+
+
+def composite_frontend(audio, cfg):
+    """The plain version's op chain with its constants on the card (framed
+    and windowed audio, torch.fft.rfft, abs, the mel product, log): a
+    yardstick of several PyTorch calls, not one."""
+    flen, hop = cfg.frame_length_samples, cfg.frame_step_samples
+    nfft = F.next_pow2(flen)
+    n_frames = F.num_frames(audio.shape[0], cfg)
+    idx = (torch.arange(n_frames, device=audio.device)[:, None] * hop
+           + torch.arange(flen, device=audio.device)[None, :])
+    k = torch.arange(flen, dtype=torch.float32, device=audio.device)
+    win = 0.5 - 0.5 * torch.cos(2.0 * np.pi * k / flen)
+    mel = torch.from_numpy(F.mel_weight_matrix(
+        cfg.mel_bins, nfft // 2 + 1, cfg.sample_rate, cfg.hertz_low,
+        cfg.hertz_high)).to(audio.device)
+    return lambda: torch.log(torch.mm(torch.fft.rfft(
+        audio[idx] * win, n=nfft).abs(), mel) + 1e-6)
+
+
+def _frontend_main(a, libs):
+    """K1 builds at each --samples length: error, then times in turns."""
+    cfg = RNNTConfig()
+    for n in a.samples:
+        audio = _frontend_audio(n)
+        want = F.subtract_mean(F.log_mel_plain(audio, cfg))
+        err = {s: float((F.subtract_mean(fn(audio, cfg)) - want).abs().max())
+               for s, (_, fn) in libs.items()}
+        runs = {s: (lambda fn=fn: fn(audio, cfg)) for s, (_, fn) in
+                libs.items()}
+        runs["composite"] = composite_frontend(audio, cfg)
+        order = list(runs)
+        ms = {s: [] for s in order}
+        call_ms = {s: [] for s in order}
+        reps = a.reps * 5  # microsecond launches: more runs
+        for s in order + order[::-1]:
+            ms[s].append(_median_ms(runs[s], reps, ahead=True))
+            call_ms[s].append(_median_ms(runs[s], reps))
+        print(json.dumps({"kernel": "frontend", "samples": n,
+                          "frames": F.num_frames(n, cfg), "ms": ms,
+                          "call_ms": call_ms, "max_abs_err": err}),
+              flush=True)
+
+
 def _lattice_inputs(B, T, U1, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     b = -3.0 * torch.rand((B, T, U1), generator=g, device="cuda") - 0.05
@@ -271,13 +384,18 @@ def _planes_split(lib, args):
             "blocks": rows}
 
 
-def _median_ms(fn, reps):
+def _median_ms(fn, reps, ahead=False):
+    """Median CUDA-event ms of fn().  With `ahead` a ~1 ms spin kernel is
+    queued first, so the host has enqueued fn's launches before the card
+    reaches them: the device time of a launch shorter than its host call."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -339,6 +457,8 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--labels", type=int, default=65,
                    help="U+1 (lattice, planes)")
+    p.add_argument("--samples", type=int, nargs="+", default=[240000, 1360],
+                   help="audio lengths (frontend)")
     p.add_argument("--ptxas", action="store_true")
     a = p.parse_args(argv)
     if a.steps is None:
@@ -347,6 +467,10 @@ def main(argv=None) -> int:
         print("lstm_ab: CUDA is not available", file=sys.stderr)
         return 2
     libs = _build_all(a.sources, a.kernel, a.ptxas)
+    if a.kernel == "frontend":
+        _frontend_main(a, libs)
+        print(_smi_line())
+        return 0
     if a.kernel == "planes":
         libs = {s: (lib, lib) for s, (lib, _) in libs.items()}
     launch = {"infer": _launch_infer, "fwd": _launch_fwd, "bwd": _launch_bwd,
@@ -381,6 +505,8 @@ def main(argv=None) -> int:
                 design[s] = DESIGNS[lib.lstm_last_design()]
             if hasattr(lib, "planes_last_design"):
                 design[s] = planes_cuda.DESIGNS[lib.planes_last_design()]
+            if hasattr(lib, "lattice_last_design"):
+                design[s] = lattice_cuda.DESIGNS[lib.lattice_last_design()]
         runs = {s: (lambda fn=fn: launch(fn, args))
                 for s, (_, fn) in libs.items()}
         if cudnn is not None:
@@ -393,8 +519,9 @@ def main(argv=None) -> int:
         order = list(runs)
         ms = {s: [] for s in order}
         reps = a.reps * (5 if T <= 2 else 1)  # short launches: more runs
-        for s in order + order[::-1]:
-            ms[s].append(_median_ms(runs[s], reps))
+        for s in order + order[::-1]:  # K7: shorter than its host call
+            ms[s].append(_median_ms(runs[s], reps,
+                                    ahead=a.kernel == "lattice"))
         phases = {}
         for s, (lib, fn) in libs.items():
             if a.kernel == "planes":
@@ -416,11 +543,15 @@ def main(argv=None) -> int:
                           "rel_err": rel, "design": design,
                           ("phase_ms" if a.kernel == "planes" else
                            "block0_cycles_a_step"): phases}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
+    print(_smi_line())
     return 0
+
+
+def _smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
 
 
 if __name__ == "__main__":

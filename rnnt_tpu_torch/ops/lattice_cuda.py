@@ -2,10 +2,14 @@
 loss over materialised logits that uses it.
 
 Replaces `rnnt_tpu/ops/rnnt_loss_pallas.py::_lattice_kernel`.  One launch
-walks alpha and beta over T for every batch row (one block a row, a doubling
-scan over U+1 per time row, each thread owning a run of ceil((U+1) / 1024)
-positions above U+1 = 1024, so any U+1 runs); see the source note for its
-bound.  On a CPU
+walks alpha and beta over T for every batch row.  Up to U+1 = 256 it runs the
+warp design: one warp a (batch row, direction), alpha and beta side by side,
+each lane owning a run of ceil((U+1) / 32) positions, the scan over the lanes
+by shuffles and the previous row in registers.  Above it runs the block
+design: one block a row, a doubling scan through shared memory, runs of
+ceil((U+1) / 1024) positions a thread above U+1 = 1024, so any U+1 runs.  See
+the source note for the bound.  `lattice_scan.launches_by_design` counts the
+launches of each design (`lattice_last_design()` in the library).  On a CPU
 tensor `lattice_scan` runs the plain scans of `ops.rnnt_loss_ref`; on a CUDA
 tensor it launches the kernel or raises.
 
@@ -23,6 +27,9 @@ import torch
 
 from rnnt_tpu_torch.ops import rnnt_loss_ref as ref
 
+DESIGNS = ("warp", "block")  # lattice_last_design(): 0, 1
+WARP_MAX_U1 = 256            # the warp design's U+1: 32 lanes x 8 positions
+
 
 @functools.lru_cache(maxsize=None)
 def _lib():
@@ -33,6 +40,8 @@ def _lib():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
+    lib.lattice_last_design.restype = ctypes.c_int
+    lib.lattice_last_design.argtypes = []
     return lib, fn
 
 
@@ -63,10 +72,12 @@ def lattice_scan(b: torch.Tensor, e: torch.Tensor, logit_lengths: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "rnnt_lattice")
     lattice_scan.launches += 1
+    lattice_scan.launches_by_design[DESIGNS[lib.lattice_last_design()]] += 1
     return alpha, beta, ll
 
 
 lattice_scan.launches = 0
+lattice_scan.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def rnnt_loss_pallas(logits, labels, logit_lengths, label_lengths):

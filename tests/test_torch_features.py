@@ -65,17 +65,24 @@ def test_too_short_audio_yields_zero_frames():
 
 
 def test_kernel_matrices_reproduce_the_frontend():
-    """The CUDA kernel's formulation (frames @ window-folded cos/sin, |.|,
-    mel, log) with its constant inputs, evaluated on the CPU, matches the
-    JAX rfft frontend."""
+    """The CUDA kernel's constant inputs (`features_cuda.fft_tables`: the
+    window, the twiddles, the sparse mel filters), used with an FFT on the
+    CPU, reproduce the JAX rfft frontend; the twiddles are exp(-2 pi i t /
+    nfft) rounded to fp32."""
     audio = _audio(16000, 11)
-    cos, sin, mel = (torch.from_numpy(a)
-                     for a in features_cuda.dft_matrices(TCFG))
+    tables = features_cuda.fft_tables(TCFG)
     flen, hop = TCFG.frame_length_samples, TCFG.frame_step_samples
+    nfft = TF.next_pow2(flen)
+    ang = -2.0 * np.pi * np.arange(nfft // 2) / nfft
+    np.testing.assert_array_equal(
+        tables.twiddles, np.stack([np.cos(ang), np.sin(ang)], 1).astype(
+            np.float32))
     nf = TF.num_frames(audio.shape[0], TCFG)
     idx = np.arange(nf)[:, None] * hop + np.arange(flen)[None, :]
-    frames = torch.from_numpy(audio[idx])
-    mag = torch.sqrt((frames @ cos) ** 2 + (frames @ sin) ** 2)
+    frames = torch.from_numpy(audio[idx] * tables.window)
+    mag = torch.fft.rfft(frames, n=nfft).abs()
+    mel = torch.from_numpy(features_cuda.dense_mel(
+        tables.mel_idx, tables.mel_w, nfft // 2 + 1))
     got = TF.subtract_mean(torch.log(mag @ mel + 1e-6))
     want = JF.log_mel_spectrogram(jnp.asarray(audio), CFG)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
