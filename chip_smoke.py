@@ -15,9 +15,10 @@ worst case.
 2. writes a run directory in the JAX package's on-disk layout (config.json,
    a 4096-piece encoder.subwords, checkpoint_00000000/state.npz) and starts
    rnnt_tpu_torch.serve.Server on it (HTTP and TCP streaming), warmed up;
-3. drives five paths, each with every kernel's launch count set to 0 just
-   before it and read just after: POSTs of WAVs of 2 s, 5 s and 15 s (the
-   128-, 256- and 512-frame buckets) decoded greedily, the same WAVs with
+3. drives the serving and training paths, each with every kernel's
+   launch count set to 0 just before it and read just after: POSTs of
+   WAVs of 2 s, 5 s and 15 s (the 128-, 256- and 512-frame buckets)
+   decoded greedily, the same WAVs with
    ?beam=4 (one beam-kernel launch a request, every one running the
    streamed advance), a TCP streaming session of
    the 5 s WAV in 1024-sample frames, then training through
@@ -33,7 +34,25 @@ worst case.
    and, fused, the plane kernel (K6, every launch its WGMMA design) once;
    it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
-   stream chunk's reply latency (p50, p99, max);
+   stream chunk's reply latency (p50, p99, max); then the measurement
+   entry points, each a path of its own, called in this process as
+   main(argv) on the card with stdout and stderr captured and printed:
+   `bench_train`, rnnt_tpu_torch.bench (bench.py's geometry, a warm-up and
+   10 timed steps: its one JSON line, a finite positive value, K4 and K5
+   10 launches a step, every K6 launch WGMMA and every K7 launch warp);
+   `bench_loss`, cli.bench_loss --B 8 --iters 3 (ref, pallas, fused; the
+   fused line's TFLOP/s; K6 and K7 launched); `bench_decode`,
+   cli.bench_decode --batch 8 --frames 128 --reps 2 (its four rows; one K3
+   launch a search of the two cuda rows, none by the plain row; after the
+   path, K3 on the same inputs at E=1 and E=6, where N = 32 hypothesis
+   rows must run the FMA design, held against the plain search by the
+   beam gate below at the bf16 tolerance);
+   `bench_streaming_latency`, cli.bench_streaming --chunks 40 (K1 and K2);
+   `bench_streaming_wer`, cli.bench_streaming against the run directory
+   and three WAVs of 2-3 s with their trans.txt in LibriSpeech layout (3
+   utterances, both WERs finite); `bench_serve`, cli.bench_serve on the run
+   directory with --requests 8 --concurrency 2 (every line printed, K1, K2
+   and K3 launched, no server thread left running); each must return 0;
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4 at
    each request's audio, at every chunk length of the TCP stream, at 8 kHz
@@ -93,10 +112,12 @@ worst case.
    which must lie between the markers; the CUDA-event wall is printed
    beside), device ops, and the idle share 1 - busy / wall from that same
    run (a profiled run whose records miss a marker or a launch of the
-   profiled kernel is repeated, at most 3 runs); and times a train step at
-   bench.py's geometry (B=96, T=256, U=64, bf16, fused; one warm-up and 5
-   timed steps) as audio-s/s, with one profiled step's idle share and
-   device time by kernel, every K6 launch of it on the WGMMA design and
+   profiled kernel is repeated, at most 3 runs); and profiles one train
+   step at bench.py's geometry (rnnt_tpu_torch.bench.setup: B=96, T=256,
+   U=64, bf16, fused, weights and batch from --seed; after one warm-up
+   step), printed beside the
+   bench_train path's audio-s/s, step ms and peak memory: its idle share
+   and device time by kernel, every K6 launch of it on the WGMMA design and
    every K7 launch on the warp design;
 6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
@@ -132,7 +153,6 @@ import shutil
 import socket
 import statistics
 import struct
-import subprocess
 import sys
 import time
 
@@ -285,18 +305,18 @@ def synthetic_pieces(n: int):
 
 def write_run_dir(model, cfg, path: str) -> None:
     """config.json, encoder.subwords and checkpoint_00000000/state.npz in
-    the JAX package's layout (leaf_0 the step, then the parameters in
-    jax.tree_util flatten order, fp32)."""
+    the JAX package's layout: a whole train state at step 0 (leaf_0 the
+    step, the parameters in jax.tree_util flatten order, then the zero
+    optimizer state, fp32), which the server and a full restore both
+    read."""
     from rnnt_tpu_torch.data.tokenizer import SubwordTokenizer
-    from rnnt_tpu_torch.train.checkpoint import flatten_order
+    from rnnt_tpu_torch.train.checkpoint import state_arrays
+    from rnnt_tpu_torch.train.state import Optimizer
 
     shutil.rmtree(path, ignore_errors=True)
     cfg.save(path)
     SubwordTokenizer(synthetic_pieces(cfg.vocab_size)).save(path)
-    sd = model.state_dict()
-    leaves = {"leaf_0": np.zeros((), np.int32)}
-    for i, name in enumerate(flatten_order(sd), start=1):
-        leaves[f"leaf_{i}"] = sd[name].float().cpu().numpy()
+    leaves = state_arrays(0, model.state_dict(), Optimizer(cfg).init(model))
     os.makedirs(os.path.join(path, "checkpoint_00000000"))
     np.savez(os.path.join(path, "checkpoint_00000000", "state.npz"), **leaves)
 
@@ -317,13 +337,6 @@ def wav_bytes(audio: np.ndarray) -> bytes:
     buf = io.BytesIO()
     write_wav(buf, audio, 16000)
     return buf.getvalue()
-
-
-def nvidia_smi_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
 
 
 def device_ms(fn, reps: int) -> float:
@@ -1282,7 +1295,6 @@ def profile_beam(served, mel_p, t, label):
 # ---------------------------------------------------------------- training
 
 TRAIN_BATCH, TRAIN_STEPS = 32, 3           # the train_cli path's run
-BENCH_B, BENCH_T, BENCH_U = 96, 256, 64    # bench.py's geometry
 PLANES_BF16_TOL = 1e-5  # K6 vs plain in bf16: ~100x the readings (PERF.md)
 LATTICE_TOL = 1e-5      # K7 vs plain, fp32
 
@@ -1465,12 +1477,13 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
     30 runs, with their minimum and maximum)."""
     import torch
 
+    from rnnt_tpu_torch import bench
     from rnnt_tpu_torch.ops import lstm_cuda
 
     rand = lstm_rand(device, 3)
     worst = {}
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        for Bc, T in ((B, 256), (B, 128), (B, 65), (BENCH_B, 256), (20, 128),
+        for Bc, T in ((B, 256), (B, 128), (B, 65), (bench.B, 256), (20, 128),
                       (8, 65), (40, 65), (160, 65)):
             errs, _ = check_lstm_case(H, P, Bc, T, dt, tol, rand)
             name = str(dt)[6:]
@@ -1510,7 +1523,7 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
                             ("forward+backward", lib_fwd_bwd))}
     lib_f = lib["forward"]["median_ms"]
     lib_fb = lib["forward+backward"]["median_ms"]
-    args96 = layer0_args(BENCH_B)
+    args96 = layer0_args(bench.B)
     entries = []
     for kind, fn, plain, args, src, line in (
             ("lstm_fwd", lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_plain,
@@ -1537,9 +1550,9 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
                            args96):
         k["ms_B96"] = cuda_ms(lambda: fn(*args), reps=10)
         k["bound_ms_B96"] = bound_of(*lstm_cost(
-            T, BENCH_B, H, P, 2, k["name"] == "lstm_bwd"), PEAK_BF16_FLOPS)[
+            T, bench.B, H, P, 2, k["name"] == "lstm_bwd"), PEAK_BF16_FLOPS)[
                 "bound_ms"]
-        log(f"{k['name']} T={T} bf16: B={B} {k['ms']:.3f} ms, B={BENCH_B} "
+        log(f"{k['name']} T={T} bf16: B={B} {k['ms']:.3f} ms, B={bench.B} "
             f"{k['ms_B96']:.3f} ms (bound {k['bound_ms_B96']:.4f})")
     return entries
 
@@ -1560,6 +1573,7 @@ def check_lstm_designs(H, P, device="cuda"):
     Returns {case: {kernel: design}}."""
     import torch
 
+    from rnnt_tpu_torch import bench
     from rnnt_tpu_torch.ops import lstm_cuda
 
     rand = lstm_rand(device, 7)
@@ -1569,7 +1583,7 @@ def check_lstm_designs(H, P, device="cuda"):
         bf16 = dt == torch.bfloat16
         lstm_cuda.set_block_cap(CAP_BLOCKS)
         try:
-            for B in (32, BENCH_B):
+            for B in (32, bench.B):
                 _, d = check_lstm_case(H, P, B, 65, dt, tol, rand)
                 seen[f"H={H} B={B} T=65 {CAP_BLOCKS} blocks {name}"] = d
                 require(d == ({"lstm_fwd": "mma", "lstm_bwd": "fma"} if bf16
@@ -1657,6 +1671,7 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
     planes)."""
     import torch
 
+    from rnnt_tpu_torch import bench
     from rnnt_tpu_torch.ops import planes_cuda
 
     bf16 = torch.bfloat16
@@ -1671,7 +1686,7 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
     errs["bfloat16"], _ = planes_case(args, PLANES_BF16_TOL, "wgmma",
                                       f"B={B} T={T} U+1={U1} bf16")
     designs["train shape bf16"] = "wgmma"
-    Bb = BENCH_B
+    Bb = bench.B
     fb, gb, yb, b1b, w2b, b2b = planes_inputs(cfg, Bb, T, U1, device, 7)
     args_b = (fb.to(bf16), gb.to(bf16), yb, b1b.to(bf16), w2b.to(bf16),
               b2b.to(bf16))
@@ -1938,41 +1953,27 @@ def step_split(events):
     return {k: round(v, 3) for k, v in sorted(split.items())}
 
 
-def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
-                     U=BENCH_U, timed=5):
-    """bench.py's geometry (B=96, T=256 stacked frames, U=64, bf16, fused
-    loss, random weights): one warm-up step, then `timed` steps on the host
-    clock, synchronised at the end; audio-s/s counts B x T x 0.03 s a step.
-    Then one profiled step: device busy time, idle share and the split by
-    kernel."""
-    import torch
+def bench_train_step(smi, timed, seed, device="cuda"):
+    """One profiled train step at bench.py's geometry, set up by
+    `rnnt_tpu_torch.bench.setup` (B=96, T=256 stacked frames, U=64, bf16,
+    fused loss, random weights and batch from `seed`) after one warm-up
+    step: device busy time,
+    idle share and the split by kernel.  The timed steps are the bench_train
+    path's run of `rnnt_tpu_torch.bench` (`timed`: its audio-s/s, step ms
+    and peak memory)."""
+    from rnnt_tpu_torch import bench
+    from rnnt_tpu_torch.ops import lattice_cuda, lstm_cuda, planes_cuda
 
-    from rnnt_tpu_torch.ops import lstm_cuda
-    from rnnt_tpu_torch.train.state import create_train_state
-    from rnnt_tpu_torch.train.steps import make_train_step
-
-    from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda
-
-    state = create_train_state(cfg, torch.bfloat16, device, seed)
-    batch = random_batch(cfg, B, T, U, device, seed)
-    step = make_train_step(cfg, loss_impl="fused")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    state, batch, step, gen = bench.setup(device, seed=seed)
     k6, k7 = planes_cuda.joint_planes, lattice_cuda.lattice_scan
     k6_before = (k6.launches, dict(k6.launches_by_design))
     k7_before = (k7.launches, dict(k7.launches_by_design))
     losses = [float(step(state, batch, gen)["loss"])]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        m = step(state, batch, gen)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    losses.append(float(m["loss"]))
-    require(all(np.isfinite(losses)), f"bench train losses {losses}")
     events = []
     plain_wall, wall, busy, event_wall, ops, launches, runs = device_profile(
         lambda: step(state, batch, gen), lstm_cuda.lstm_bwd,
         "lstm_bwd_kernel", events=events)
+    require(all(np.isfinite(losses)), f"bench train losses {losses}")
     require(launches == 10, f"profiled train step: {launches} K5 launches")
     k6_by_design = {d: n - k6_before[1][d]
                     for d, n in k6.launches_by_design.items()}
@@ -1981,9 +1982,10 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
     k7_by_design = {d: n - k7_before[1][d]
                     for d, n in k7.launches_by_design.items()}
     require_warp_k7("bench step", k7_by_design, k7.launches - k7_before[0])
-    result = {"B": B, "T": T, "U": U, "dtype": "bfloat16", "loss": "fused",
-              "step_ms": secs / timed * 1e3,
-              "audio_s_per_s": B * T * 0.03 * timed / secs,
+    result = {"B": bench.B, "T": bench.T, "U": bench.U, "dtype": "bfloat16",
+              "loss": "fused", "step_ms": timed["step_ms"],
+              "audio_s_per_s": timed["value"],
+              "peak_memory_bytes": timed["peak_memory_bytes"],
               "profiled_step_wall_ms": wall,
               "profiled_step_event_wall_ms": event_wall,
               "unprofiled_step_ms": plain_wall,
@@ -1994,6 +1996,208 @@ def bench_train_step(cfg, seed, smi, device="cuda", B=BENCH_B, T=BENCH_T,
               "k7_launches_by_design": k7_by_design, "card": smi}
     log("bench-geometry train step " + json.dumps(result))
     return result
+
+
+# ------------------------------------------------- measurement entry points
+
+CORPUS_SPLIT = "test-synth"
+
+
+def run_main(name, main, argv):
+    """Call an entry point's main(argv) in this process with its standard
+    output and error captured; log both.  It must return 0.  Returns (its
+    stdout lines, its stderr lines)."""
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        for line in err.getvalue().splitlines():
+            log(f"{name} stderr: {line}")
+        for line in out.getvalue().splitlines():
+            log(f"{name}: {line}")
+    require(rc == 0, f"{name} {' '.join(argv)} returned {rc}")
+    return out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def json_line(name, lines):
+    """The one JSON line an entry point printed."""
+    require(len(lines) == 1, f"{name} printed {len(lines)} lines, want 1")
+    return json.loads(lines[0])
+
+
+def write_corpus(cfg, path, seed):
+    """Three WAVs of 2-3 s and their trans.txt in LibriSpeech layout
+    (split/speaker/chapter), the transcript listing .flac ids as the corpus
+    does (the loader falls back to the .wav)."""
+    from rnnt_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    chapter = os.path.join(path, CORPUS_SPLIT, "84", "121123")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(chapter)
+    texts = ["GO DO YOU HEAR", "BUT IN LESS THAN FIVE MINUTES",
+             "AT THIS MOMENT THE WHOLE SOUL OF THE OLD MAN"]
+    lines = []
+    for i, (seconds, text) in enumerate(zip((2.0, 2.5, 3.0), texts)):
+        utt = f"84-121123-{i:04d}"
+        write_wav(os.path.join(chapter, utt + ".wav"),
+                  synthetic_audio(seconds, rng), cfg.sample_rate)
+        lines.append(f"{utt} {text}")
+    with open(os.path.join(chapter, "84-121123.trans.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def check_bench_decode_beam(batch, frames, reps):
+    """K3 against its plain version on bench_decode's own inputs
+    (`bench_decode.setup`: bf16, the blank bias lowered, encoder outputs
+    normal x 2) at E=1 and at E=6, the two cuda rows' searches: N = batch x
+    BEAM hypothesis rows above the streamed plan's MAXN, so each must run
+    the FMA design, held by `gate_beam` at the bf16 tolerance.  The plain
+    E=1 search is timed beside the kernel's, as the row that bench_decode
+    prints.  Returns {E: record} with the largest |d score| of each."""
+    import torch
+
+    from rnnt_tpu_torch.cli import bench_decode
+    from rnnt_tpu_torch.decode.beam import beam_search_encoded_plain
+    from rnnt_tpu_torch.ops import beam_cuda
+
+    cfg, model, enc, lens = bench_decode.setup(batch, frames, True, "cuda")
+    require(batch * BEAM > beam_cuda.MAXN,
+            f"B={batch} x K={BEAM} is inside the streamed plan")
+    out = {}
+    for E in (1, 6):
+        kw = dict(beam_width=BEAM, max_output_length=200,
+                  expansions_per_frame=E)
+        with torch.no_grad():
+            trace, stats = {}, {}
+            got = beam_cuda.beam_search(model, enc, lens, trace=trace, **kw)
+            design = beam_cuda.beam_search.last_design
+            want = beam_search_encoded_plain(model, enc, lens, stats=stats,
+                                             **kw)
+            torch.cuda.synchronize()
+        fails, notes, max_abs, rel = gate_beam(
+            got, trace, want, stats, lens, E, cfg.vocab_size,
+            BEAM_SCORE_TOL["bfloat16"])
+        log(f"K3 bench_decode inputs B={batch} T={frames} E={E} bf16 "
+            f"({design} design): lengths {got[1].tolist()} (plain "
+            f"{want[1].tolist()}), scores max |d| {max_abs:.3e} rel "
+            f"{rel:.3e}, merges {stats['merges']}, "
+            f"{stats['idx'].shape[0]} selections "
+            + ("identical" if not notes and not fails else
+               "; ".join(notes + fails)))
+        require(not fails, f"beam kernel on bench_decode's inputs E={E}: "
+                f"{fails}")
+        require(design == "fma", f"beam kernel on bench_decode's inputs "
+                f"E={E} ran the {design} design, not fma")
+        rec = {"design": design, "max_abs_err": max_abs, "rel_err": rel,
+               "near_ties": len(notes)}
+        if E == 1:
+            with torch.no_grad():
+                rec["ms"] = cuda_ms(lambda: beam_cuda.beam_search(
+                    model, enc, lens, **kw), reps=reps)
+                rec["plain_ms"] = cuda_ms(lambda: beam_search_encoded_plain(
+                    model, enc, lens, **kw), reps=reps, warmup=0)
+        out[E] = rec
+    del model, enc
+    return out
+
+
+def drive_bench_entry_points(paths, cfg, seed):
+    """Each measurement entry point's main, in this process on the card,
+    as a driven path of its own (counts set to 0 just before, read just
+    after).  Returns the bench's record (its JSON line, step ms and peak
+    device memory) and K3's check on bench_decode's inputs."""
+    import threading
+
+    from rnnt_tpu_torch import bench
+    from rnnt_tpu_torch.cli import (bench_decode, bench_loss, bench_serve,
+                                    bench_streaming)
+
+    (out, err), launches = drive_path(
+        "bench_train", lambda: run_main("bench", bench.main, []),
+        ("lstm_fwd", "lstm_bwd", "joint_planes", "lattice_scan"))
+    paths["bench_train"] = launches
+    timed = json_line("bench", out)
+    require(np.isfinite(timed["value"]) and timed["value"] > 0,
+            f"bench value {timed['value']}")
+    stats = next(line for line in err if line.startswith("bench: "))
+    timed["step_ms"] = float(stats.split(" step ")[1].split(" ms")[0])
+    timed["peak_memory_bytes"] = int(
+        stats.split("peak device memory ")[1].split(" B")[0])
+    steps = bench.N_STEPS + 1  # the warm-up and the timed steps
+    for k in ("lstm_fwd", "lstm_bwd"):
+        require(launches[k] == 10 * steps, f"path bench_train: {k} launched "
+                f"{launches[k]} times, want {10 * steps}")
+    require_wgmma_k6("bench_train", launches["joint_planes_by_design"],
+                     launches["joint_planes"])
+    require_warp_k7("bench_train", launches["lattice_scan_by_design"],
+                    launches["lattice_scan"])
+
+    (out, _), paths["bench_loss"] = drive_path(
+        "bench_loss", lambda: run_main("bench_loss", bench_loss.main,
+                                       ["--B", "8", "--iters", "3"]),
+        ("joint_planes", "lattice_scan"))
+    fused = [line for line in out if line.startswith("fused ")]
+    require(len(fused) == 1 and "TFLOP/s" in fused[0],
+            f"bench_loss fused line {fused}")
+    require(len(out) == 4, f"bench_loss printed {out}")
+
+    reps = 2
+    (out, _), launches = drive_path(
+        "bench_decode", lambda: run_main(
+            "bench_decode", bench_decode.main,
+            ["--batch", "8", "--frames", "128", "--reps", str(reps)]),
+        ("lstm_seq_infer", "beam_search"))
+    paths["bench_decode"] = launches
+    rows = ("greedy", "beam-4 cuda E=1", "beam-4 cuda E=6",
+            "beam-4 plain E=1")
+    require(len(out) == 1 + len(rows) and all(
+        line.startswith(f"{r:20s} ") for r, line in zip(rows, out[1:])),
+        f"bench_decode rows {out}")
+    # one K3 launch a search: the warm-up and the timed reps of the two
+    # cuda rows; the plain row launches none
+    require(launches["beam_search"] == 2 * (reps + 1),
+            f"bench_decode: {launches['beam_search']} K3 launches")
+    k3_decode = check_bench_decode_beam(8, 128, reps)
+
+    (out, _), paths["bench_streaming_latency"] = drive_path(
+        "bench_streaming_latency", lambda: run_main(
+            "bench_streaming", bench_streaming.main, ["--chunks", "40"]),
+        ("log_mel_frontend", "lstm_seq_infer"))
+    rec = json_line("bench_streaming", out)
+    require(rec["backend"] == "cuda" and np.isfinite(rec["value"]),
+            f"bench_streaming {rec}")
+
+    corpus = os.path.join(TRAIN_DIR, "corpus")
+    write_corpus(cfg, corpus, seed)
+    (out, _), paths["bench_streaming_wer"] = drive_path(
+        "bench_streaming_wer", lambda: run_main(
+            "bench_streaming_wer", bench_streaming.main,
+            ["--checkpoint", RUN_DIR, "--audio_dir", corpus, "--split",
+             CORPUS_SPLIT]),
+        ("log_mel_frontend", "lstm_seq_infer"))
+    rec = json_line("bench_streaming_wer", out)
+    require(rec["n_utts"] == 3 and np.isfinite(rec["offline_wer"])
+            and np.isfinite(rec["streamed_wer"]), f"bench_streaming {rec}")
+
+    threads = set(threading.enumerate())
+    (out, _), paths["bench_serve"] = drive_path(
+        "bench_serve", lambda: run_main(
+            "bench_serve", bench_serve.main,
+            ["--checkpoint", RUN_DIR, "--requests", "8", "--concurrency",
+             "2"]),
+        ("log_mel_frontend", "lstm_seq_infer", "beam_search"))
+    heads = ("rtt_ms: ", "cold start: ", "first beam-4 request: ",
+             "sequential: ", "concurrent x2: ", "streaming: ")
+    require(len(out) == len(heads) and all(
+        line.startswith(h) for h, line in zip(heads, out)),
+        f"bench_serve lines {out}")
+    for t in set(threading.enumerate()) - threads:
+        t.join(timeout=10)  # a handler may still be closing its socket
+    left = [t.name for t in set(threading.enumerate()) - threads]
+    require(not left, f"bench_serve left threads running: {left}")
+    return timed, k3_decode
 
 
 def main(argv=None) -> int:
@@ -2019,6 +2223,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
+    from rnnt_tpu_torch.cli.benchutil import nvidia_smi_line
+
     smi = nvidia_smi_line()
     log(f"device: {kind} ({smi}); torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -2137,6 +2343,13 @@ def main(argv=None) -> int:
                                1, 1, pallas=True)
         log(f"phase training paths: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
+        timed, k3["bench_decode_inputs"] = drive_bench_entry_points(
+            paths, cfg, args.seed)
+        k3["max_abs_err"] = max([k3["max_abs_err"]] + [
+            r["max_abs_err"] for r in k3["bench_decode_inputs"].values()])
+        log(f"phase bench entry points: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)
         designs = check_lstm_designs(cfg.encoder_size, cfg.projection_size)
         for k in k45:
@@ -2151,7 +2364,7 @@ def main(argv=None) -> int:
         log(f"phase K4-K7 checks and times: "
             f"{time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
-        bench_train_step(cfg, args.seed, smi)
+        bench_train_step(smi, timed, args.seed)
         log(f"phase bench-geometry train step: "
             f"{time.perf_counter() - t_phase:.1f} s")
         kernels = [k1, k2, k3, *k45, k6, k7]

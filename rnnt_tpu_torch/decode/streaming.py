@@ -21,6 +21,9 @@ On the card each chunk runs the frontend kernel (raw log-mels), the encoder
 (the LSTM kernel at chunk shapes, with carried state) and greedy decoding;
 on the CPU their plain versions.  Eager PyTorch compiles nothing per chunk
 length, so every session calls the same `_run_chunk`.
+
+`streamed_vs_offline` is the quality harness: it decodes utterances both
+offline and chunk-streamed and scores each by WER.
 """
 
 from __future__ import annotations
@@ -201,3 +204,59 @@ class StreamingTranscriber:
         if self._device_lock is None:
             return contextlib.nullcontext()
         return self._device_lock
+
+
+@torch.no_grad()
+def streamed_vs_offline(model: Transducer, tokenizer, utterances, *,
+                        chunk_samples: int = 1024,
+                        max_output_length: int = 256):
+    """Decode (audio, sr, ref_text) utterances offline AND chunk-streamed,
+    on the model's device.
+
+    Measures the quality cost of causal streaming (the running-mean feature
+    normalization is exact only at stream end, so early chunks see a
+    noisier estimate).  Offline, each utterance's features are padded to a
+    multiple of 128 frames and greedy-decoded; streamed, a
+    `StreamingTranscriber` is reset, fed `chunk_samples` at a time and
+    flushed.  Both are scored with `metrics.wer` against the normalized
+    references.  Returns (offline_wer, streamed_wer, details), details being
+    [(ref, offline_text, streamed_text)].
+
+    The offline phase runs over every utterance before the streamed one, as
+    in the JAX package; the raw audio is held on the host between them, so
+    host memory grows with the utterance set (`utterances` may be a one-shot
+    generator): bound it with the caller's max_utts."""
+    from rnnt_tpu_torch.data.tokenizer import normalize_text
+    from rnnt_tpu_torch.decode.greedy import greedy_decode
+    from rnnt_tpu_torch.metrics import wer as wer_fn
+
+    cfg = model.cfg
+    dev = model.joint.w1.device
+    refs, off_texts, str_texts = [], [], []
+    audios = []
+    for audio, sr, ref in utterances:
+        if sr != cfg.sample_rate:
+            raise ValueError(f"expected {cfg.sample_rate} Hz audio, got {sr}")
+        audio = np.asarray(audio, np.float32)
+        audios.append(audio)
+        mel = F.preprocess_audio(torch.from_numpy(audio).to(dev), cfg)
+        t = mel.shape[0]
+        pad_t = -(-t // 128) * 128
+        mel_p = torch.zeros((1, pad_t, mel.shape[1]), device=dev)
+        mel_p[0, :t] = mel
+        tokens, lengths = greedy_decode(
+            model, mel_p, torch.tensor([t], dtype=torch.int32, device=dev),
+            max_output_length=max_output_length)
+        off_texts.append(tokenizer.decode(
+            tokens[0, : int(lengths[0])].tolist()))
+        refs.append(normalize_text(ref))
+
+    st = StreamingTranscriber(model, tokenizer)
+    for audio in audios:
+        st.reset()
+        for o in range(0, len(audio), chunk_samples):
+            st.process_chunk(audio[o: o + chunk_samples])
+        str_texts.append(st.flush())
+
+    return (wer_fn(refs, off_texts), wer_fn(refs, str_texts),
+            list(zip(refs, off_texts, str_texts)))

@@ -31,6 +31,10 @@ import rnnt_tpu_torch.ops.joint_loss_fused, rnnt_tpu_torch.ops.matmul
 import rnnt_tpu_torch.data.records, rnnt_tpu_torch.data.pipeline
 import rnnt_tpu_torch.metrics.edit_distance, rnnt_tpu_torch.kernels.lstm_ab
 import rnnt_tpu_torch.kernels.beam_ab
+import rnnt_tpu_torch.bench, rnnt_tpu_torch.cli.benchutil
+import rnnt_tpu_torch.cli.bench_decode, rnnt_tpu_torch.cli.bench_loss
+import rnnt_tpu_torch.cli.bench_streaming, rnnt_tpu_torch.cli.bench_serve
+import rnnt_tpu_torch.data.librispeech
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
