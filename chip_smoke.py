@@ -725,8 +725,10 @@ def device_profile(fn, kernel, symbol, attempts=3, events=None):
     10 ms.  A profiled run is accepted only when its records hold an opener
     (the losses seen were a prefix of the session, so none was lost after
     it), both markers and each launch of the kernel (device ops whose name
-    contains `symbol`), and is repeated otherwise, at most `attempts` times.
-    The session is closed 10 ms after fn() ends."""
+    contains `symbol`; with symbol None, a library call whose kernels have
+    no fixed name, `kernel` must only have launched), and is repeated
+    otherwise, at most `attempts` times.  The session is closed 10 ms after
+    fn() ends."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -764,7 +766,8 @@ def device_profile(fn, kernel, symbol, attempts=3, events=None):
                    if e.time_range.end - e.time_range.start < 50]
         opened = len(spins) - len(markers)
         device = [e for e in device if MARKER not in e.name]
-        recorded = sum(symbol in e.name for e in device)
+        recorded = (launches if symbol is None
+                    else sum(symbol in e.name for e in device))
         if opened and len(markers) == 2 and launches > 0 and \
                 recorded == launches:
             break
@@ -852,6 +855,7 @@ def post_requests(srv, audios, query=""):
                "text_chars": len(reply["text"])}
         records.append(rec)
         log(f"request{query} " + json.dumps(rec))
+        rec["text"] = reply["text"]  # kept for comparisons, not printed
     return records
 
 
@@ -2200,6 +2204,477 @@ def drive_bench_entry_points(paths, cfg, seed):
     return timed, k3_decode
 
 
+
+# ---------------------------------------------------------------- int8 ----
+
+INT8_ROWS = (1, 8, 32)  # greedy B=1, bench_decode's B=8, the eval batch
+# (K, N) of every int8 product at the parity width: the prediction net's
+# first wx (K = embedding_size = 500), its second wx and both wh, both wp,
+# the joint's w1 and w2; then the joint's w2 at the character vocabulary
+# (N = 31) and a product padded in both K and N
+INT8_SHAPES = ((500, 8192), (640, 8192), (2048, 640), (640, 640),
+               (640, 4096), (640, 31), (500, 31))
+PEAK_INT8_OPS = 1979e12  # tensor cores, dense int8
+
+
+@contextlib.contextmanager
+def plain_int8_product():
+    """Route qdot's int32 product to its exact plain version (int8 operands
+    widened to float64 on the card; comparison only)."""
+    from rnnt_tpu_torch.ops import int8_exec
+
+    card = int8_exec.int_mm
+    int8_exec.int_mm = int8_exec.plain_int_mm
+    try:
+        yield
+    finally:
+        int8_exec.int_mm = card
+
+
+def run_quantize(ckpt, out):
+    """cli.quantize_model on a run directory; returns (fp MB, int8 MB) of
+    its size line."""
+    from rnnt_tpu_torch.cli import quantize_model
+
+    lines, _ = run_main("quantize_model", quantize_model.main,
+                        ["--checkpoint", ckpt, "-o", out])
+    require(len(lines) == 1 and lines[0].startswith("params: ")
+            and os.path.exists(out), f"quantize_model printed {lines}")
+    fp_mb = float(lines[0].split("fp: ")[1].split(" MB")[0])
+    q_mb = float(lines[0].split("int8: ")[1].split(" MB")[0])
+    log(f"int8 artifact {out}: {os.path.getsize(out)} B on disk, fp "
+        f"{fp_mb} MB -> int8 {q_mb} MB")
+    return fp_mb, q_mb
+
+
+def check_qdot(smi):
+    """qdot on the card (torch._int_mm, the weight's K and N padded once, the
+    activations' rows and K on each call) against its exact plain product
+    at every product shape of the int8 path: the int32 products and the
+    fp32 outputs bitwise equal.  Returns the record printed as
+    `int8_qdot`."""
+    import torch
+
+    from rnnt_tpu_torch.ops import int8_exec as I
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for K, N in INT8_SHAPES:
+        w = I.QuantWeight(
+            torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                          device="cuda", generator=g),
+            torch.rand((N,), device="cuda", generator=g) * 1e-3 + 1e-5)
+        require((w.q_mm is not None) == bool(K % 8 or N % 8),
+                f"QuantWeight K={K} N={N}: q_mm {w.q_mm is not None}")
+        for M in INT8_ROWS:
+            x = torch.randn((M, K), device="cuda", generator=g).to(
+                torch.bfloat16)
+            x[0] = 0.0  # a zero row
+            xi, _ = I.quantize_rows(x)
+            n0 = I.int_mm.launches
+            yi = I.int_mm(xi, w.operand)
+            y = I.qdot(x, w)
+            require(I.int_mm.launches == n0 + 2, "qdot on the card did not "
+                    "run torch._int_mm")
+            with plain_int8_product():
+                yi_p = I.int_mm(xi, w.operand)
+                y_p = I.qdot(x, w)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(yi, yi_p)) and bool(torch.equal(y, y_p))
+            require(same and yi.dtype == torch.int32 and y.dtype ==
+                    torch.float32 and bool(torch.isfinite(y).all()),
+                    f"qdot M={M} K={K} N={N}: the card's product differs "
+                    f"from the exact plain one")
+            ms = cuda_ms(lambda: I.qdot(x, w), reps=50)
+            with plain_int8_product():
+                plain_ms = cuda_ms(lambda: I.qdot(x, w), reps=20)
+            mm_ms = cuda_ms(lambda: I.int_mm(xi, w.operand), reps=50)
+            nbytes = M * K * 2 + K * N + N * 4 + M * N * 4
+            bound = max(nbytes / PEAK_BYTES_PER_S,
+                        2 * M * K * N / PEAK_INT8_OPS) * 1e3
+            cases.append({"M": M, "K": K, "N": N, "ms": ms,
+                          "int_mm_ms": mm_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bitwise": same})
+    rec = {"name": "qdot", "route": "torch._int_mm (library call)",
+           "replaces": "rnnt_tpu/ops/int8_exec.py:60 lax.dot_general "
+                       "(outside any Pallas kernel)", "card": smi,
+           "cases": cases}
+    log("int8_qdot " + json.dumps(rec))
+    return rec
+
+
+def padded_mel(cfg, audio, device="cuda"):
+    """The request's log-mel features padded to its frame bucket, as the
+    service pads them: (mel [1, t_pad, feat], t)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import features as F
+
+    mel = F.preprocess_audio(torch.from_numpy(audio).to(device), cfg)
+    t = mel.shape[0]
+    t_pad = max(64, 1 << (t - 1).bit_length())
+    mel_p = torch.zeros((1, t_pad, mel.shape[1]), device=device)
+    mel_p[0, :t] = mel
+    return mel_p, t
+
+
+def direct_greedy_text(model, tokenizer, cfg, audio):
+    """The service's greedy transcript of one request (the audio as its
+    16-bit WAV body carries it), decoded here from the model directly."""
+    import torch
+
+    from rnnt_tpu_torch.data.audio_io import read_wav
+    from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
+
+    pcm, _ = read_wav(io.BytesIO(wav_bytes(audio)))
+    with torch.no_grad():
+        mel_p, t = padded_mel(cfg, pcm)
+        enc, _ = model.encode(mel_p)
+        tok, n, _ = greedy_decode_encoded(
+            model, enc, model.encoded_length(torch.tensor([t],
+                                                          device="cuda")),
+            max_output_length=MAX_TOKENS)
+    return tokenizer.decode(tok[0, : int(n[0])].tolist())
+
+
+def start_quantized_server(art, int8_exec):
+    from rnnt_tpu_torch.serve import Server
+
+    t0 = time.perf_counter()
+    srv = Server(RUN_DIR, http_port=0, stream_port=0, device="cuda",
+                 warmup=True, warmup_beams=(0, BEAM), quantized=art,
+                 int8_exec=int8_exec)
+    log(f"{'int8-exec' if int8_exec else 'dequantized'} server up in "
+        f"{time.perf_counter() - t0:.1f} s (warmup "
+        f"{srv.warmup_seconds:.1f} s), int8 weights "
+        f"{len(srv.service.model.int8_names())}, info "
+        f"{json.dumps(srv.service.info())}")
+    srv.serve_background()
+    return srv
+
+
+def drive_int8_path(name, fn, expect, int8_calls):
+    """drive_path, with qdot's card-path count (`int_mm.launches`) set to
+    0 before and read after: it must be positive when int8_calls and 0
+    otherwise.  Returns (fn's result, launches with an `int_mm` entry)."""
+    from rnnt_tpu_torch.ops import int8_exec
+
+    int8_exec.int_mm.launches = 0
+    out, launches = drive_path(name, fn, expect)
+    launches["int_mm"] = int8_exec.int_mm.launches
+    log(f"path {name}: {launches['int_mm']} int8 products on the card")
+    require((launches["int_mm"] > 0) == int8_calls,
+            f"path {name}: {launches['int_mm']} int8 products on the card")
+    return out, launches
+
+
+def profile_int8_request(model, mel_p, t, label, smi):
+    """Device ops and idle share of the encoder (K2) and of greedy decoding
+    on int8 weights for one request; the int8 products' share of a greedy
+    joint step's wall time from CUDA events at B=1."""
+    import torch
+
+    from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
+    from rnnt_tpu_torch.ops import int8_exec, lstm_cuda
+
+    enc_len = model.encoded_length(torch.tensor([t], device=mel_p.device))
+    with torch.no_grad():
+        enc, _ = model.encode(mel_p)
+        for phase, fn, kernel, symbol in (
+                ("encoder", lambda: model.encode(mel_p),
+                 lstm_cuda.lstm_seq_infer, "lstm_infer_lat_kernel"),
+                ("decode", lambda: greedy_decode_encoded(
+                    model, enc, enc_len, max_output_length=MAX_TOKENS),
+                 int8_exec.int_mm, None)):
+            plain_wall, wall, busy, event_wall, ops, launches, runs = \
+                device_profile(fn, kernel, symbol)
+            what = f"profile int8-exec {label} {phase}"
+            require(busy <= wall, f"{what}: device busy {busy} ms exceeds "
+                    f"wall {wall} ms on one stream")
+            log(f"{what}: wall {wall:.2f} ms between the markers (CUDA "
+                f"events {event_wall:.2f}, {plain_wall:.2f} without the "
+                f"profiler), device busy {busy:.2f} ms ({ops} device ops, "
+                f"{launches} {'int8 products' if symbol is None else 'K2'}"
+                f"), idle share {1 - busy / wall:.3f}, profiled runs {runs} "
+                f"({smi})")
+        # one greedy joint step at B=1 and its two int8 products alone
+        pred = torch.randn((1, model.cfg.projection_size), device="cuda").to(
+            enc.dtype)
+        enc_t = enc[:, 0]
+        step_ms = cuda_ms(lambda: model.joint_step(enc_t, pred), reps=200)
+        h = torch.tanh(int8_exec.qdot(enc_t + pred, model.joint.w1))
+        qdot_ms = (cuda_ms(lambda: int8_exec.qdot(enc_t + pred,
+                                                  model.joint.w1), reps=200)
+                   + cuda_ms(lambda: int8_exec.qdot(h, model.joint.w2),
+                             reps=200))
+        state = model.prediction_zero_state(1, enc.dtype)
+        tok = torch.ones((1,), dtype=torch.long, device="cuda")
+        pstep_ms = cuda_ms(lambda: model.predict_step(tok, state), reps=200)
+    log(f"int8-exec greedy step ({label}, B=1, CUDA events, {smi}): joint "
+        f"step {step_ms:.4f} ms, of it its two qdots {qdot_ms:.4f} ms "
+        f"({qdot_ms / step_ms:.2f}); prediction-net step {pstep_ms:.4f} ms")
+
+
+def check_quantized_serving(paths, srv, cfg, audios, art, smi):
+    """The dequantized and the int8-exec servers on the run directory's
+    int8 artifact, each a driven path: greedy and ?beam=BEAM requests of
+    the three WAVs, and on the int8-exec server one TCP session.  The
+    dequantized server's greedy texts must equal a direct decode on the fp
+    model loaded with the same dequantized weights; the int8-exec server's
+    those of the same int8 model with qdot's plain product on the card."""
+    import copy
+
+    from rnnt_tpu_torch.ops.quantize import load_quantized_into_
+
+    tokenizer = srv.service.tokenizer
+    for int8 in (False, True):
+        mode = "int8_exec" if int8 else "dequant"
+        qsrv = start_quantized_server(art, int8)
+        try:
+            greedy, paths[f"{mode}_greedy_http"] = drive_int8_path(
+                f"{mode} greedy HTTP", lambda: post_requests(qsrv, audios),
+                ("log_mel_frontend", "lstm_seq_infer"), int8)
+            beam_kernels = (("log_mel_frontend", "lstm_seq_infer") if int8
+                            else ("log_mel_frontend", "lstm_seq_infer",
+                                  "beam_search"))
+            beam, paths[f"{mode}_beam_http"] = drive_int8_path(
+                f"{mode} beam {BEAM} HTTP", lambda: post_requests(
+                    qsrv, audios, f"?beam={BEAM}"), beam_kernels, int8)
+            require(paths[f"{mode}_beam_http"]["beam_search"] ==
+                    (0 if int8 else len(audios)),
+                    f"{mode} beam: K3 launches "
+                    f"{paths[f'{mode}_beam_http']['beam_search']}")
+            if not int8:
+                require_streamed_k3("dequant_beam_http",
+                                    paths["dequant_beam_http"])
+            else:
+                _, paths["int8_exec_stream_tcp"] = drive_int8_path(
+                    "int8_exec stream TCP", lambda: tcp_session(
+                        qsrv, audios[1]),
+                    ("log_mel_frontend", "lstm_seq_infer"), True)
+            direct = copy.deepcopy(srv.service.model)
+            load_quantized_into_(direct, art, int8)
+            with (plain_int8_product() if int8 else contextlib.nullcontext()):
+                want = [direct_greedy_text(direct, tokenizer, cfg, a)
+                        for a in audios]
+            got = [r["text"] for r in greedy]
+            require(got == want, f"{mode} server's greedy texts differ from "
+                    f"the direct decode ({[len(t) for t in got]} vs "
+                    f"{[len(t) for t in want]} characters)")
+            log(f"{mode} server: greedy texts identical to the direct decode "
+                f"({'plain int8 product' if int8 else 'fp model, same'} "
+                f"weights), {[len(t) for t in got]} characters; "
+                f"request ms greedy {[round(r['latency_ms'], 2) for r in greedy]}"
+                f", beam {[round(r['latency_ms'], 2) for r in beam]} "
+                f"({smi})")
+            if int8:
+                for audio, secs in zip(audios, REQUEST_SECONDS):
+                    mel_p, t = padded_mel(cfg, audio)
+                    profile_int8_request(qsrv.service.model, mel_p, t,
+                                         f"{secs:g} s", smi)
+            del direct
+        finally:
+            qsrv.shutdown()
+
+
+def check_int8_entry_points(paths, data_dir, train_run, art, smi):
+    """cli/run_rnnt.py --mode eval on the train phase's checkpoint and its
+    int8 artifact with --int8_exec (greedy WER printed, no loss), then
+    cli/bench_decode.py --int8 and cli/bench_serve.py --quantized A
+    --int8_exec at the smoke run's small settings, each a driven path."""
+    from rnnt_tpu_torch.cli import bench_decode, bench_serve, run_rnnt
+
+    train_art = os.path.join(train_run, "model_int8.npz")
+    run_quantize(train_run, train_art)
+
+    def eval_main(argv):
+        run_rnnt.main(argv)
+        return 0
+
+    (out, _), paths["int8_exec_eval"] = drive_int8_path(
+        "int8_exec eval", lambda: run_main("run_rnnt eval", eval_main, [
+            "--mode", "eval", "--data_dir", data_dir, "--checkpoint",
+            train_run, "--output_dir", train_run, "--quantized", train_art,
+            "--int8_exec", "--batch_size", str(TRAIN_BATCH), "--pad_frames",
+            "256", "--pad_tokens", "64"]), ("lstm_seq_infer",), True)
+    line = next((x for x in out if "eval_wer=" in x), "")
+    wer = float(line.split("eval_wer=")[1].split()[0]) if line else \
+        float("nan")
+    require(np.isfinite(wer) and "eval_loss=nan" in line,
+            f"int8_exec eval printed {out}")
+    log(f"int8_exec eval: greedy WER {wer} ({smi})")
+
+    reps = 2
+    (out, _), launches = drive_int8_path(
+        "bench_decode_int8", lambda: run_main(
+            "bench_decode --int8", bench_decode.main,
+            ["--batch", "8", "--frames", "128", "--reps", str(reps),
+             "--int8"]), ("lstm_seq_infer", "beam_search"), True)
+    paths["bench_decode_int8"] = launches
+    rows = ("greedy", "beam-4 cuda E=1", "beam-4 cuda E=6",
+            "beam-4 plain E=1", "greedy int8-exec", "greedy dequant",
+            "beam-4 xla int8-exec", "beam-4 cuda dequant E=1")
+    require(out[0].startswith("int8 exec: pred+joint weights ")
+            and len(out) == 2 + len(rows) and all(
+                line.startswith(f"{r:20s} ")
+                for r, line in zip(rows, out[2:])),
+            f"bench_decode --int8 rows {out}")
+    require(launches["beam_search"] == 3 * (reps + 1),
+            f"bench_decode --int8: {launches['beam_search']} K3 launches")
+
+    threads = set(__import__("threading").enumerate())
+    (out, _), paths["bench_serve_int8"] = drive_int8_path(
+        "bench_serve_int8", lambda: run_main(
+            "bench_serve --quantized --int8_exec", bench_serve.main,
+            ["--checkpoint", RUN_DIR, "--requests", "8", "--concurrency",
+             "2", "--quantized", art, "--int8_exec"]),
+        ("log_mel_frontend", "lstm_seq_infer"), True)
+    heads = ("rtt_ms: ", "cold start: ", "first beam-4 request: ",
+             "sequential: ", "concurrent x2: ", "streaming: ")
+    require(len(out) == len(heads) and all(
+        line.startswith(h) for h, line in zip(heads, out)),
+        f"bench_serve int8 lines {out}")
+    require(paths["bench_serve_int8"]["beam_search"] == 0,
+            "bench_serve --int8_exec launched K3")
+    import threading
+
+    for t in set(threading.enumerate()) - threads:
+        t.join(timeout=10)
+    left = [t.name for t in set(threading.enumerate()) - threads]
+    require(not left, f"bench_serve int8 left threads running: {left}")
+
+
+def check_flac(paths, audio):
+    """A 5 s WAV's samples encoded as FLAC (tests/flac_fixture.py's encoder)
+    transcribe, through cli/transcribe_file.py on the card, as the WAV
+    does; the decoded samples equal the WAV's."""
+    import importlib.util
+
+    from rnnt_tpu_torch.cli import transcribe_file
+    from rnnt_tpu_torch.data.audio_io import read_audio, write_wav
+
+    # by its path: an installed package named `tests` may shadow the
+    # repository's tests/ directory, which is not a package
+    spec = importlib.util.spec_from_file_location(
+        "flac_fixture", os.path.join(REPO, "tests", "flac_fixture.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    encode_flac = fixture.encode_flac
+
+    d = os.path.join(TRAIN_DIR, "flac")
+    os.makedirs(d, exist_ok=True)
+    wav, flac = os.path.join(d, "a.wav"), os.path.join(d, "a.flac")
+    write_wav(wav, audio, 16000)
+    pcm, _ = read_audio(wav)
+    t0 = time.perf_counter()
+    with open(flac, "wb") as f:
+        f.write(encode_flac(np.round(pcm * 32768.0).astype(np.int64),
+                            blocksize=4096))
+    log(f"FLAC of {len(pcm)} samples: {os.path.getsize(flac)} B, encoded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    decoded, sr = read_audio(flac)
+    require(sr == 16000 and np.array_equal(decoded, pcm),
+            "the FLAC's decoded samples differ from the WAV's")
+
+    def transcribe(path):
+        return run_main("transcribe_file", lambda argv: (
+            transcribe_file.main(argv), 0)[1], ["--checkpoint", RUN_DIR,
+                                                "-i", path])[0]
+
+    (texts, paths["flac"]) = drive_path(
+        "flac", lambda: (transcribe(flac), transcribe(wav)),
+        ("log_mel_frontend", "lstm_seq_infer"))
+    require(texts[0] == texts[1] and len(texts[0]) == 1,
+            f"FLAC and WAV transcripts differ: {texts}")
+    log(f"FLAC and WAV transcripts identical ({len(texts[0][0])} "
+        f"characters)")
+
+
+def check_loss_oracle(paths, seed, B=4, T=64, U=32, J=640, V=4096):
+    """K7 (--loss_impl pallas: the lattice over materialised logits) and
+    the fused loss (K6 + K7) in fp32 on the card against the port's OpenMP
+    oracle (native/rnnt_loss_cpu.cc) on the same logits, ragged lengths:
+    the losses rtol 1e-4; K7's d/dlogits rtol 1e-3 / atol 1e-4 element by
+    element, as tests/test_native.py holds the oracle.  The fused loss has
+    no d/dlogits: its gradients of f, g, b1, w2 and b2 are held against the
+    oracle's d/dlogits carried back through the joint by autograd, each to
+    a relative error of 1e-3 of its largest magnitude (the gate
+    `check_train_step_fp32` puts on a step's gradients).  Element by element
+    they cannot meet atol 1e-4: an element of dW2, db2 or db1 sums B T (U+1)
+    cells, each carrying the lattice's fp32 roundoff (K7's d/dlogits differ
+    from the oracle's by up to ~2e-4, within the bound), and some cancel
+    towards 0."""
+    import torch
+
+    from rnnt_tpu_torch.native.loss import rnnt_loss_cpu
+    from rnnt_tpu_torch.ops.joint_loss_fused import rnnt_loss_fused
+    from rnnt_tpu_torch.ops.rnnt_loss import rnnt_loss
+
+    rng = np.random.default_rng(seed + 13)
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    f = put(rng.standard_normal((B, T, J)) * 0.5).requires_grad_(True)
+    g = put(rng.standard_normal((B, U + 1, J)) * 0.5).requires_grad_(True)
+    b1 = put(rng.standard_normal(J) * 0.1).requires_grad_(True)
+    w2 = put(rng.standard_normal((J, V)) * 0.05).requires_grad_(True)
+    b2 = put(rng.standard_normal(V) * 0.1).requires_grad_(True)
+    labels_np = rng.integers(1, V, (B, U)).astype(np.int32)
+    fl_np = np.array([T, T - 4, T - 14, T], np.int32)[:B]
+    yl_np = np.array([U, U - 2, U - 12, U], np.int32)[:B]
+    labels = torch.from_numpy(labels_np).long().cuda()
+    fl = torch.from_numpy(fl_np).long().cuda()
+    yl = torch.from_numpy(yl_np).long().cuda()
+    logits = torch.tanh(f[:, :, None] + g[:, None] + b1) @ w2 + b2
+    t0 = time.perf_counter()
+    want, want_grad = rnnt_loss_cpu(logits.detach().cpu().numpy(), labels_np,
+                                    fl_np, yl_np, with_grad=True)
+    oracle_s = time.perf_counter() - t0
+    grad_ref = torch.autograd.grad(logits, (f, g, b1, w2, b2),
+                                   put(want_grad))
+
+    def close(got, ref, rtol, atol):
+        got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+        excess = ((got - ref).abs() - (atol + rtol * ref.abs())).max()
+        return float(excess) <= 0, float((got - ref).abs().max())
+
+    def k7():
+        x = logits.detach().clone().requires_grad_(True)
+        loss = rnnt_loss(x, labels, fl, yl, impl="pallas")
+        loss.sum().backward()
+        return loss, x.grad
+
+    def fused():
+        loss = rnnt_loss_fused(f, g, b1, w2, b2, labels, fl, yl)
+        grads = torch.autograd.grad(loss.sum(), (f, g, b1, w2, b2))
+        return loss, grads
+
+    (res, paths["loss_oracle"]) = drive_path(
+        "loss_oracle", lambda: (k7(), fused()),
+        ("joint_planes", "lattice_scan"))
+    (k7_loss, k7_grad), (f_loss, f_grads) = res
+    want_t = torch.from_numpy(want)
+    ok, err = close(k7_loss, want_t, 1e-4, 0.0)
+    ok_g, err_g = close(k7_grad, torch.from_numpy(want_grad), 1e-3, 1e-4)
+    log(f"loss oracle B={B} T={T} U={U} V={V} fp32 (oracle {oracle_s:.2f} s "
+        f"on the host): K7 loss max |d| {err:.3e}, grad max |d| "
+        f"{err_g:.3e}")
+    require(ok and ok_g, f"K7 disagrees with the OpenMP oracle: loss "
+            f"{err}, grad {err_g}")
+    ok, err = close(f_loss, want_t, 1e-4, 0.0)
+    errs = []
+    for name, got, ref in zip(("f", "g", "b1", "w2", "b2"), f_grads,
+                              grad_ref):
+        _, e = close(got, ref, 0.0, 0.0)
+        errs.append((name, e, rel_err(got, ref)))
+    log(f"loss oracle fused (K6 + K7): loss max |d| {err:.3e}, grads max "
+        f"|d| (relative to the largest) " + ", ".join(
+            f"{n} {e:.3e} ({r:.3e})" for n, e, r in errs))
+    require(ok and all(r <= 1e-3 for _, _, r in errs), f"the fused loss "
+            f"disagrees with the OpenMP oracle: loss {err}, grads {errs}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2348,6 +2823,18 @@ def main(argv=None) -> int:
         k3["max_abs_err"] = max([k3["max_abs_err"]] + [
             r["max_abs_err"] for r in k3["bench_decode_inputs"].values()])
         log(f"phase bench entry points: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        art = os.path.join(RUN_DIR, "model_int8.npz")
+        run_quantize(RUN_DIR, art)
+        check_qdot(smi)
+        check_quantized_serving(paths, srv, cfg, audios, art, smi)
+        check_int8_entry_points(paths, os.path.join(TRAIN_DIR, "data"),
+                                os.path.join(TRAIN_DIR, "run_fused"), art,
+                                smi)
+        check_flac(paths, audios[1])
+        check_loss_oracle(paths, args.seed)
+        log(f"phase int8, FLAC and loss oracle: "
             f"{time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)

@@ -11,8 +11,18 @@ Reports ms/batch and audio-s/s, from random encoder outputs, for:
   beam-K plain E=1  decode/beam.beam_search_encoded_plain, the same search
                     in plain PyTorch ops (the comparison; never served)
 
+With --int8, also (the JAX CLI's int8 rows) on the same model quantized by
+`ops.quantize`, after a line of the prediction net's and joint's weight
+bytes under int8 execution and dequantized:
+  greedy int8-exec          greedy with int8 prediction net and joint
+                            (`ops.int8_exec.qdot`, torch._int_mm on the card)
+  greedy dequant            greedy on the dequantized weights (K2 steps)
+  beam-K xla int8-exec      decode/beam.beam_search_encoded_xla, E=1, the
+                            int8 search (the JAX package's XLA beam)
+  beam-K cuda dequant E=1   kernel K3 on the dequantized weights
+
 On the CPU (--device cpu) the kernel rows run their wrappers' plain
-versions.  --int8 is not ported yet and is refused.
+versions.
 """
 
 from __future__ import annotations
@@ -55,6 +65,28 @@ def setup(batch: int, frames: int, bf16: bool, device):
     return cfg, model, enc, lens
 
 
+def int8_models(model):
+    """(int8-exec model, dequantized model): copies of `model` with the
+    weights of its int8 quantization (`ops.quantize`), the prediction net's
+    and joint's kept int8 in the first, all dequantized in the second."""
+    import copy
+
+    from rnnt_tpu_torch.ops.quantize import apply_quantized_, quantize_params
+
+    q = quantize_params(model.state_dict())
+    return (apply_quantized_(copy.deepcopy(model), q, int8_exec=True),
+            apply_quantized_(copy.deepcopy(model), q))
+
+
+def weight_bytes(model) -> int:
+    """Bytes of the prediction net's and the joint's weights as stored (their
+    state_dict: an int8 weight's q and s, not the padded copy of q that the
+    card's product reads, `QuantWeight.q_mm`)."""
+    return sum(t.numel() * t.element_size()
+               for sub in (model.prediction, model.joint)
+               for t in sub.state_dict().values())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -67,17 +99,17 @@ def main(argv=None) -> int:
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--int8", action="store_true",
-                   help="not ported yet (refused)")
+                   help="also time greedy and beam on the int8-quantized "
+                        "model: int8 execution against the dequantized "
+                        "weights")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
     args = p.parse_args(argv)
-    if args.int8:
-        p.error("--int8: int8 execution is not ported to PyTorch yet "
-                "(ROADMAP.md section A, item 7: the int8 slice)")
 
     import torch
 
-    from rnnt_tpu_torch.decode.beam import beam_search_encoded_plain
+    from rnnt_tpu_torch.decode.beam import (beam_search_encoded_plain,
+                                            beam_search_encoded_xla)
     from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
     from rnnt_tpu_torch.device import resolve_device
     from rnnt_tpu_torch.ops.beam_cuda import beam_search
@@ -108,6 +140,23 @@ def main(argv=None) -> int:
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    if args.int8:
+        mixed, deq = int8_models(model)
+        print(f"int8 exec: pred+joint weights {weight_bytes(mixed):,} B vs "
+              f"dequant {weight_bytes(deq):,} B", flush=True)
+
+        def search_on(m, fn, E):
+            return lambda: fn(m, enc, lens, beam_width=K, max_output_length=L,
+                              expansions_per_frame=E)
+
+        runs["greedy int8-exec"] = lambda: greedy_decode_encoded(
+            mixed, enc, lens, max_output_length=L)
+        runs["greedy dequant"] = lambda: greedy_decode_encoded(
+            deq, enc, lens, max_output_length=L)
+        runs[f"beam-{K} xla int8-exec"] = search_on(
+            mixed, beam_search_encoded_xla, 1)
+        runs[f"beam-{K} cuda dequant E=1"] = search_on(deq, beam_search, 1)
 
     print(f"B={B} T'={T} vocab={cfg.vocab_size} "
           f"dtype={str(dt).removeprefix('torch.')} ({audio_s:.0f} "

@@ -10,8 +10,9 @@ trip, cold start (server up with its warm-up, first request, first
 `?beam=4` request), sequential latency percentiles, `--concurrency` client
 threads (req/s and audio-s/s), and a TCP streaming session in
 `--chunk`-sample frames.  The server is shut down before `main` returns.
-The flags are the JAX CLI's plus --device; --quantized and --int8_exec are
-not ported yet and are refused.
+The flags are the JAX CLI's plus --device: --quantized A serves an int8
+artifact (`cli.quantize_model`), dequantized or, with --int8_exec, with the
+prediction net's and joint's products in int8.
 """
 
 from __future__ import annotations
@@ -84,15 +85,12 @@ def main(argv=None) -> int:
                    help="streaming chunk size in samples")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
     p.add_argument("--quantized", default=None, metavar="MODEL_INT8_NPZ",
-                   help="not ported yet (refused)")
+                   help="serve this int8 artifact (cli.quantize_model)")
     p.add_argument("--int8_exec", action="store_true",
-                   help="not ported yet (refused)")
+                   help="with --quantized: serve the int8 execution path")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
     args = p.parse_args(argv)
-    if args.quantized or args.int8_exec:
-        p.error("--quantized/--int8_exec: int8 serving is not ported to "
-                "PyTorch yet (ROADMAP.md section A, item 7: the int8 slice)")
     sr = 16000
     if int(args.seconds * sr) <= 3 * args.chunk:
         p.error("--seconds must hold more than 3 chunks of --chunk samples "
@@ -120,7 +118,8 @@ def main(argv=None) -> int:
     # cold start: construction (+ optional warmup) + first request
     t0 = time.perf_counter()
     srv = Server(args.checkpoint, http_port=0, stream_port=0,
-                 device=args.device, warmup=args.warmup)
+                 device=args.device, warmup=args.warmup,
+                 quantized=args.quantized, int8_exec=args.int8_exec)
     try:
         srv.serve_background()
         t_up = time.perf_counter() - t0

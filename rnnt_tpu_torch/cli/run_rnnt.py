@@ -9,9 +9,13 @@
 Modes: train | eval (dev split) | test (test split).  The flags are the JAX
 CLI's, plus --device (cuda by default; cpu runs the plain PyTorch path).
 Checkpoints use the JAX package's npz layout, so either package resumes the
-other's.  Not yet ported, and refused with an error: --model_parallel > 1,
---multihost, --quantized, --int8_exec, --ckpt_backend orbax,
---loss_impl banded, --profile_dir.
+other's.  --quantized A replaces the weights by an int8 artifact's
+(`cli.quantize_model`), dequantized; with --int8_exec (eval/test only) the
+prediction net's and joint's products run in int8, beam decoding searches
+with the XLA beam's counterpart, and no loss is reported (the loss paths
+read fp joint weights).  Not yet ported, and refused with an error:
+--model_parallel > 1, --multihost, --ckpt_backend orbax, --loss_impl
+banded, --profile_dir.
 """
 
 from __future__ import annotations
@@ -65,8 +69,12 @@ def parse_args(argv=None):
     p.add_argument("--decode", default="greedy", choices=["greedy", "beam"],
                    help="eval-time decoder")
     p.add_argument("--quantized", default=None, metavar="MODEL_INT8_NPZ",
-                   help="not yet ported")
-    p.add_argument("--int8_exec", action="store_true", help="not yet ported")
+                   help="int8-quantized weights (cli.quantize_model output), "
+                        "dequantized: measures the WER delta against fp")
+    p.add_argument("--int8_exec", action="store_true",
+                   help="with --quantized: execute the prediction net's and "
+                        "joint's products in int8 (eval/test only; no loss "
+                        "metrics)")
     p.add_argument("--profile_dir", default=None, help="not yet ported")
     p.add_argument("--ckpt_backend", default="auto",
                    choices=["auto", "npz", "orbax"],
@@ -94,8 +102,6 @@ def parse_args(argv=None):
     unported = [flag for flag, on in (
         ("--model_parallel > 1", args.model_parallel > 1),
         ("--multihost", args.multihost),
-        ("--quantized", args.quantized is not None),
-        ("--int8_exec", args.int8_exec),
         ("--ckpt_backend orbax", args.ckpt_backend == "orbax"),
         ("--loss_impl banded", args.loss_impl == "banded"),
         ("--profile_dir", args.profile_dir is not None)) if on]
@@ -170,6 +176,15 @@ def main(argv=None):
         state = ckpt_mod.init_from_checkpoint(args.init_from, cfg, dtype, dev)
     else:
         state = create_train_state(cfg, dtype, dev)
+    int8_exec = bool(args.quantized) and args.int8_exec
+    if args.quantized:
+        from rnnt_tpu_torch.ops.quantize import load_quantized_into_
+
+        if int8_exec and args.mode == "train":
+            sys.exit("--int8_exec is an inference path: use --mode "
+                     "eval/test (beam decode routes through the XLA "
+                     "beam's int8-aware pred/joint steps)")
+        load_quantized_into_(state.model, args.quantized, int8_exec)
     mel_dtype = (torch.bfloat16 if args.transfer_dtype == "bfloat16"
                  else torch.float32)
 
@@ -202,9 +217,12 @@ def main(argv=None):
         sys.exit("eval/test requires --checkpoint")
     split = "dev" if args.mode == "eval" else "test"
     t0 = time.time()
+    # int8 joint weights cannot feed the loss; WER and CER are the int8
+    # measurement
     metrics = run_evaluate(cfg, state.model, batches(split)(),
                            tokenizer=tokenizer, decode=args.decode,
-                           loss_impl=args.loss_impl, mel_dtype=mel_dtype)
+                           loss_impl=args.loss_impl, mel_dtype=mel_dtype,
+                           loss_metrics=not int8_exec)
     print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     print(f"eval wall-clock: {time.time() - t0:.1f}s")
     return metrics

@@ -13,8 +13,10 @@ Streaming protocol (TCP :8081): send `u32 n | n bytes float32 PCM` frames,
 an empty frame ends the stream; every frame is answered with
 `u32 m | JSON {"text", "final"}`.  See rnnt_tpu_torch/serve.py.
 
-The flags are the JAX server's (`rnnt_tpu.cli.serve`) plus --device.  The
-int8 paths are not ported yet: --quantized and --int8_exec are refused.
+The flags are the JAX server's (`rnnt_tpu.cli.serve`) plus --device.  An
+int8 artifact of the checkpoint (`rnnt_tpu_torch.cli.quantize_model`) is
+served with --quantized model_int8.npz: dequantized, or with --int8_exec
+the prediction net's and joint's products executed in int8.
 """
 
 from __future__ import annotations
@@ -30,9 +32,12 @@ def main(argv=None):
     p.add_argument("--http_port", type=int, default=8080)
     p.add_argument("--stream_port", type=int, default=8081)
     p.add_argument("--quantized", default=None, metavar="MODEL_INT8_NPZ",
-                   help="not supported by the port yet")
+                   help="serve the int8 artifact of cli.quantize_model "
+                        "(weights dequantized to the serving dtype)")
     p.add_argument("--int8_exec", action="store_true",
-                   help="not supported by the port yet")
+                   help="with --quantized: execute the prediction net's and "
+                        "joint's products in int8 (beam requests search "
+                        "with the XLA beam's counterpart)")
     p.add_argument("--no-warmup", dest="warmup", action="store_false",
                    help="skip building the kernels and running every decode "
                         "bucket and a short stream at startup (the first "
@@ -46,9 +51,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
     args = p.parse_args(argv)
-    if args.quantized or args.int8_exec:
-        p.error("--quantized/--int8_exec: int8 serving is not ported to "
-                "PyTorch yet")
 
     from rnnt_tpu_torch.serve import Server
 
@@ -57,11 +59,14 @@ def main(argv=None):
                  warmup=args.warmup,
                  warmup_beams=((0, args.warmup_beam) if args.warmup_beam
                                else (0,)),
-                 max_t_pad=args.max_frames)
+                 max_t_pad=args.max_frames, quantized=args.quantized,
+                 int8_exec=args.int8_exec)
     if srv.warmup_seconds:
         print(f"warmup: built kernels and ran the decode buckets in "
               f"{srv.warmup_seconds:.1f}s")
-    print(f"serving {args.checkpoint} on {srv.service.device}: "
+    mode = (" int8-exec" if args.int8_exec
+            else " int8-dequantized" if args.quantized else "")
+    print(f"serving {args.checkpoint}{mode} on {srv.service.device}: "
           f"http://{args.host}:{srv.http_port} (POST /transcribe, /info), "
           f"streaming tcp://{args.host}:{srv.stream_port}", flush=True)
     try:

@@ -24,7 +24,7 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--simulate_file", default=None,
-                   help="stream this WAV file instead of the microphone")
+                   help="stream this WAV or FLAC file instead of the microphone")
     p.add_argument("--chunk_samples", type=int, default=CHUNK_SAMPLES)
     p.add_argument("--realtime", action="store_true",
                    help="pace simulated chunks at real time")

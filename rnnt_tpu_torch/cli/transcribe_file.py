@@ -7,7 +7,7 @@ Many files decode as one padded batch, greedy or with a K-beam search:
       -i a.wav b.wav [--beam 4] [--device cuda]
 
 One file prints its bare transcript; several print `path<TAB>text` lines.
-WAV only: FLAC input raises until its decoder is ported.
+WAV and FLAC input (FLAC through the native decoder, `data.audio_io`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def main(argv=None):
     p.add_argument("--checkpoint", required=True,
                    help="checkpoint dir with config.json + tokenizer")
     p.add_argument("-i", "--input", required=True, nargs="+",
-                   help="WAV file(s); several files decode as one padded "
+                   help="WAV or FLAC file(s); several files decode as one padded "
                         "batch")
     p.add_argument("--beam", type=int, default=0,
                    help="beam width; 0 = greedy")

@@ -1,8 +1,10 @@
-"""WAV reading and writing with the standard library.
+"""Audio file IO: WAV with the standard library, FLAC through the port's
+native decoder (`rnnt_tpu_torch.native`, built with g++ at first use).
 
-The port's copy of the WAV half of `rnnt_tpu.data.audio_io`.  Readers
-return (float32 mono samples in [-1, 1], sample_rate); integer PCM is
-scaled as tf.audio.decode_wav does, and multi-channel audio keeps channel 0.
+The port of `rnnt_tpu.data.audio_io`.  Readers return (float32 mono samples
+in [-1, 1], sample_rate); integer PCM is scaled as tf.audio.decode_wav
+does, and multi-channel audio keeps channel 0.  There is no second FLAC
+decoder: if the native library cannot be built, reading a FLAC raises.
 """
 
 from __future__ import annotations
@@ -40,12 +42,18 @@ def read_wav(path) -> Tuple[np.ndarray, int]:
     return data, framerate
 
 
+def read_flac(path: str) -> Tuple[np.ndarray, int]:
+    """Read a FLAC file with the native decoder (`native.flac`)."""
+    from rnnt_tpu_torch.native import flac as native_flac
+
+    return native_flac.read_flac(path)
+
+
 def read_audio(path: str) -> Tuple[np.ndarray, int]:
-    """Read an audio file by its extension.  Only WAV is ported: FLAC
-    raises until its decoder is."""
+    """Read an audio file by its extension: .flac (LibriSpeech) through the
+    native decoder, anything else as WAV."""
     if path.lower().endswith(".flac"):
-        raise ValueError(f"{path}: FLAC input is not supported by the "
-                         "PyTorch port yet; convert it to WAV")
+        return read_flac(path)
     return read_wav(path)
 
 

@@ -2,9 +2,9 @@
 
 Walks `base/split/speaker/chapter/{speaker}-{chapter}.trans.txt` files and
 yields (audio, sample_rate, transcript) triples.  Audio is read through the
-port's own `data.audio_io`: a listed `.flac` falls back to a `.wav` beside
-it (pre-converted corpora), and a FLAC file itself raises until the port
-has a FLAC decoder.
+port's own `data.audio_io`: a listed `.flac` is decoded by the native FLAC
+decoder, and falls back to a `.wav` beside it where the FLAC is missing
+(pre-converted corpora).
 """
 
 from __future__ import annotations

@@ -37,7 +37,11 @@ never merge.
 
 `beam_search_decode` encodes, then searches with the kernel's wrapper
 (`ops.beam_cuda.beam_search`), which runs the kernel on a CUDA tensor and
-this plain version on a CPU tensor.
+this plain version on a CPU tensor.  A model with int8 weights (int8
+execution) searches instead with `beam_search_encoded_xla`, the counterpart
+of the JAX package's XLA beam, which is where the JAX package sends int8
+weights: the same selection and merging, through the model's int8-aware
+`joint_step` and `predict_step` (`search_by_kind`).
 """
 
 from __future__ import annotations
@@ -183,6 +187,7 @@ class _PlainWeights:
     prediction-net layer, with the kernel's rounding points."""
 
     def __init__(self, model: Transducer):
+        refuse_int8(model, "the plain search (kernel K3's yardstick)")
         j, p = model.joint, model.prediction
         self.dt = model.dtype
         self.w1, self.b1 = j.w1.float(), j.b1.float()
@@ -225,6 +230,66 @@ class _PlainWeights:
         return x.to(self.dt), new_state
 
 
+class _ModelSteps:
+    """The search's steps through the model's own `joint_step` and
+    `predict_step`, as the JAX package's XLA beam takes them
+    (`rnnt_tpu.decode.beam.beam_search_encoded`): the joint adds enc_t and
+    pred before W1, and int8 weights run through `qdot` / `qtake`."""
+
+    def __init__(self, model: Transducer):
+        self.model = model
+
+    def joint_fj(self, enc_t: torch.Tensor) -> torch.Tensor:
+        return enc_t
+
+    def joint_logp(self, enc_t: torch.Tensor,
+                   pred: torch.Tensor) -> torch.Tensor:
+        """enc_t [B, P], pred [B, K, P] -> log-probs [B, K, V] fp32."""
+        B, K, P = pred.shape
+        logits = self.model.joint_step(enc_t.repeat_interleave(K, dim=0),
+                                       pred.reshape(B * K, P))
+        return torch.log_softmax(logits, dim=-1).reshape(B, K, -1)
+
+    def advance(self, labels: torch.Tensor, state):
+        """labels [B, K] through one prediction-net step of the B*K rows."""
+        B, K = labels.shape
+        out, new = self.model.predict_step(
+            labels.reshape(B * K),
+            [(c.reshape(B * K, -1), h.reshape(B * K, -1)) for c, h in state])
+        return out.reshape(B, K, -1), [
+            (c.reshape(B, K, -1), h.reshape(B, K, -1)) for c, h in new]
+
+
+def refuse_int8(model: Transducer, what: str) -> None:
+    """Raise if the model holds int8 weights: `what` reads fp weights."""
+    if model.int8_names():
+        raise ValueError(
+            f"{what} reads fp weights, and this model holds int8 ones; "
+            "int8 weights search with decode.beam.beam_search_encoded_xla")
+
+
+@torch.no_grad()
+def beam_search_encoded_xla(model: Transducer, encoded: torch.Tensor,
+                            enc_lengths: torch.Tensor, *, beam_width: int,
+                            max_output_length: int,
+                            expansions_per_frame: int,
+                            merge_duplicates: bool = True,
+                            stats: Optional[dict] = None):
+    """The counterpart of the JAX package's XLA beam, the search it runs
+    for int8 weights (`rnnt_tpu/serve.py`: impl="xla" under int8
+    execution): the plain search's selection and merging, with the steps
+    of `_ModelSteps`.  It takes int8 weights only and raises on fp ones,
+    which search in kernel K3 (`ops.beam_cuda.beam_search`).  Arguments and
+    results as `beam_search_encoded_plain`."""
+    if not model.int8_names():
+        raise ValueError("beam_search_encoded_xla is the int8 search; fp "
+                         "weights search with ops.beam_cuda.beam_search")
+    return _search(model, _ModelSteps(model), encoded, enc_lengths,
+                   beam_width=beam_width, max_output_length=max_output_length,
+                   expansions_per_frame=expansions_per_frame,
+                   merge_duplicates=merge_duplicates, stats=stats)
+
+
 @torch.no_grad()
 def beam_search_encoded_plain(model: Transducer, encoded: torch.Tensor,
                               enc_lengths: torch.Tensor, *, beam_width: int,
@@ -242,11 +307,21 @@ def beam_search_encoded_plain(model: Transducer, encoded: torch.Tensor,
     otherwise, a gap below the two sides' score difference explains it);
     "min_gap", the smallest of them all; and "merges", the number of
     duplicate-prefix merges."""
+    return _search(model, _PlainWeights(model), encoded, enc_lengths,
+                   beam_width=beam_width, max_output_length=max_output_length,
+                   expansions_per_frame=expansions_per_frame,
+                   merge_duplicates=merge_duplicates, stats=stats)
+
+
+def _search(model, w, encoded, enc_lengths, *, beam_width,
+            max_output_length, expansions_per_frame, merge_duplicates,
+            stats):
+    """The search over encoder output with the steps `w` (joint_fj,
+    joint_logp, advance)."""
     B, T, P = encoded.shape
     K, L, E = beam_width, max_output_length, expansions_per_frame
     V = model.cfg.vocab_size
     dev = encoded.device
-    w = _PlainWeights(model)
     pred0, state0, scores = initial_beam(model, B, K, dev)
     beam = Beam(scores, torch.zeros((B, K, L), dtype=torch.long, device=dev),
                 torch.zeros((B, K), dtype=torch.long, device=dev),
@@ -334,7 +409,8 @@ def beam_search_decode(model: Transducer, mel: torch.Tensor,
                        expansions_per_frame: Optional[int] = None,
                        merge_duplicates: Optional[bool] = None):
     """Featurized audio [B, T, feat] -> (best tokens [B, L], best lengths
-    [B], beam scores [B, K]).  expansions_per_frame defaults to
+    [B], beam scores [B, K]), by the search the weights' kind selects
+    (`search_by_kind`).  expansions_per_frame defaults to
     `default_expansions(cfg)`, merge_duplicates to True, as in the JAX
     package."""
     B, T, _ = mel.shape
@@ -346,9 +422,19 @@ def beam_search_decode(model: Transducer, mel: torch.Tensor,
         expansions_per_frame = default_expansions(model.cfg)
     if merge_duplicates is None:
         merge_duplicates = True
+    return search_by_kind(model)(
+        model, encoded, enc_lengths, beam_width=beam_width,
+        max_output_length=max_output_length,
+        expansions_per_frame=expansions_per_frame,
+        merge_duplicates=merge_duplicates)
+
+
+def search_by_kind(model: Transducer):
+    """The beam search for the model's weights, chosen as the JAX service
+    chooses its beam: kernel K3's wrapper (`ops.beam_cuda.beam_search`) for
+    fp weights, `beam_search_encoded_xla` for int8 ones."""
+    if model.int8_names():
+        return beam_search_encoded_xla
     from rnnt_tpu_torch.ops.beam_cuda import beam_search
 
-    return beam_search(model, encoded, enc_lengths, beam_width=beam_width,
-                       max_output_length=max_output_length,
-                       expansions_per_frame=expansions_per_frame,
-                       merge_duplicates=merge_duplicates)
+    return beam_search

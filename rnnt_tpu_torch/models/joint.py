@@ -3,7 +3,8 @@ Dense(vocab).  The port of `rnnt_tpu.models.joint`.  The products are plain
 cuBLAS products with fp32 results (`ops.matmul`), as XLA computes them
 outside any kernel on the TPU.  `joint_logits` materialises the [B, T, U+1, V] lattice for the
 "ref" and "pallas" losses; the fused loss (`ops.joint_loss_fused`) never
-does."""
+does.  An int8 w1 or w2 (`ops.int8_exec.QuantWeight`) goes through `qdot`,
+with its input in fp32, as the JAX joint does."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from torch import nn
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models.lstm import frozen_param, glorot_
-from rnnt_tpu_torch.ops.matmul import matmul_f32
+from rnnt_tpu_torch.ops.int8_exec import act_dtype, qdot
 
 
 class Joint(nn.Module):
@@ -35,7 +36,7 @@ class Joint(nn.Module):
 
 def joint_project(joint: Joint, enc: torch.Tensor, pred: torch.Tensor):
     """Project each side through the shared first Dense: [.., P] -> [.., J]."""
-    return matmul_f32(enc, joint.w1), matmul_f32(pred, joint.w1)
+    return qdot(enc, joint.w1), qdot(pred, joint.w1)
 
 
 def joint_logits(joint: Joint, enc: torch.Tensor,
@@ -43,12 +44,12 @@ def joint_logits(joint: Joint, enc: torch.Tensor,
     """Lattice logits [B, T, U+1, V] from enc [B, T, P], pred [B, U+1, P]."""
     f, g = joint_project(joint, enc, pred)
     h = torch.tanh(f[:, :, None, :] + g[:, None, :, :] + joint.b1.float())
-    return matmul_f32(h.to(joint.w2.dtype), joint.w2) + joint.b2.float()
+    return qdot(h.to(act_dtype(joint.w2)), joint.w2) + joint.b2.float()
 
 
 def joint_step(joint: Joint, enc_t: torch.Tensor,
                pred_u: torch.Tensor) -> torch.Tensor:
     """Single-cell joint for decoding: enc_t [B, P], pred_u [B, P] ->
     logits [B, V] fp32."""
-    h = torch.tanh(matmul_f32(enc_t + pred_u, joint.w1) + joint.b1.float())
-    return matmul_f32(h.to(joint.w2.dtype), joint.w2) + joint.b2.float()
+    h = torch.tanh(qdot(enc_t + pred_u, joint.w1) + joint.b1.float())
+    return qdot(h.to(act_dtype(joint.w2)), joint.w2) + joint.b2.float()

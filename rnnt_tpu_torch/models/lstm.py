@@ -11,6 +11,13 @@ recurrence itself is `ops.lstm_cuda.lstm_seq_infer` in inference and the
 differentiable `ops.lstm_cuda.lstm_seq` in training (the CUDA kernels on the
 card, their plain versions on the CPU).  The cell state c is fp32.
 
+A layer whose wx, wh or wp is an int8 `ops.int8_exec.QuantWeight` (int8
+execution, `ops.quantize.int8_exec_params`) runs a plain step loop on
+`qdot` instead, as the JAX package routes int8 weights to its scan: the
+input projection in fp32, then per step z = xp + qdot(h, Wh) + bias, the
+gates, and h_new = qdot(hidden in fp32, Wp) in the state's dtype.  It is
+inference only.
+
 Parameters are created frozen (serving needs no gradients);
 `models.transducer.Transducer.make_trainable_` turns training on for all but
 the BatchNorm running statistics.
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from rnnt_tpu_torch.ops import lstm_cuda
+from rnnt_tpu_torch.ops.int8_exec import act_dtype, is_quant, qdot, weight_shape
 from rnnt_tpu_torch.ops.matmul import matmul_to
 
 
@@ -58,29 +66,57 @@ class ProjLSTM(nn.Module):
         self.bias.zero_()
         self.bias[2 * H: 3 * H] = 1.0
 
+    def is_int8(self) -> bool:
+        return any(is_quant(w) for w in (self.wx, self.wh, self.wp))
+
     def zero_state(self, batch: int, dtype=None, device=None):
-        """(c, h): c fp32, h in `dtype` (the weight dtype by default)."""
-        H, P = self.wp.shape
+        """(c, h): c fp32, h in `dtype` (by default the weight dtype, fp32
+        for an int8 Wp)."""
+        H, P = weight_shape(self.wp)
         device = device or self.wp.device
         return (torch.zeros((batch, H), dtype=torch.float32, device=device),
-                torch.zeros((batch, P), dtype=dtype or self.wp.dtype,
+                torch.zeros((batch, P), dtype=dtype or act_dtype(self.wp),
                             device=device))
 
     def forward(self, x: torch.Tensor,
                 state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 training: bool = False):
         B, T, F = x.shape
-        dt = self.wh.dtype
         if state is None:
             state = self.zero_state(B, x.dtype, x.device)
         c0, h0 = state
+        if self.is_int8():
+            if training:
+                raise ValueError("int8 LSTM weights are an inference path; "
+                                 "train on fp weights")
+            return self._forward_int8(x, c0, h0)
         if training:
             return lstm_cuda.lstm_seq(x, self.wx, self.wh, self.bias, self.wp,
                                       c0, h0)
-        xp = matmul_to(x.reshape(B * T, F), self.wx, dt).reshape(B, T, -1)
+        xp = matmul_to(x.reshape(B * T, F), self.wx, self.wh.dtype).reshape(
+            B, T, -1)
         h_seq, c_fin = lstm_cuda.lstm_seq_infer(
             xp.transpose(0, 1), self.wh, self.wp, self.bias, h0, c0)
         return h_seq.transpose(0, 1), (c_fin, h_seq[-1].to(h0.dtype))
+
+    def _gates_step(self, xp_t, c, h):
+        """One step from the precomputed input projection (JAX's
+        `_gates_step`)."""
+        z = xp_t + qdot(h, self.wh) + self.bias.float()
+        i, g, f, o = torch.chunk(z, 4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        hidden = torch.sigmoid(o) * torch.tanh(c_new)
+        h_new = qdot(hidden.to(act_dtype(self.wp)), self.wp).to(h.dtype)
+        return c_new, h_new
+
+    def _forward_int8(self, x, c, h):
+        B, T, F = x.shape
+        xp = qdot(x.reshape(B * T, F), self.wx).reshape(B, T, -1)
+        hs = []
+        for t in range(T):
+            c, h = self._gates_step(xp[:, t], c, h)
+            hs.append(h)
+        return torch.stack(hs, dim=1), (c, h)
 
 
 class LayerNorm(nn.Module):

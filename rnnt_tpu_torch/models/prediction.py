@@ -1,6 +1,7 @@
 """Prediction (label) network: embedding, then stacked projected LSTMs with
 dropout and LayerNorm.  The port of `rnnt_tpu.models.prediction`; decoding
-carries its LSTM state instead of re-running the emitted prefix."""
+carries its LSTM state instead of re-running the emitted prefix.  An int8
+embedding table (`ops.int8_exec.QuantWeight`) is read by `qtake`."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models.encoder import LSTMBlock, State
 from rnnt_tpu_torch.models.lstm import frozen_param
+from rnnt_tpu_torch.ops.int8_exec import qtake
 
 
 class Prediction(nn.Module):
@@ -39,7 +41,7 @@ class Prediction(nn.Module):
     def forward(self, pred_inp: torch.Tensor, state: Optional[State] = None,
                 *, training: bool = False, generator=None):
         """pred_inp [B, U+1] int token ids -> (out [B, U+1, P], new_state)."""
-        x = self.embed[pred_inp]
+        x = qtake(self.embed, pred_inp)
         new_state = []
         for i, layer in enumerate(self.layers):
             x, st = layer(x, state[i] if state is not None else None,

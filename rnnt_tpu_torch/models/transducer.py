@@ -3,7 +3,9 @@
 The port of `rnnt_tpu.models.transducer`.  Parameter names mirror the JAX
 parameter tree ("encoder.layers.0.lstm.wx" is params["encoder"]["layers"][0]
 ["lstm"]["wx"]), so `train.checkpoint.params_from_numpy` maps one onto the
-other by name.
+other by name.  `load_params_` also takes the mixed trees of int8 execution
+(`ops.quantize.int8_exec_params`), whose int8 weights replace the
+parameters of their names as `ops.int8_exec.QuantWeight` modules.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models import joint as joint_mod
 from rnnt_tpu_torch.models.encoder import Encoder, State, encoded_length
 from rnnt_tpu_torch.models.prediction import Prediction
+from rnnt_tpu_torch.ops.int8_exec import is_quant
 
 # Leaves that stay fp32 whatever the parameter dtype (BatchNorm running
 # statistics, as in the JAX tree).
@@ -44,8 +47,46 @@ class Transducer(nn.Module):
         return self
 
     @torch.no_grad()
+    def load_params_(self, params) -> "Transducer":
+        """Load a tree of every parameter name -> a tensor (copied, in the
+        tensor's dtype, onto the model's device, into the same Parameter) or
+        a `QuantWeight` (which takes the parameter's place); a name that
+        held an int8 weight gets a frozen parameter again from a tensor."""
+        want = set(self._param_names())
+        if set(params) != want:
+            raise ValueError(
+                f"parameter names differ: missing "
+                f"{sorted(want - set(params))}, unknown "
+                f"{sorted(set(params) - want)}")
+        device = self.encoder.bn.scale.device
+        for name, value in params.items():
+            owner_name, _, attr = name.rpartition(".")
+            owner = self.get_submodule(owner_name)
+            current = getattr(owner, attr)
+            if is_quant(value):
+                delattr(owner, attr)  # a parameter slot takes no module
+                setattr(owner, attr, value.to(device))
+            elif is_quant(current):
+                delattr(owner, attr)
+                setattr(owner, attr, torch.nn.Parameter(
+                    value.detach().to(device).clone(), requires_grad=False))
+            else:  # the same Parameter object, for optimizer and autograd
+                current.data = value.detach().to(device).clone()
+        return self
+
+    def _param_names(self):
+        """Dotted names of the parameter tree, an int8 weight counted once
+        under its own name."""
+        return [n for n, _ in self.named_parameters()] + self.int8_names()
+
+    def int8_names(self):
+        """Names of the weights held in int8."""
+        return sorted(n for n, m in self.named_modules() if is_quant(m))
+
+    @torch.no_grad()
     def cast_(self, dtype) -> "Transducer":
-        """Parameters to `dtype`, except the fp32 BatchNorm statistics."""
+        """Parameters to `dtype`, except the fp32 BatchNorm statistics; int8
+        weights stay as they are."""
         for name, p in self.named_parameters():
             if name not in FP32_LEAVES:
                 p.data = p.data.to(dtype)
@@ -60,7 +101,9 @@ class Transducer(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.joint.w1.dtype
+        """The parameter dtype (the encoder's: int8 weights live only in
+        the prediction net and the joint)."""
+        return self.encoder.layers[0].lstm.wh.dtype
 
     def encode_predict(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
                        training: bool = False, generator=None):

@@ -262,7 +262,10 @@ def beam_search(model, encoded: torch.Tensor, enc_lengths: torch.Tensor, *,
     "val" [S, B, K] (see `decode.beam.trace_divergence`); on a CPU tensor
     the plain version's whole `stats`.  Off on the serving path.
     library: optionally (CDLL, entry) of another build of the source to
-    launch in place of the package's (`kernels/beam_ab.py` times copies)."""
+    launch in place of the package's (`kernels/beam_ab.py` times copies).
+    int8 weights raise (`decode.beam.search_by_kind` sends them to the
+    XLA beam's counterpart)."""
+    beam_mod.refuse_int8(model, "the beam kernel K3")
     if not encoded.is_cuda:
         return beam_mod.beam_search_encoded_plain(
             model, encoded, enc_lengths, beam_width=beam_width,

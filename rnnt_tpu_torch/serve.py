@@ -22,6 +22,12 @@ whole number of float32 samples, gets an error frame and a close; the first
 data frame of a session fixes its chunk size, later frames must match it
 (one smaller final data frame is allowed).
 
+An int8 artifact (`cli.quantize_model`) is served with `quantized=`: its
+weights dequantized to the serving dtype, or with `int8_exec=True` the
+prediction net's and joint's products executed in int8 (`ops.int8_exec`);
+beam requests then search with the counterpart of the JAX package's XLA
+beam (`decode.beam.search_by_kind`), since kernel K3 reads fp weights.
+
 One lock serializes device work across HTTP requests and every stream.  A
 request runs the frontend kernel, the encoder (one LSTM kernel launch per
 layer) and greedy decoding (two LSTM kernel launches per prediction-net
@@ -46,13 +52,13 @@ import torch
 
 from rnnt_tpu_torch.data.audio_io import read_wav
 from rnnt_tpu_torch.data.tokenizer import SUBWORD_FILENAME, get_tokenizer
-from rnnt_tpu_torch.decode.beam import default_expansions
+from rnnt_tpu_torch.decode.beam import default_expansions, search_by_kind
 from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
 from rnnt_tpu_torch.decode.streaming import StreamingTranscriber
 from rnnt_tpu_torch.device import resolve_device
 from rnnt_tpu_torch.models.transducer import Transducer
 from rnnt_tpu_torch.ops import features as F
-from rnnt_tpu_torch.ops.beam_cuda import beam_search
+from rnnt_tpu_torch.ops.quantize import load_quantized_into_
 from rnnt_tpu_torch.train import checkpoint as ckpt_mod
 
 MAX_OUTPUT_LENGTH = 256
@@ -70,11 +76,19 @@ class TranscriptionService:
     """Checkpoint -> transcription (greedy, beam, streaming) on one device.
 
     dtype: parameter dtype; None means bfloat16 on the card (as the JAX
-    service picks on a TPU) and float32 on the CPU.  max_t_pad: largest
-    frame bucket `transcribe` accepts."""
+    service picks on a TPU) and float32 on the CPU.  quantized: path of a
+    `cli.quantize_model` int8 artifact of this checkpoint's model, served
+    dequantized to `dtype`; int8_exec: with `quantized`, keep the prediction
+    net's and joint's weights int8 and execute their products in int8.
+    max_t_pad: largest frame bucket `transcribe` accepts."""
 
     def __init__(self, checkpoint_dir: str, device="cuda", dtype=None,
+                 quantized: Optional[str] = None, int8_exec: bool = False,
                  max_t_pad: int = 512):
+        if int8_exec and not quantized:
+            raise ValueError("int8_exec requires a quantized artifact")
+        self.quantized = bool(quantized)
+        self.int8_exec = bool(int8_exec)
         self.device = resolve_device(device)
         self.cfg = ckpt_mod.load_config(checkpoint_dir)
         self.tokenizer = get_tokenizer(
@@ -88,6 +102,8 @@ class TranscriptionService:
         model = Transducer(self.cfg)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).cast_(dtype).eval()
+        if quantized:
+            load_quantized_into_(self.model, quantized, int8_exec)
         self.max_t_pad = int(max_t_pad)
         self._lock = threading.Lock()
         # phase times of the last transcribe() call, in milliseconds
@@ -144,7 +160,7 @@ class TranscriptionService:
         enc_lengths = self.model.encoded_length(
             torch.tensor([t], dtype=torch.int32, device=self.device))
         if beam > 0:  # as the JAX service, beam <= 0 is greedy
-            tokens, lengths, _ = beam_search(
+            tokens, lengths, _ = search_by_kind(self.model)(
                 self.model, encoded, enc_lengths, beam_width=beam,
                 max_output_length=MAX_OUTPUT_LENGTH,
                 expansions_per_frame=default_expansions(self.cfg))
@@ -199,8 +215,8 @@ class TranscriptionService:
             "token_type": self.cfg.token_type,
             "sample_rate": self.cfg.sample_rate,
             "step": self.step,
-            "quantized": False,
-            "int8_exec": False,
+            "quantized": self.quantized,
+            "int8_exec": self.int8_exec,
             "backend": self.device.type,
             "dtype": str(self.model.dtype).replace("torch.", ""),
         }
@@ -328,8 +344,11 @@ class Server:
                  device="cuda", warmup: bool = False, warmup_beams=(0, 4),
                  max_http_body: int = MAX_HTTP_BODY,
                  max_stream_frame: int = MAX_STREAM_FRAME,
-                 max_t_pad: int = 512):
+                 max_t_pad: int = 512, quantized: Optional[str] = None,
+                 int8_exec: bool = False):
         self.service = TranscriptionService(checkpoint_dir, device=device,
+                                            quantized=quantized,
+                                            int8_exec=int8_exec,
                                             max_t_pad=max_t_pad)
         self.warmup_seconds = (self.service.warmup(beams=warmup_beams)
                                if warmup else 0.0)

@@ -64,11 +64,15 @@ def _decode(model, kind: str, mel, spec_lengths, max_out: int):
 def run_evaluate(cfg: RNNTConfig, model, eval_batches: Iterable[Dict], *,
                  tokenizer=None, eval_step=None, max_batches: int = 0,
                  decode: str = "greedy", loss_impl: str = "fused",
-                 mel_dtype=None) -> Dict[str, float]:
+                 mel_dtype=None, loss_metrics: bool = True
+                 ) -> Dict[str, float]:
     """Eval loss (mean nll over the real rows), eval_accuracy (1 - token
     error rate of the decoded tokens) and, with a tokenizer, eval_wer and
-    eval_cer, over at most max_batches batches (0: all)."""
-    eval_step = eval_step or make_eval_step(cfg, loss_impl=loss_impl)
+    eval_cer, over at most max_batches batches (0: all).  loss_metrics=False
+    skips the loss (eval_loss nan), as int8 execution needs: its int8 joint
+    weights cannot feed the loss paths."""
+    if loss_metrics:
+        eval_step = eval_step or make_eval_step(cfg, loss_impl=loss_impl)
     dev = next(model.parameters()).device
     losses, n = [], 0
     tok_err = n_utt = wer_sum = cer_sum = n_txt = 0.0
@@ -76,8 +80,9 @@ def run_evaluate(cfg: RNNTConfig, model, eval_batches: Iterable[Dict], *,
         n += 1
         num_real = int(batch.get("num_real", batch["labels"].shape[0]))
         tb = to_device(batch, dev, mel_dtype)
-        m = eval_step(model, tb)
-        losses.extend(m["nll"][:num_real].float().cpu().tolist())
+        if loss_metrics:
+            m = eval_step(model, tb)
+            losses.extend(m["nll"][:num_real].float().cpu().tolist())
         max_out = int(batch["labels"].shape[1] * 2 + 8)
         with torch.no_grad():
             tokens, lengths = _decode(model, decode, tb["mel_specs"],

@@ -37,6 +37,11 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
         raise NotImplementedError(
             "SpecAugment is not yet ported to the PyTorch port; set "
             "specaug_freq_masks=0 and specaug_time_masks=0")
+    if model.int8_names():
+        raise ValueError(
+            "int8 weights (int8 execution) cannot feed the RNN-T loss: the "
+            f"loss paths read fp joint weights ({', '.join(model.int8_names())}"
+            " are int8); score int8 execution by its decoded WER")
     enc_lengths = encoded_length(cfg, batch["spec_lengths"])
     mel = batch["mel_specs"]
     if training and cfg.input_noise_stddev > 0 and generator is not None:

@@ -4,9 +4,10 @@ prints its one JSON line; `cli.bench_loss` (all three losses),
 `cli.bench_decode` (its four rows), `cli.bench_streaming` (latency and WER
 modes) and `cli.bench_serve` (against a run dir written by the JAX package,
 no server thread left behind) return 0 and print their JAX counterparts'
-line formats.  A failing loss makes bench_loss return non-zero, the
-unported int8 flags are refused naming their slice, and without CUDA every
-entry point raises instead of running on the CPU."""
+line formats.  A failing loss makes bench_loss return non-zero, the int8
+flags run (bench_decode --int8, bench_serve --quantized --int8_exec; a
+lone --int8_exec fails), and without CUDA every entry point raises instead
+of running on the CPU."""
 
 import json
 import math
@@ -154,18 +155,56 @@ def test_bench_decode_rows(capsys):
                             rf" *[0-9]+ audio-s/s", line), line
 
 
-@pytest.mark.parametrize("main, argv", [
-    (bench_decode.main, ["--int8", "--device", "cpu"]),
-    (bench_serve.main, ["--checkpoint", "x", "--quantized", "q.npz",
-                        "--device", "cpu"]),
-    (bench_serve.main, ["--checkpoint", "x", "--int8_exec", "--device",
-                        "cpu"]),
-])
-def test_int8_flags_refused_naming_the_slice(main, argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert e.value.code == 2
-    assert "item 7: the int8 slice" in capsys.readouterr().err
+@pytest.mark.parametrize("case", ["bench_decode_int8", "bench_serve_int8",
+                                  "int8_exec_without_quantized"])
+def test_int8_flags_refused_naming_the_slice(case, run_dir, tmp_path, capsys):
+    """The int8 flags, once refused, now run: bench_decode --int8 prints the
+    weight-bytes line and the JAX CLI's four int8 rows after its own,
+    bench_serve serves an int8 artifact with --quantized --int8_exec, and
+    --int8_exec without --quantized still fails, as the JAX server
+    raises.  (Named for the refusal it asserted before
+    this path was ported.)"""
+    if case == "bench_decode_int8":
+        assert bench_decode.main(["--batch", "1", "--frames", "3", "--reps",
+                                  "1", "--max_output_length", "4", "--beam",
+                                  "2", "--no-bf16", "--int8", "--device",
+                                  "cpu"]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        m = re.fullmatch(r"int8 exec: pred\+joint weights ([0-9,]+) B vs "
+                         r"dequant ([0-9,]+) B", lines[0])
+        assert m, lines[0]
+        mixed, deq = (int(g.replace(",", "")) for g in m.groups())
+        assert 3.5 < deq / mixed < 4.0  # int8 matmul weights, fp32 rest
+        names = ["greedy", "beam-2 cuda E=1", "beam-2 cuda E=6",
+                 "beam-2 plain E=1", "greedy int8-exec", "greedy dequant",
+                 "beam-2 xla int8-exec", "beam-2 cuda dequant E=1"]
+        assert len(lines) == 2 + len(names)
+        for name, line in zip(names, lines[2:]):
+            assert re.fullmatch(rf"{re.escape(f'{name:20s}')} +{NUM} "
+                                rf"ms/batch    *[0-9]+ audio-s/s", line), line
+    elif case == "bench_serve_int8":
+        from rnnt_tpu_torch.cli import quantize_model
+
+        d, _ = run_dir
+        art = str(tmp_path / "model_int8.npz")
+        assert quantize_model.main(["--checkpoint", d, "-o", art,
+                                    "--device", "cpu"]) == 0
+        capsys.readouterr()
+        assert bench_serve.main(["--checkpoint", d, "--requests", "2",
+                                 "--concurrency", "2", "--seconds", "0.5",
+                                 "--quantized", art, "--int8_exec",
+                                 "--device", "cpu"]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        heads = ("rtt_ms: ", "cold start: ", "first beam-4 request: ",
+                 "sequential: 2 reqs", "concurrent x2: 8 reqs",
+                 "streaming: 7 chunks")
+        assert len(lines) == len(heads)
+        assert all(line.startswith(h) for h, line in zip(heads, lines))
+    else:
+        d, _ = run_dir
+        with pytest.raises(ValueError, match="requires a quantized"):
+            bench_serve.main(["--checkpoint", d, "--int8_exec", "--device",
+                              "cpu"])
 
 
 def test_bench_streaming_latency(capsys):

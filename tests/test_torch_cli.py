@@ -1,7 +1,8 @@
 """The port's CLIs in process with --device cpu, on a checkpoint written by
 the JAX package (joint sharpened so that decoding emits): transcribe_file
 (greedy and --beam 2, two WAVs in one padded batch) and streaming_transcribe
---simulate_file print exactly what the library calls give."""
+--simulate_file print exactly what the library calls give; a FLAC
+transcribes as its WAV."""
 
 import os
 
@@ -81,12 +82,30 @@ def test_transcribe_file(run, capsys, beam):
         + "\n"
 
 
-def test_transcribe_file_refuses_flac(run, tmp_path):
-    d, _, _ = run
-    flac = tmp_path / "a.flac"
-    flac.write_bytes(b"fLaC")
+def test_transcribe_file_refuses_flac(run, tmp_path, capsys):
+    """A FLAC of a WAV's samples (tests/flac_fixture.py's encoder)
+    transcribes as the WAV does; a truncated FLAC is refused by the
+    decoder with ValueError.  (Named for the refusal it asserted before
+    this path was ported.)"""
+    from rnnt_tpu_torch.data.audio_io import read_wav
+    from tests.flac_fixture import encode_flac
+
+    d, wavs, _ = run
+    audio, _ = read_wav(wavs[1])
+    flac = tmp_path / "u1.flac"
+    flac.write_bytes(encode_flac(np.round(audio * 32768.0).astype(np.int64),
+                                 blocksize=4096))
+    transcribe_file.main(["--checkpoint", d, "-i", wavs[1], "--device",
+                          "cpu"])
+    want = capsys.readouterr().out
+    assert want.strip()
+    transcribe_file.main(["--checkpoint", d, "-i", str(flac), "--device",
+                          "cpu"])
+    assert capsys.readouterr().out == want
+    bad = tmp_path / "a.flac"
+    bad.write_bytes(b"fLaC")
     with pytest.raises(ValueError, match="FLAC"):
-        transcribe_file.main(["--checkpoint", d, "-i", str(flac),
+        transcribe_file.main(["--checkpoint", d, "-i", str(bad),
                               "--device", "cpu"])
 
 

@@ -35,6 +35,10 @@ import rnnt_tpu_torch.bench, rnnt_tpu_torch.cli.benchutil
 import rnnt_tpu_torch.cli.bench_decode, rnnt_tpu_torch.cli.bench_loss
 import rnnt_tpu_torch.cli.bench_streaming, rnnt_tpu_torch.cli.bench_serve
 import rnnt_tpu_torch.data.librispeech
+import rnnt_tpu_torch.ops.int8_exec, rnnt_tpu_torch.ops.quantize
+import rnnt_tpu_torch.native, rnnt_tpu_torch.native.build
+import rnnt_tpu_torch.native.flac, rnnt_tpu_torch.native.loss
+import rnnt_tpu_torch.cli.quantize_model
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
@@ -72,6 +76,10 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                    "--simulate_file", "a.wav"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_rnnt.main(["--data_dir", str(tmp_path)])
+    from rnnt_tpu_torch.cli import quantize_model
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quantize_model.main(["--checkpoint", str(tmp_path)])
     cfg = tiny_config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_train_state(cfg)
