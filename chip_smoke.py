@@ -53,6 +53,25 @@ worst case.
    utterances, both WERs finite); `bench_serve`, cli.bench_serve on the run
    directory with --requests 8 --concurrency 2 (every line printed, K1, K2
    and K3 launched, no server thread left running); each must return 0;
+   then data preparation and augmented training on a LibriSpeech-layout
+   corpus written from --seed (48 train, 8 dev, 8 test utterances of 2-8 s,
+   half FLAC, half WAV, transcripts from a fixed word list):
+   `prep_librispeech`, cli.preprocess_librispeech on the card (word-piece,
+   --vocab_size 4096 --pad_vocab, 2 shards; its config.json the parity
+   config), exactly one K1 launch per utterance kept and no other kernel,
+   each written example's features within 2e-4 of the plain frontend in
+   fp64 on the card for the same audio and its labels the written tokenizer's
+   encode; `prep_parallel`, the same with --workers 2, every file
+   byte-identical to the serial run's; debug_dataset on each split and
+   corpus_stats on the train split; `train_specaug_profiled`,
+   cli.run_rnnt --mode train on those shards at batch 32 for 2 steps with
+   2 frequency and 2 time masks and --profile_dir (per step 10 K4, all
+   MMA, and 10 K5 launches; every K6 launch WGMMA and every K7 launch warp;
+   the eval's K2 resident; finite losses; the trace names K4's, K5's and
+   K6's kernels); and SpecAugment on a B=8 batch of those features on the
+   card in fp32 and bf16 (whole frames and whole bins, in every stacked
+   copy, set to zero; padding never masked; the rest untouched; equal to
+   the CPU's masks from the same draws);
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4 at
    each request's audio, at every chunk length of the TCP stream, at 8 kHz
@@ -69,12 +88,13 @@ worst case.
    logit margin on the plain path is below 1e-4; the beam search (K3) at
    each request's encoder output, a B=3 batch at the 128 bucket, the 5 s
    request with a sharpened joint and the 15 s one capped at 8 tokens
-   (which it must reach, with merges), in fp32 and in bf16: scores finite
-   and sorted, lengths within the cap, token ids in [1, V), every live
-   score within 1e-4 (fp32) or 1e-2 (bf16) relative error, the two
-   searches' picks identical at every selection up to the first near tie
-   (a gap below 1e-4 plus twice the score drift so far), slot-0 tokens and
-   lengths identical unless such a tie precedes; every bf16 case runs the
+   (which it must reach, with merges), in fp32 and in bf16, against the
+   plain search run along the kernel's picks: scores finite and sorted,
+   lengths within the cap, token ids in [1, V), every live score within
+   1e-4 (fp32) or 1e-2 (bf16) relative error, slot-0 tokens and lengths
+   identical, and at every selection the kernel's picks the plain
+   search's own top K up to a near tie (its top-K values above theirs by
+   at most 1e-4 plus twice the score drift so far); every bf16 case runs the
    streamed advance (B=1, and B=3: two n8 tiles) and every fp32 case the
    FMA design; the bf16 gate must reject a control (the kernel reading W2
    with the halves of its 16-byte groups swapped); after an in-place
@@ -1033,25 +1053,45 @@ BEAM_SCORE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 NEAR_TIE = 1e-4
 
 
+def plain_along(model, enc, enc_len, trace, kw):
+    """The plain search on `model` along a kernel run's picks (its
+    `trace`): (result, stats with "own" and "slack"), for `gate_beam`."""
+    from rnnt_tpu_torch.decode.beam import beam_search_encoded_plain
+
+    stats = {}
+    want = beam_search_encoded_plain(model, enc, enc_len, stats=stats,
+                                     follow=trace, **kw)
+    return want, stats
+
+
 def gate_beam(got, trace, want, stats, enc_len, E, V, score_tol):
     """K3's result (tokens, lengths, scores) and trace against the plain
-    search's on the same inputs.  Returns (failures, notes, max |d score|,
-    relative score error); the kernel holds when there are no failures.
+    search run along the kernel's picks (`plain_along`: the same hypotheses
+    in the same slots, scored and merged by the plain version, which also
+    records the picks it would have made itself).  Returns (failures,
+    notes, max |d score|, relative score error); the kernel holds when
+    there are no failures.
 
     - scores finite and sorted descending, lengths within the cap, token
       ids in [1, V);
-    - every live score within `score_tol` relative error (to the largest
-      live score), alive in the same places;
-    - where the two searches first pick otherwise
-      (`decode.beam.trace_divergence`), the plain selection's smallest gap
-      is a near tie: below NEAR_TIE plus twice the drift, the largest score
-      difference of a pick both searches made up to there (two candidates
-      closer than that can trade places);
-    - slot-0 tokens and lengths identical unless such a near tie precedes.
-    """
-    import torch
+    - every live beam score within `score_tol` relative error (to the
+      largest live score), alive in the same places, and the slot-0 tokens
+      and lengths identical: the same picks must build the same hypotheses
+      with the same scores;
+    - at every selection the kernel's picks are the plain search's own top
+      K up to a near tie: the plain's sorted top-K values exceed the sorted
+      plain values of the kernel's picks (`slack`) by at most NEAR_TIE plus
+      twice the drift so far, the largest |score difference| between the
+      kernel's and the plain's value of a pick that both would make in the
+      same slot, live in both, up to that selection (two candidates closer
+      than that can trade places; a pick the plain search would not make
+      does not count towards the drift, so it cannot excuse itself).
 
-    from rnnt_tpu_torch.decode.beam import trace_divergence
+    Run along the kernel's picks, the plain search cannot part from it at
+    a near tie and then hold a different beam to its scores: the two score
+    one path, so a bf16 tie-break within the drift passes, and the final
+    beam's scores and tokens are still held to the plain version's."""
+    import torch
 
     (tk, lk, sk), (tp, lp, sp) = got, want
     fails, notes = [], []
@@ -1070,23 +1110,34 @@ def gate_beam(got, trace, want, stats, enc_len, E, V, score_tol):
         fails.append("live scores in other places")
     if rel > score_tol:
         fails.append(f"score rel err {rel:.3e} > {score_tol:g}")
-    for b, (first, drift) in enumerate(trace_divergence(trace, stats,
-                                                        enc_len, E)):
-        same = int(lk[b]) == int(lp[b]) and torch.equal(
-            tk[b, : lk[b]].cpu(), tp[b, : lp[b]].cpu())
-        if first is None:
-            if not same:
-                fails.append(f"utterance {b}: tokens differ though every "
-                             "selection agreed")
+    S = stats["val"].shape[0]
+    frame = torch.arange(S) // (2 * E)
+    val_k, val_p = trace["val"][:S].cpu(), stats["val"].cpu()
+    agree = stats["idx"].cpu() == stats["own"].cpu()
+    slack = stats["slack"].cpu()
+    for b in range(tk.shape[0]):
+        if not (int(lk[b]) == int(lp[b]) and torch.equal(
+                tk[b, : lk[b]].cpu(), tp[b, : lp[b]].cpu())):
+            fails.append(f"utterance {b}: tokens differ along the same "
+                         "picks")
+        n = int((frame < int(enc_len[b])).sum())
+        vk, vp = val_k[:n, b], val_p[:n, b]
+        live = (vk > -1e29) & (vp > -1e29) & agree[:n, b]
+        drift = torch.where(live, (vk - vp).abs(),
+                            torch.zeros_like(vk)).amax(dim=1)
+        allowed = NEAR_TIE + 2 * torch.cummax(drift, dim=0).values
+        sl = slack[:n, b]
+        left = (sl > 0).nonzero()
+        if not len(left):
             continue
-        gap = float(stats["gap"][first, b])
-        what = (f"utterance {b}: picks first differ at selection {first} "
-                f"(frame {first // (2 * E)}, "
-                f"{'pool' if first % 2 else 'labels'}), plain gap {gap:.3e}, "
-                f"drift {drift:.3e}, tokens "
-                f"{'identical' if same else 'differ'}")
-        if gap < NEAR_TIE + 2 * drift:
-            notes.append(what + ": a near tie")
+        worst = int(sl.argmax())
+        what = (f"utterance {b}: {len(left)} of {n} selections left the "
+                f"plain's own top K, first at selection {int(left[0])} "
+                f"(frame {int(left[0]) // (2 * E)}); the largest slack "
+                f"{float(sl[worst]):.3e} at selection {worst}, allowed "
+                f"{float(allowed[worst]):.3e} there")
+        if bool((sl <= allowed).all()):
+            notes.append(what + ": near ties")
         else:
             fails.append(what + ": not a near tie")
     return fails, notes, max_abs, rel
@@ -1120,12 +1171,11 @@ def check_beam(model32, served, cfg, cases):
             with torch.no_grad(), ctx:
                 enc, _ = model.encode(mel_p)
                 enc_len = model.encoded_length(lengths.to(enc.device))
-                trace, stats = {}, {}
+                trace = {}
                 got = beam_cuda.beam_search(model, enc, enc_len, trace=trace,
                                             **kw)
                 design = beam_cuda.beam_search.last_design
-                want = beam_search_encoded_plain(model, enc, enc_len,
-                                                 stats=stats, **kw)
+                want, stats = plain_along(model, enc, enc_len, trace, kw)
                 torch.cuda.synchronize()
             fails, notes, max_abs, rel = gate_beam(
                 got, trace, want, stats, enc_len, E, cfg.vocab_size,
@@ -1153,13 +1203,16 @@ def check_beam(model32, served, cfg, cases):
                         f"{label} {dt}: the length cap {cap} not reached")
                 require(stats["merges"] > 0, f"{label} {dt}: no merge")
                 if model is served:
-                    control = (sharp, kw, enc, enc_len, want, stats, label)
+                    control = (sharp, kw, enc, enc_len, label)
     require(control is not None, "no capped case for the control")
-    sharp, kw, enc, enc_len, want, stats, label = control
+    sharp, kw, enc, enc_len, label = control
     ctx = sharp_joint(served) if sharp else contextlib.nullcontext()
-    with torch.no_grad(), ctx, swapped_w2_halves(served):
+    with torch.no_grad(), ctx:
         trace = {}
-        got = beam_cuda.beam_search(served, enc, enc_len, trace=trace, **kw)
+        with swapped_w2_halves(served):
+            got = beam_cuda.beam_search(served, enc, enc_len, trace=trace,
+                                        **kw)
+        want, stats = plain_along(served, enc, enc_len, trace, kw)
         fails, _, _, rel = gate_beam(got, trace, want, stats, enc_len, E,
                                      cfg.vocab_size,
                                      BEAM_SCORE_TOL["bfloat16"])
@@ -1221,8 +1274,7 @@ def check_beam_staleness(served, cfg, case):
     The weights are restored after."""
     import torch
 
-    from rnnt_tpu_torch.decode.beam import (beam_search_encoded_plain,
-                                            default_expansions)
+    from rnnt_tpu_torch.decode.beam import default_expansions
     from rnnt_tpu_torch.ops import beam_cuda
 
     require(case is not None, "no bf16 sharp-joint case for the staleness "
@@ -1239,14 +1291,15 @@ def check_beam_staleness(served, cfg, case):
         try:
             wh.add_(((torch.rand(wh.shape, generator=g, device=wh.device)
                       * 2 - 1) * lim).to(wh.dtype))
-            trace, stats = {}, {}
+            trace = {}
             got = beam_cuda.beam_search(served, enc, enc_len, trace=trace,
                                         **kw)
             design = beam_cuda.beam_search.last_design
             repacked = beam_cuda.packed_slices(
                 served, beam_cuda.grid_blocks(wh.device)) is not packed
-            want = beam_search_encoded_plain(served, enc, enc_len,
-                                             stats=stats, **kw)
+            want, stats = plain_along(served, enc, enc_len, trace, kw)
+            stale_want, stale_stats = plain_along(served, enc, enc_len,
+                                                  before_trace, kw)
             torch.cuda.synchronize()
         finally:
             wh.copy_(orig)
@@ -1254,8 +1307,8 @@ def check_beam_staleness(served, cfg, case):
                                            E, cfg.vocab_size,
                                            BEAM_SCORE_TOL["bfloat16"])
     stale_fails, _, _, stale_rel = gate_beam(
-        before, before_trace, want, stats, enc_len, E, cfg.vocab_size,
-        BEAM_SCORE_TOL["bfloat16"])
+        before, before_trace, stale_want, stale_stats, enc_len, E,
+        cfg.vocab_size, BEAM_SCORE_TOL["bfloat16"])
     log(f"K3 staleness ({label}, layer 0 Wh perturbed in place) bf16 "
         f"({design} design, repacked {repacked}): scores max |d| "
         f"{max_abs:.3e} rel {rel:.3e} "
@@ -1331,12 +1384,14 @@ def write_train_data(cfg, path, n_train, n_dev, seed):
     write_shards(examples(n_dev), os.path.join(path, "dev-{shard:05d}.rnr"), 1)
 
 
-def run_train_cli(data_dir, out_dir, loss_impl, steps, device="cuda"):
+def run_train_cli(data_dir, out_dir, loss_impl, steps, device="cuda",
+                  pad=(256, 64), extra=()):
     """One training run through rnnt_tpu_torch.cli.run_rnnt (bf16, batch 32,
     one epoch, a log line every step, one eval batch at the end, the
-    256-frame / 64-label bucket).  Requires `steps` finite train losses, one
-    eval line and a checkpoint that the port's restore reads back at the
-    same step.  Returns (train losses, eval metrics)."""
+    `pad` (frames, labels) bucket, then the `extra` flags).  Requires
+    `steps` finite train losses, one eval line and a checkpoint that the
+    port's restore reads back at the same step.  Returns (train losses,
+    eval metrics)."""
     import torch
 
     from rnnt_tpu_torch.cli import run_rnnt
@@ -1347,9 +1402,9 @@ def run_train_cli(data_dir, out_dir, loss_impl, steps, device="cuda"):
     run_rnnt.main(["--mode", "train", "--data_dir", data_dir,
                    "--output_dir", out_dir, "--batch_size", str(TRAIN_BATCH),
                    "--n_epochs", "1", "--steps_per_log", "1",
-                   "--eval_size", "1", "--pad_frames", "256",
-                   "--pad_tokens", "64", "--loss_impl", loss_impl,
-                   "--device", device])
+                   "--eval_size", "1", "--pad_frames", str(pad[0]),
+                   "--pad_tokens", str(pad[1]), "--loss_impl", loss_impl,
+                   "--device", device, *extra])
     with open(os.path.join(out_dir, "tb", "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r["train_loss"] for r in recs if "train_loss" in r]
@@ -2002,6 +2057,286 @@ def bench_train_step(smi, timed, seed, device="cuda"):
     return result
 
 
+# ------------------------------------------ data preparation and SpecAugment
+
+PREP_SPLITS = (("train-mini", 48), ("dev-mini", 8), ("test-mini", 8))
+PREP_WORDS = ("the and of to a in that he was it his i with as had you her "
+              "for she not but at be him on they all by this which said "
+              "from have so were one when there would what then them "
+              "upon into out more no now up could if time some little very "
+              "man only great before over such long like its good our old "
+              "come").split()
+PREP_PAD = (272, 64)  # an 8 s utterance is 266 stacked frames
+PREP_STEPS = 2        # 48 train utterances at batch 32: one full, one partial
+SPECAUG = ("specaug_freq_masks=2", "specaug_time_masks=2")
+
+
+def write_prep_corpus(cfg, path, seed):
+    """A LibriSpeech-layout corpus from `seed`: PREP_SPLITS utterances of
+    2-8 s over two speakers, half FLAC (tests/flac_fixture.py's encoder),
+    half WAV, 16-bit samples; transcripts of ~2.5 words a second from
+    PREP_WORDS.  Returns its audio seconds."""
+    from rnnt_tpu_torch.data.audio_io import write_wav
+
+    encode_flac = flac_encoder()
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(path, ignore_errors=True)
+    total = 0.0
+    for split, n in PREP_SPLITS:
+        for spk, chap in (("103", "1240"), ("1034", "121119")):
+            d = os.path.join(path, split, spk, chap)
+            os.makedirs(d)
+            lines = []
+            for i in range(n // 2):
+                utt = f"{spk}-{chap}-{i:04d}"
+                secs = float(rng.uniform(2.0, 8.0))
+                pcm = np.round(np.clip(synthetic_audio(secs, rng), -1, 1)
+                               * 32767.0)
+                if i % 2:
+                    write_wav(os.path.join(d, utt + ".wav"),
+                              (pcm / 32767.0).astype(np.float32),
+                              cfg.sample_rate)
+                else:
+                    with open(os.path.join(d, utt + ".flac"), "wb") as f:
+                        f.write(encode_flac(pcm.astype(np.int64),
+                                            blocksize=4096))
+                words = rng.choice(PREP_WORDS, max(1, int(2.5 * secs)))
+                lines.append(f"{utt} {' '.join(words).upper()}")
+                total += pcm.shape[0] / cfg.sample_rate
+            with open(os.path.join(d, f"{spk}-{chap}.trans.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    return total
+
+
+def shard_examples(out_dir, split):
+    """A split's examples in the order they were written: write_shards
+    deals example i to shard i % N, so the shards interleave."""
+    import glob as globlib
+
+    from rnnt_tpu_torch.data.records import read_shard
+
+    shards = [list(read_shard(p)) for p in sorted(globlib.glob(
+        os.path.join(out_dir, f"{split}-*-of-*.rnr")))]
+    out = []
+    for i in range(max(map(len, shards))):
+        out += [s[i] for s in shards if i < len(s)]
+    return out
+
+
+def check_prep_output(cfg, corpus, out_dir, device="cuda"):
+    """The prepared directory against the corpus: config.json the parity
+    config, a 4096-piece tokenizer, and every split's examples in corpus
+    order with their labels equal to the written tokenizer's encode and
+    their features within 2e-4 of the plain frontend in fp64 on the card
+    for the same audio (mean subtraction and stacking as preprocess_audio).
+    Returns (examples, K1's device ms summed over them, max error).
+
+    The yardstick is the plain frontend in fp64 (`log_mel_plain(...,
+    dtype=torch.float64)`): in fp32 the plain version's FFT rounds as an
+    fp32 FFT kernel would, which at spectral nulls of the low mel bins
+    exceeds 2e-4 on clean audio (tests/test_torch_frontend_fft.py), so it
+    cannot hold the kernel to 2e-4; its error is printed beside."""
+    import torch
+
+    from rnnt_tpu_torch.config import RNNTConfig
+    from rnnt_tpu_torch.data import audio_io, librispeech
+    from rnnt_tpu_torch.data.tokenizer import SubwordTokenizer
+    from rnnt_tpu_torch.ops import features as F
+    from rnnt_tpu_torch.ops.features_cuda import log_mel_frontend
+
+    require(RNNTConfig.load(out_dir) == cfg, "the prepared config.json is "
+            "not the parity RNNTConfig()")
+    tok = SubwordTokenizer.load(out_dir)
+    require(tok.vocab_size == cfg.vocab_size, f"tokenizer {tok.vocab_size}")
+    n, k1_ms, err, err_fp32 = 0, 0.0, 0.0, 0.0
+    for split, count in PREP_SPLITS:
+        name = split.split("-")[0]
+        exs = shard_examples(out_dir, name)
+        utts = list(librispeech.iter_utterance_files(corpus, [split]))
+        require(len(exs) == len(utts) == count,
+                f"{name}: {len(exs)} examples of {len(utts)} utterances")
+        for ex, (path, text) in zip(exs, utts):
+            require(np.array_equal(ex["labels"], tok.encode(text)),
+                    f"{path}: labels differ from the tokenizer's encode")
+            require(ex["labels"].shape[0] <= PREP_PAD[1], f"{path}: "
+                    f"{ex['labels'].shape[0]} labels")
+            audio, _ = audio_io.read_audio(path)
+            a = torch.from_numpy(audio).to(device)
+            want, fp32 = (F.stack_frames(F.subtract_mean(F.log_mel_plain(
+                a, cfg, dtype=dt)), cfg.downsample_factor).cpu().numpy()
+                for dt in (torch.float64, torch.float32))
+            require(ex["mel_specs"].shape == want.shape,
+                    f"{path}: {ex['mel_specs'].shape} != {want.shape}")
+            e = float(np.abs(ex["mel_specs"] - want).max())
+            require(e <= 2e-4, f"{path}: max |d mel| {e}")
+            err = max(err, e)
+            err_fp32 = max(err_fp32, float(np.abs(fp32 - want).max()))
+            k1_ms += device_ms(lambda: log_mel_frontend(a, cfg), reps=5)
+            n += 1
+    log(f"prep: the plain frontend in fp32 on the card errs by up to "
+        f"{err_fp32:.3e} against it in fp64 on the same audio")
+    return n, k1_ms, err
+
+
+def check_specaug_on_card(cfg, out_dir, seed, B=8, device="cuda"):
+    """SpecAugment on the card, on a B=8 batch of the prepared train
+    features (the train step's config: 2 frequency masks of up to
+    specaug_freq_width bins, 2 time masks of up to specaug_time_width
+    frames), in fp32 and bf16: a cell is zero exactly where its frame or
+    its mel bin (in every stacked copy) is masked, padding frames are never
+    masked, the rest is untouched, and the same draws applied on the CPU
+    give the same output."""
+    import torch
+
+    from rnnt_tpu_torch.data.pipeline import pad_batch
+    from rnnt_tpu_torch.ops.specaug import Intervals, apply_masks, \
+        draw_intervals
+
+    batch = pad_batch(shard_examples(out_dir, "train")[:B], PREP_PAD[0],
+                      PREP_PAD[1])
+    lengths = torch.from_numpy(batch["spec_lengths"]).to(device)
+    bins, stack = cfg.mel_bins, cfg.downsample_factor
+    for dt in (torch.float32, torch.bfloat16):
+        mel = torch.from_numpy(batch["mel_specs"]).to(device, dt)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        freq = draw_intervals(gen, B, 2, cfg.specaug_freq_width, device)
+        time_ = draw_intervals(gen, B, 2, cfg.specaug_time_width, device)
+        out = apply_masks(mel, lengths, mel_bins=bins, freq=freq, time=time_)
+        host = apply_masks(mel.cpu(), lengths.cpu(), mel_bins=bins,
+                           freq=Intervals(*(t.cpu() for t in freq)),
+                           time=Intervals(*(t.cpu() for t in time_)))
+        require(torch.equal(out.cpu(), host), f"SpecAugment {dt}: the card "
+                "and the CPU mask differently")
+        masked = (out == 0) & (mel != 0)
+        zero = (out == 0).cpu().numpy()
+        T = zero.shape[1]
+        frames = zero.all(axis=2)
+        fbins = zero.reshape(B, T, stack, bins).all(axis=(1, 2))
+        want = frames[:, :, None] | np.tile(fbins, (1, stack))[:, None, :]
+        require(np.array_equal(zero | (mel == 0).cpu().numpy(),
+                               want | (mel == 0).cpu().numpy()),
+                f"SpecAugment {dt}: masked cells are not whole frames and "
+                "whole bins")
+        real = np.arange(T)[None, :] < batch["spec_lengths"][:, None]
+        require(not (masked.any(dim=2).cpu().numpy() & ~real).any(),
+                f"SpecAugment {dt}: a padding frame was masked")
+        require(torch.equal(out[~masked], mel[~masked]),
+                f"SpecAugment {dt}: an unmasked cell changed")
+        require(bool(masked.any()), f"SpecAugment {dt}: nothing masked")
+        log(f"SpecAugment on the card ({dt}, B={B}, T={T}): "
+            f"{int(frames.any(axis=0).sum())} frames and "
+            f"{int(fbins.sum())} (example, bin) pairs masked; equal to the "
+            f"CPU's on the same draws")
+
+
+def check_prep_and_specaug(paths, cfg, seed, smi, device="cuda"):
+    """The data-preparation paths and the augmented, profiled training
+    path, each driven with the launch counts set to 0 before it:
+    `prep_librispeech`, cli.preprocess_librispeech on a corpus written
+    from `seed` (word-piece, --vocab_size 4096 --pad_vocab, 2 shards),
+    exactly one K1 launch per utterance kept, and `check_prep_output`;
+    `prep_parallel`, the same with --workers 2, its files byte-identical
+    to the serial run's; debug_dataset on each split and corpus_stats on
+    the train split; `train_specaug_profiled`, run_rnnt --mode train on the
+    prepared shards at batch 32 for PREP_STEPS steps with SpecAugment and
+    --profile_dir (the launches of `require_train_launches`, K2 resident in
+    the eval, finite losses, a trace naming K4's, K5's and K6's kernels);
+    then `check_specaug_on_card`.  Returns the timings."""
+    from rnnt_tpu_torch.cli import corpus_stats, debug_dataset, \
+        preprocess_librispeech
+
+    corpus = os.path.join(TRAIN_DIR, "prep_corpus")
+    t0 = time.perf_counter()
+    audio_s = write_prep_corpus(cfg, corpus, seed)
+    log(f"prep corpus: {sum(n for _, n in PREP_SPLITS)} utterances, "
+        f"{audio_s:.1f} s of audio, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flags = ["--data_dir", corpus, "--train_splits", "train-mini",
+             "--dev_splits", "dev-mini", "--test_splits", "test-mini",
+             "--vocab_size", "4096", "--pad_vocab", "--num_shards", "2",
+             "--device", device]
+    n_utts = sum(n for _, n in PREP_SPLITS)
+    walls = {}
+    dirs = {"prep_librispeech": os.path.join(TRAIN_DIR, "prep_serial"),
+            "prep_parallel": os.path.join(TRAIN_DIR, "prep_workers")}
+    for name, extra in (("prep_librispeech", []),
+                        ("prep_parallel", ["--workers", "2"])):
+        argv = flags + ["--output_dir", dirs[name]] + extra
+        t0 = time.perf_counter()
+        _, paths[name] = drive_path(name, lambda: run_main(
+            name, preprocess_librispeech.main, argv), ("log_mel_frontend",))
+        walls[name] = time.perf_counter() - t0
+        k1 = paths[name]["log_mel_frontend"]
+        require(k1 == n_utts, f"path {name}: {k1} K1 launches for {n_utts} "
+                "utterances kept")
+        others = {k: v for k, v in paths[name].items()
+                  if k != "log_mel_frontend" and isinstance(v, int) and v}
+        require(not others, f"path {name}: other kernels launched {others}")
+    n, k1_ms, err = check_prep_output(cfg, corpus, dirs["prep_librispeech"],
+                                      device)
+    files = sorted(os.listdir(dirs["prep_librispeech"]))
+    require(sorted(os.listdir(dirs["prep_parallel"])) == files,
+            "prep_parallel wrote other files")
+    for f in files:
+        with open(os.path.join(dirs["prep_librispeech"], f), "rb") as a, \
+                open(os.path.join(dirs["prep_parallel"], f), "rb") as b:
+            require(a.read() == b.read(), f"prep_parallel: {f} differs from "
+                    "the serial run's")
+    log(f"prep: {n} examples held to the plain frontend (max |d mel| "
+        f"{err:.3e}); serial and --workers 2 files byte-identical: {files}")
+    for split in ("train", "dev", "test"):
+        out, _ = run_main("debug_dataset", debug_dataset.main, [
+            "--data_dir", dirs["prep_librispeech"], "--split", split])
+        require(out[-1].startswith("All checks passed."), out)
+    out, _ = run_main("corpus_stats", corpus_stats.main,
+                      ["--dir", os.path.join(corpus, "train-mini")])
+    require(out[0] == f"files: {PREP_SPLITS[0][1]}", out)
+
+    run_dir = os.path.join(TRAIN_DIR, "run_specaug")
+    prof_dir = os.path.join(TRAIN_DIR, "profile")
+    t0 = time.perf_counter()
+    (losses, _), paths["train_specaug_profiled"] = drive_path(
+        "train_specaug_profiled", lambda: run_train_cli(
+            dirs["prep_librispeech"], run_dir, "fused", PREP_STEPS, device,
+            pad=PREP_PAD, extra=["--config_override", *SPECAUG,
+                                 "--profile_dir", prof_dir]),
+        ("lstm_fwd", "lstm_bwd", "joint_planes", "lattice_scan",
+         "lstm_seq_infer"))
+    train_wall = time.perf_counter() - t0
+    launches = paths["train_specaug_profiled"]
+    require_train_launches("train_specaug_profiled", launches, PREP_STEPS, 1,
+                           pallas=False)
+    require_resident_k2("train_specaug_profiled", launches)
+    with open(os.path.join(run_dir, "config.json")) as f:
+        run_cfg = json.load(f)
+    require(run_cfg["specaug_freq_masks"] == 2
+            and run_cfg["specaug_time_masks"] == 2, "SpecAugment was off")
+    trace = os.path.join(prof_dir, "run_rnnt_train.pt.trace.json")
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    for sym in ("lstm_fwd_mma_kernel", "lstm_bwd_kernel_mma",
+                "plane_kernel_wgmma"):
+        require(any(sym in n for n in names), f"the trace names no {sym}")
+    with open(os.path.join(run_dir, "tb", "metrics.jsonl")) as f:
+        step_s = [r["step_seconds"] for r in map(json.loads, f)
+                  if "step_seconds" in r]
+    check_specaug_on_card(cfg, dirs["prep_librispeech"], seed, device=device)
+    result = {
+        "audio_s": audio_s, "utterances": n_utts,
+        "prep_s": walls["prep_librispeech"],
+        "prep_workers2_s": walls["prep_parallel"],
+        "prep_s_per_audio_hour": walls["prep_librispeech"] / audio_s * 3600,
+        "prep_workers2_s_per_audio_hour":
+            walls["prep_parallel"] / audio_s * 3600,
+        "k1_device_ms_sum": k1_ms,
+        "k1_share_of_prep_wall": k1_ms / 1e3 / walls["prep_librispeech"],
+        "train_specaug_profiled_s": train_wall, "step_seconds": step_s,
+        "losses": losses, "trace_bytes": os.path.getsize(trace),
+        "card": smi}
+    log("data prep and augmented training " + json.dumps(result))
+    return result
+
+
 # ------------------------------------------------- measurement entry points
 
 CORPUS_SPLIT = "test-synth"
@@ -2074,11 +2409,10 @@ def check_bench_decode_beam(batch, frames, reps):
         kw = dict(beam_width=BEAM, max_output_length=200,
                   expansions_per_frame=E)
         with torch.no_grad():
-            trace, stats = {}, {}
+            trace = {}
             got = beam_cuda.beam_search(model, enc, lens, trace=trace, **kw)
             design = beam_cuda.beam_search.last_design
-            want = beam_search_encoded_plain(model, enc, lens, stats=stats,
-                                             **kw)
+            want, stats = plain_along(model, enc, lens, trace, kw)
             torch.cuda.synchronize()
         fails, notes, max_abs, rel = gate_beam(
             got, trace, want, stats, lens, E, cfg.vocab_size,
@@ -2544,22 +2878,27 @@ def check_int8_entry_points(paths, data_dir, train_run, art, smi):
     require(not left, f"bench_serve int8 left threads running: {left}")
 
 
-def check_flac(paths, audio):
-    """A 5 s WAV's samples encoded as FLAC (tests/flac_fixture.py's encoder)
-    transcribe, through cli/transcribe_file.py on the card, as the WAV
-    does; the decoded samples equal the WAV's."""
+def flac_encoder():
+    """tests/flac_fixture.py's `encode_flac`, loaded by its path: an
+    installed package named `tests` may shadow the repository's tests/
+    directory, which is not a package."""
     import importlib.util
 
-    from rnnt_tpu_torch.cli import transcribe_file
-    from rnnt_tpu_torch.data.audio_io import read_audio, write_wav
-
-    # by its path: an installed package named `tests` may shadow the
-    # repository's tests/ directory, which is not a package
     spec = importlib.util.spec_from_file_location(
         "flac_fixture", os.path.join(REPO, "tests", "flac_fixture.py"))
     fixture = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fixture)
-    encode_flac = fixture.encode_flac
+    return fixture.encode_flac
+
+
+def check_flac(paths, audio):
+    """A 5 s WAV's samples encoded as FLAC (tests/flac_fixture.py's encoder)
+    transcribe, through cli/transcribe_file.py on the card, as the WAV
+    does; the decoded samples equal the WAV's."""
+    from rnnt_tpu_torch.cli import transcribe_file
+    from rnnt_tpu_torch.data.audio_io import read_audio, write_wav
+
+    encode_flac = flac_encoder()
 
     d = os.path.join(TRAIN_DIR, "flac")
     os.makedirs(d, exist_ok=True)
@@ -2823,6 +3162,10 @@ def main(argv=None) -> int:
         k3["max_abs_err"] = max([k3["max_abs_err"]] + [
             r["max_abs_err"] for r in k3["bench_decode_inputs"].values()])
         log(f"phase bench entry points: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        check_prep_and_specaug(paths, cfg, args.seed, smi)
+        log(f"phase data preparation and augmented training: "
             f"{time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         art = os.path.join(RUN_DIR, "model_int8.npz")

@@ -13,9 +13,11 @@ other's.  --quantized A replaces the weights by an int8 artifact's
 (`cli.quantize_model`), dequantized; with --int8_exec (eval/test only) the
 prediction net's and joint's products run in int8, beam decoding searches
 with the XLA beam's counterpart, and no loss is reported (the loss paths
-read fp joint weights).  Not yet ported, and refused with an error:
---model_parallel > 1, --multihost, --ckpt_backend orbax, --loss_impl
-banded, --profile_dir.
+read fp joint weights).  --profile_dir P wraps the mode's work in
+torch.profiler (CPU activities, and CUDA activities on the card) and
+writes a Chrome trace under P.  Not yet ported, and refused with an
+error: --model_parallel > 1, --multihost, --ckpt_backend orbax,
+--loss_impl banded.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--loss_impl", default="fused",
                    choices=["fused", "banded", "auto", "ref", "pallas"],
                    help="fused = joint + loss kernels, never materialising "
-                        "the lattice logits; ref/pallas materialise them "
-                        "(pallas: lattice kernel); banded is not yet ported")
+                        "the lattice logits; auto, ref and pallas materialise "
+                        "them (pallas: the lattice kernel, else the plain "
+                        "lattice); banded is not yet ported")
     p.add_argument("--decode", default="greedy", choices=["greedy", "beam"],
                    help="eval-time decoder")
     p.add_argument("--quantized", default=None, metavar="MODEL_INT8_NPZ",
@@ -75,7 +78,11 @@ def parse_args(argv=None):
                    help="with --quantized: execute the prediction net's and "
                         "joint's products in int8 (eval/test only; no loss "
                         "metrics)")
-    p.add_argument("--profile_dir", default=None, help="not yet ported")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the run here "
+                        "(run_rnnt_<mode>.pt.trace.json); meant for runs "
+                        "of a few steps: the trace is held in host memory "
+                        "until the run ends")
     p.add_argument("--ckpt_backend", default="auto",
                    choices=["auto", "npz", "orbax"],
                    help="auto and npz write npz checkpoints; orbax is not "
@@ -103,8 +110,7 @@ def parse_args(argv=None):
         ("--model_parallel > 1", args.model_parallel > 1),
         ("--multihost", args.multihost),
         ("--ckpt_backend orbax", args.ckpt_backend == "orbax"),
-        ("--loss_impl banded", args.loss_impl == "banded"),
-        ("--profile_dir", args.profile_dir is not None)) if on]
+        ("--loss_impl banded", args.loss_impl == "banded")) if on]
     if unported:
         p.error(f"not yet ported to the PyTorch port: {', '.join(unported)}")
     return args
@@ -204,28 +210,43 @@ def main(argv=None):
             yield from pipeline.prefetch(stream, depth=2)
         return gen
 
-    if args.mode == "train":
-        run_training(cfg, state, batches("train", shuffle=True),
-                     output_dir=args.output_dir,
-                     eval_batches_fn=batches("dev"), tokenizer=tokenizer,
-                     n_epochs=args.n_epochs, steps_per_log=args.steps_per_log,
-                     steps_per_checkpoint=args.steps_per_checkpoint,
-                     eval_max_batches=args.eval_size,
-                     loss_impl=args.loss_impl, mel_dtype=mel_dtype)
-        return state
-    if not args.checkpoint:
+    def run_mode():
+        if args.mode == "train":
+            run_training(cfg, state, batches("train", shuffle=True),
+                         output_dir=args.output_dir,
+                         eval_batches_fn=batches("dev"), tokenizer=tokenizer,
+                         n_epochs=args.n_epochs,
+                         steps_per_log=args.steps_per_log,
+                         steps_per_checkpoint=args.steps_per_checkpoint,
+                         eval_max_batches=args.eval_size,
+                         loss_impl=args.loss_impl, mel_dtype=mel_dtype)
+            return state
+        split = "dev" if args.mode == "eval" else "test"
+        t0 = time.time()
+        # int8 joint weights cannot feed the loss; WER and CER are the int8
+        # measurement
+        metrics = run_evaluate(cfg, state.model, batches(split)(),
+                               tokenizer=tokenizer, decode=args.decode,
+                               loss_impl=args.loss_impl, mel_dtype=mel_dtype,
+                               loss_metrics=not int8_exec)
+        print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        print(f"eval wall-clock: {time.time() - t0:.1f}s")
+        return metrics
+
+    if args.mode != "train" and not args.checkpoint:
         sys.exit("eval/test requires --checkpoint")
-    split = "dev" if args.mode == "eval" else "test"
-    t0 = time.time()
-    # int8 joint weights cannot feed the loss; WER and CER are the int8
-    # measurement
-    metrics = run_evaluate(cfg, state.model, batches(split)(),
-                           tokenizer=tokenizer, decode=args.decode,
-                           loss_impl=args.loss_impl, mel_dtype=mel_dtype,
-                           loss_metrics=not int8_exec)
-    print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-    print(f"eval wall-clock: {time.time() - t0:.1f}s")
-    return metrics
+    if not args.profile_dir:
+        return run_mode()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        result = run_mode()
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, f"run_rnnt_{args.mode}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile trace written to {path}")
+    return result
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-// Log-mel frontend kernel for Hopper (sm_90a): an FFT in shared memory,
-// fp32 on the CUDA cores.
+// Log-mel frontend kernel for Hopper (sm_90a): an FFT in shared memory on
+// the CUDA cores, its butterflies in fp64.
 //
 // Replaces rnnt_tpu/ops/features_pallas.py::_frontend_kernel (launched by
 // log_mel_frontend).  Computes, for every STFT frame f of `audio` (tf.signal
@@ -13,9 +13,15 @@
 // window, magnitude, the sparse mel filters (470 weights) and the log.  At
 // 67 TFLOP/s fp32 that is below the time to move audio in and log-mel out
 // (4 + 2 bytes per sample over 3.35 TB/s), so the function is bound by
-// bytes; a launch of a few frames is bound by its latency.  fp32 throughout
-// on purpose: the TPU kernel runs its matmuls at HIGHEST precision because
-// the log amplifies rounding at near-silent bins, so no TF32 or bf16.
+// bytes; a launch of a few frames is bound by its latency.  No TF32 or bf16:
+// the TPU kernel runs its matmuls at HIGHEST precision because the log
+// amplifies rounding at near-silent bins.  For the same reason the FFT's
+// butterflies and the real-FFT split run in fp64: an fp32 radix-2 FFT errs
+// by ~eps * log2(n) of the frame's peak magnitude in every bin, and in a
+// spectral null of a low mel bin (one or two FFT bins wide) the log turns
+// that into an error above the 2e-4 the port holds the frontend to (see
+// tests/test_torch_frontend_fft.py).  In fp64 what is left is the fp32
+// inputs' rounding (window product, twiddle table).
 //
 // Design: one warp a frame, up to 8 frames a block, so a 1498-frame request
 // spreads over ~190 blocks and a 7-frame stream chunk over 7 warps.  The
@@ -26,11 +32,13 @@
 // mel tables.  Each warp then, in its own shared-memory slice:
 //   1. packs its windowed frame (zero-padded from L to nfft) as n = nfft/2
 //      complex points z[m] = x[2m] + i x[2m+1], stored at bit-reversed m;
-//   2. runs log2(n) radix-2 decimation-in-time stages in place (stage s
+//   2. runs log2(n) radix-2 decimation-in-time stages in place, in fp64
+//      on the fp32 table values (stage s
 //      pairs i and i + 2^s, twiddle exp(-2 pi i p / 2^(s+1)) = tw[p n/2^s],
 //      gathered per stage side by side so that no stage's reads of it
 //      collide in a bank), a __syncwarp between stages;
-//   3. splits the packed spectrum Z into the real one: for k <= n/2,
+//   3. splits the packed spectrum Z into the real one (fp64, the
+//      magnitudes rounded to fp32): for k <= n/2,
 //      Xe = (Z[k] + conj Z[n-k]) / 2, Xo = -i (Z[k] - conj Z[n-k]) / 2,
 //      t = tw[k] Xo, |X[k]| = |Xe + t| and |X[n-k]| = |Xe - t|;
 //   4. sums each mel bin over its nonzero weights only (first bin, count and
@@ -51,9 +59,10 @@ constexpr int NFFT_MIN = 64, NFFT_MAX = 4096;
 constexpr size_t SMEM_MAX = 232448;  // a block's shared memory on the H100
 
 // Shared memory layout, in floats: the split's twiddles [2n], the stages'
-// twiddles [2n], window [L, even], the mel weights [nnz, even] and their
-// index [3M, even], the span [(fpb - 1) hop + L, even], then per warp the
-// packed spectrum [2n] and the magnitudes [n + 1, even].  Every part starts
+// twiddles [2n], per warp the packed spectrum [n double2 = 4n], then the
+// window [L, even], the mel weights [nnz, even] and their index [3M, even],
+// the span [(fpb - 1) hop + L, even] and per warp the magnitudes [n + 1,
+// even].  The spectra start 16-byte aligned (n >= 32), every other part
 // 8-byte aligned.
 __host__ __device__ inline long long even(long long v) {
   return (v + 1) & ~1LL;
@@ -61,7 +70,7 @@ __host__ __device__ inline long long even(long long v) {
 __host__ __device__ inline long long span_floats(int fpb, int L, int hop) {
   return even((long long)(fpb - 1) * hop + L);
 }
-__host__ __device__ inline int warp_floats(int n) { return 2 * n + (n + 2); }
+__host__ __device__ inline int warp_floats(int n) { return 4 * n + (n + 2); }
 __host__ __device__ inline long long table_floats(int n, int L, int nnz,
                                                   int M) {
   return 4LL * n + even(L) + even(nnz) + even(3LL * M);
@@ -78,22 +87,24 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES)
                         const float* __restrict__ mel_w,  // [nnz]
                         float* __restrict__ out,          // [n_frames, M]
                         int n_frames, int L, int hop, int M, int nnz) {
-  extern __shared__ float2 smem2[];
+  extern __shared__ double2 smem_d[];
   constexpr int n = 1 << LOG2N;  // complex points: nfft / 2
   const int fpb = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int f0 = blockIdx.x * fpb;
   const int nf = min(fpb, n_frames - f0);
 
-  float2* tws = smem2;   // [n] exp(-2 pi i t / nfft), for the split
+  float2* tws = reinterpret_cast<float2*>(smem_d);  // [n] exp(-2 pi i t /
+                                                    // nfft), for the split
   float2* stw = tws + n;  // [n] stage s's twiddle p at 2^s + p
-  float* wins = reinterpret_cast<float*>(stw + n);
+  double2* bufs = reinterpret_cast<double2*>(stw + n);  // [fpb][n]
+  float* wins = reinterpret_cast<float*>(bufs + (size_t)fpb * n);
   float* mws = wins + even(L);
   int* mis = reinterpret_cast<int*>(mws + even(nnz));
   float* span = reinterpret_cast<float*>(mis) + even(3LL * M);
-  float* mine = span + span_floats(fpb, L, hop) + (size_t)warp * warp_floats(n);
-  float2* buf = reinterpret_cast<float2*>(mine);  // [n] packed spectrum
-  float* mag = mine + 2 * n;                      // [n + 1] |X|
+  double2* buf = bufs + (size_t)warp * n;  // [n] packed spectrum
+  float* mag = span + span_floats(fpb, L, hop) +
+               (size_t)warp * even(n + 1);  // [n + 1] |X|
 
   // every table and the span by asynchronous copies, all in flight at once
   const long long a0 = (long long)f0 * hop;
@@ -125,11 +136,11 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES)
     const int m = lane + 32 * r, k = 2 * m;
     const float x0 = k < L ? fr[k] * wins[k] : 0.f;
     const float x1 = k + 1 < L ? fr[k + 1] * wins[k + 1] : 0.f;
-    buf[__brev(m) >> (32 - LOG2N)] = make_float2(x0, x1);
+    buf[__brev(m) >> (32 - LOG2N)] = make_double2(x0, x1);
   }
   __syncwarp();
 
-  // 2. radix-2 stages in place
+  // 2. radix-2 stages in place, fp64
 #pragma unroll
   for (int s = 0; s < LOG2N; ++s) {
     const int half = 1 << s;
@@ -139,28 +150,30 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES)
       if (b >= n / 2) break;  // n = 32: half the lanes
       const int p = b & (half - 1);
       const int i = ((b - p) << 1) + p, j = i + half;
-      const float2 w = stw[half + p];
-      const float2 u = buf[i], v = buf[j];
-      const float tr = v.x * w.x - v.y * w.y, ti = v.x * w.y + v.y * w.x;
-      buf[i] = make_float2(u.x + tr, u.y + ti);
-      buf[j] = make_float2(u.x - tr, u.y - ti);
+      const float2 wf = stw[half + p];
+      const double wr = wf.x, wi = wf.y;
+      const double2 u = buf[i], v = buf[j];
+      const double tr = v.x * wr - v.y * wi, ti = v.x * wi + v.y * wr;
+      buf[i] = make_double2(u.x + tr, u.y + ti);
+      buf[j] = make_double2(u.x - tr, u.y - ti);
     }
     __syncwarp();
   }
 
-  // 3. the real spectrum's magnitudes, bins k and n - k together
+  // 3. the real spectrum's magnitudes, bins k and n - k together (fp64)
 #pragma unroll
   for (int r = 0; r < (n / 2 + 32) / 32; ++r) {
     const int k = lane + 32 * r;
     if (k > n / 2) break;
-    const float2 a = buf[k], c = buf[(n - k) & (n - 1)];
-    const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
-    const float orr = 0.5f * (a.y + c.y), oi = -0.5f * (a.x - c.x);
-    const float2 w = tws[k];
-    const float tr = orr * w.x - oi * w.y, ti = orr * w.y + oi * w.x;
-    const float pr = er + tr, pi = ei + ti, mr = er - tr, mi = ei - ti;
-    mag[k] = sqrtf(pr * pr + pi * pi);
-    if (2 * k != n) mag[n - k] = sqrtf(mr * mr + mi * mi);
+    const double2 a = buf[k], c = buf[(n - k) & (n - 1)];
+    const double er = 0.5 * (a.x + c.x), ei = 0.5 * (a.y - c.y);
+    const double orr = 0.5 * (a.y + c.y), oi = -0.5 * (a.x - c.x);
+    const float2 wf = tws[k];
+    const double wr = wf.x, wi = wf.y;
+    const double tr = orr * wr - oi * wi, ti = orr * wi + oi * wr;
+    const double pr = er + tr, pi = ei + ti, mr = er - tr, mi = ei - ti;
+    mag[k] = (float)sqrt(pr * pr + pi * pi);
+    if (2 * k != n) mag[n - k] = (float)sqrt(mr * mr + mi * mi);
   }
   __syncwarp();
 

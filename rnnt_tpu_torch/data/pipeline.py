@@ -1,6 +1,14 @@
-"""Batching pipeline over record shards: the port of the batching half of
-`rnnt_tpu.data.pipeline` (featurising a corpus, `preprocess_*`, comes with a
-later slice; shards written by the JAX package's preprocessors read here).
+"""Corpus featurisation and the batching pipeline over record shards: the
+port of `rnnt_tpu.data.pipeline`.
+
+`preprocess_utterance` turns one (audio, transcript) into a training
+example: the transcript is tokenised, the audio goes to `device` and
+through `ops.features.preprocess_audio` (on the card, the frontend kernel
+K1, then mean subtraction and frame stacking), and the features come back
+as float32 numpy.  `preprocess_corpus` streams a corpus through it;
+`preprocess_corpus_parallel` reads, decodes and tokenises in spawned worker
+processes while this process featurises each example on `device` in the
+corpus order, so its shards are byte-identical to the serial path's.
 
 Examples are grouped into (T, U) buckets and padded to the bucket
 boundaries, so a run sees a small closed set of shapes; a partial bucket is
@@ -15,7 +23,118 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.data import records as records_mod
+
+
+def _featurise(audio: np.ndarray, sample_rate: int, labels: np.ndarray,
+               cfg: RNNTConfig, device) -> Optional[Dict]:
+    """The example of tokenised `labels` and `audio`, featurised on
+    `device`; None for an empty tokenisation or no stacked frame."""
+    import torch
+
+    from rnnt_tpu_torch.ops import features as F
+
+    if sample_rate != cfg.sample_rate:
+        raise ValueError(f"expected {cfg.sample_rate} Hz, got {sample_rate}")
+    if labels.size == 0:
+        return None
+    audio = torch.from_numpy(np.asarray(audio, np.float32)).to(device)
+    mel = F.preprocess_audio(audio, cfg).cpu().numpy().astype(np.float32)
+    if mel.shape[0] == 0:
+        return None
+    pred_inp = np.concatenate([np.zeros(1, np.int32), labels])
+    return {
+        "mel_specs": mel,
+        "pred_inp": pred_inp,
+        "labels": labels,
+        "spec_lengths": np.int32(mel.shape[0]),
+        "label_lengths": np.int32(labels.shape[0]),
+    }
+
+
+def preprocess_utterance(audio: np.ndarray, sample_rate: int, text: str,
+                         tokenizer, cfg: RNNTConfig,
+                         device="cuda") -> Optional[Dict]:
+    """One (audio, transcript) -> training example dict: stacked log-mel
+    features made on `device`, the tokenised labels, and pred_inp, the
+    labels after a leading blank 0.  Returns None for an empty tokenisation
+    or fewer stacked frames than one."""
+    from rnnt_tpu_torch.device import resolve_device
+
+    labels = np.asarray(tokenizer.encode(text), np.int32)
+    return _featurise(audio, sample_rate, labels, cfg, resolve_device(device))
+
+
+def preprocess_corpus(utterances: Iterable[Tuple[np.ndarray, int, str]],
+                      tokenizer, cfg: RNNTConfig,
+                      max_length_seconds: float = 0.0,
+                      device="cuda") -> Iterator[Dict]:
+    """Featurise a corpus stream on `device`, dropping audio longer than
+    `max_length_seconds` (0: keep all) and the utterances
+    `preprocess_utterance` drops."""
+    from rnnt_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    for audio, sr, text in utterances:
+        if max_length_seconds > 0 and len(audio) > sr * max_length_seconds:
+            continue
+        ex = preprocess_utterance(audio, sr, text, tokenizer, cfg, dev)
+        if ex is not None:
+            yield ex
+
+
+_PP_STATE: Dict = {}  # per-worker-process preprocessing context
+
+
+def _pp_worker_init(sidecar_dir: str, token_type: str, vocab_size: int,
+                    max_length_seconds: float) -> None:
+    from rnnt_tpu_torch.data.tokenizer import get_tokenizer
+
+    _PP_STATE["tok"] = get_tokenizer(sidecar_dir, token_type, vocab_size)
+    _PP_STATE["max_s"] = max_length_seconds
+
+
+def _pp_read(pair) -> Optional[Tuple[np.ndarray, int, np.ndarray]]:
+    """Worker body: read, decode and tokenise one (audio_path, transcript);
+    None for audio over the length limit.  A read error propagates."""
+    from rnnt_tpu_torch.data import audio_io
+
+    path, text = pair
+    audio, sr = audio_io.read_audio(path)
+    if _PP_STATE["max_s"] > 0 and len(audio) > sr * _PP_STATE["max_s"]:
+        return None
+    return audio, sr, np.asarray(_PP_STATE["tok"].encode(text), np.int32)
+
+
+def preprocess_corpus_parallel(file_text_pairs, sidecar_dir: str,
+                               cfg: RNNTConfig, *, workers: int,
+                               max_length_seconds: float = 0.0,
+                               device="cuda") -> Iterator[Dict]:
+    """Featurise a corpus of (audio_path, transcript) pairs with a pool of
+    `workers` spawned processes that read, decode and tokenise, while this
+    process featurises each example on `device`.
+
+    Ordered `imap` keeps the example order of the serial path, and the
+    featuriser runs in this process on the same device, so the shards are
+    byte-identical to `preprocess_corpus`'s.  The tokenizer sidecar must
+    already be saved under `sidecar_dir` (the preprocess CLIs write it
+    before the split loop)."""
+    import multiprocessing as mp
+
+    from rnnt_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    ctx = mp.get_context("spawn")
+    with ctx.Pool(workers, initializer=_pp_worker_init,
+                  initargs=(sidecar_dir, cfg.token_type, cfg.vocab_size,
+                            max_length_seconds)) as pool:
+        for item in pool.imap(_pp_read, file_text_pairs, chunksize=4):
+            if item is None:
+                continue
+            ex = _featurise(*item, cfg, dev)
+            if ex is not None:
+                yield ex
 
 
 def _round_up(n: int, sizes: Sequence[int]) -> int:

@@ -296,7 +296,8 @@ def beam_search_encoded_plain(model: Transducer, encoded: torch.Tensor,
                               max_output_length: int,
                               expansions_per_frame: int,
                               merge_duplicates: bool = True,
-                              stats: Optional[dict] = None):
+                              stats: Optional[dict] = None,
+                              follow: Optional[dict] = None):
     """The plain search from encoder output [B, T', P] and lengths [B].
 
     Returns (best tokens [B, L] int32, best lengths [B] int32, beam scores
@@ -306,18 +307,27 @@ def beam_search_encoded_plain(model: Transducer, encoded: torch.Tensor,
     candidates among its top K+1 (where another implementation first picks
     otherwise, a gap below the two sides' score difference explains it);
     "min_gap", the smallest of them all; and "merges", the number of
-    duplicate-prefix merges."""
+    duplicate-prefix merges.
+
+    With `follow`, another search's trace (the kernel's), the search takes
+    that trace's picks at every selection, in its order, instead of its own
+    top K: it scores the other search's path.  `stats` then also holds
+    "own" [S, B, K], the picks it would have made, and "slack" [S, B], how
+    far the picks it was made to take fall below its own top K (the
+    largest difference between its own sorted top-K values and the sorted
+    values of those picks; 0 where they are the same set)."""
     return _search(model, _PlainWeights(model), encoded, enc_lengths,
                    beam_width=beam_width, max_output_length=max_output_length,
                    expansions_per_frame=expansions_per_frame,
-                   merge_duplicates=merge_duplicates, stats=stats)
+                   merge_duplicates=merge_duplicates, stats=stats,
+                   follow=follow)
 
 
 def _search(model, w, encoded, enc_lengths, *, beam_width,
             max_output_length, expansions_per_frame, merge_duplicates,
-            stats):
+            stats, follow=None):
     """The search over encoder output with the steps `w` (joint_fj,
-    joint_logp, advance)."""
+    joint_logp, advance); with `follow`, along another trace's picks."""
     B, T, P = encoded.shape
     K, L, E = beam_width, max_output_length, expansions_per_frame
     V = model.cfg.vocab_size
@@ -330,12 +340,35 @@ def _search(model, w, encoded, enc_lengths, *, beam_width,
                  for c, h in state0])
     enc_lengths = enc_lengths.to(dev)
     trace = {"idx": [], "val": [], "gap": []}
+    if follow is not None:
+        trace.update(own=[], slack=[])
+    n_sel = [0]
 
-    def record(idx, vals):
+    def choose(flat, to_trace, from_trace):
+        """Own top K of flat [B, M]; with `follow`, that trace's picks at
+        this selection instead (indices mapped to and from the trace's
+        layout).  Records the selection; returns (values, indices)."""
+        vals, top = _select(flat, K)
+        own = to_trace(top)
+        if follow is None:
+            picked, idx = vals[:, :K], top
+        else:
+            theirs = follow["idx"][n_sel[0]].to(dev).long()
+            idx = torch.clamp(from_trace(theirs), 0, flat.shape[1] - 1)
+            picked = flat.gather(1, idx)
+        n_sel[0] += 1
         if stats is not None:
-            trace["idx"].append(idx.to(torch.int32))
-            trace["val"].append(vals[:, :K])
+            trace["idx"].append(to_trace(idx).to(torch.int32))
+            trace["val"].append(picked)
             trace["gap"].append(_gaps(vals))
+            if follow is not None:
+                mine = vals[:, :K]
+                short = torch.sort(picked, dim=1, descending=True).values
+                slack = torch.where(mine > NEG / 2, mine - short,
+                                    torch.zeros_like(mine))
+                trace["own"].append(own.to(torch.int32))
+                trace["slack"].append(slack.max(dim=1).values.clamp(min=0))
+        return picked, idx
 
     merges = torch.zeros((), dtype=torch.long, device=dev)
     n_frames = min(T, int(enc_lengths.max())) if B else 0
@@ -350,10 +383,12 @@ def _search(model, w, encoded, enc_lengths, *, beam_width,
             cand = expanding.scores[..., None] + logp[..., 1:]  # [B, K, V-1]
             cand = torch.where((expanding.lengths >= L)[..., None],
                                torch.full_like(cand, NEG), cand)
-            vals, top = _select(cand.reshape(B, K * (V - 1)), K)
-            top_sc = vals[:, :K]
+            # the trace indexes label moves over [K, V] (parent, label)
+            top_sc, top = choose(
+                cand.reshape(B, K * (V - 1)),
+                lambda i: i // (V - 1) * V + i % (V - 1) + 1,
+                lambda i: i // V * (V - 1) + torch.clamp(i % V - 1, min=0))
             labels = top % (V - 1) + 1
-            record(top // (V - 1) * V + labels, vals)
             parent = _gather(expanding, top // (V - 1))
             slot = torch.clamp(parent.lengths, max=L - 1)
             tokens = parent.tokens.scatter(2, slot[..., None],
@@ -371,8 +406,7 @@ def _search(model, w, encoded, enc_lengths, *, beam_width,
                 settled = settled._replace(scores=s_sc)
                 merges = merges + n
             pool = _concat(settled, expanding._replace(scores=blanked))
-            vals, top = _select(pool.scores, K)
-            record(top, vals)
+            _, top = choose(pool.scores, lambda i: i, lambda i: i)
             settled = _gather(pool, top)
         # frames at or past an utterance's length keep its beam
         def keep(new, old):
@@ -390,6 +424,9 @@ def _search(model, w, encoded, enc_lengths, *, beam_width,
         else:
             stats.update(idx=torch.zeros((0, B, K), dtype=torch.int32),
                          val=torch.zeros((0, B, K)), gap=torch.zeros((0, B)))
+            if follow is not None:
+                stats.update(own=torch.zeros((0, B, K), dtype=torch.int32),
+                             slack=torch.zeros((0, B)))
         stats["min_gap"] = float(stats["gap"].min()) \
             if stats["gap"].numel() else float("inf")
         stats["merges"] = int(merges)

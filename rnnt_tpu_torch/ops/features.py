@@ -62,30 +62,35 @@ def num_frames(n_samples: int, cfg: RNNTConfig) -> int:
 
 def stft_magnitude(audio: torch.Tensor, frame_length: int, frame_step: int,
                    fft_length: int) -> torch.Tensor:
-    """|STFT| of mono audio [N] -> [num_frames, fft_length // 2 + 1]."""
+    """|STFT| of mono audio [N] -> [num_frames, fft_length // 2 + 1], in
+    the audio's floating dtype."""
     n = audio.shape[-1]
     nf = max(0, 1 + (n - frame_length) // frame_step)
     if nf == 0:  # below one frame; an empty batch is no FFT input
-        return torch.zeros((0, fft_length // 2 + 1), device=audio.device)
+        return torch.zeros((0, fft_length // 2 + 1), dtype=audio.dtype,
+                           device=audio.device)
     idx = (torch.arange(nf, device=audio.device)[:, None] * frame_step
            + torch.arange(frame_length, device=audio.device)[None, :])
     frames = audio[idx]
-    k = torch.arange(frame_length, dtype=torch.float32, device=audio.device)
+    k = torch.arange(frame_length, dtype=audio.dtype, device=audio.device)
     window = 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / frame_length)
     spec = torch.fft.rfft(frames * window, n=fft_length, dim=-1)
-    return spec.abs().to(torch.float32)
+    return spec.abs()
 
 
-def log_mel_plain(audio: torch.Tensor, cfg: RNNTConfig) -> torch.Tensor:
-    """Plain version of the frontend kernel: audio [N] float32 ->
-    log-mel [num_frames, mel_bins] before mean subtraction."""
-    audio = audio.to(torch.float32)
+def log_mel_plain(audio: torch.Tensor, cfg: RNNTConfig,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the frontend kernel: audio [N] -> log-mel
+    [num_frames, mel_bins] before mean subtraction, computed in `dtype`
+    (float32, as the port runs it; float64 gives the function to ~1e-12,
+    the yardstick for the kernel's rounding at near-silent bins)."""
+    audio = audio.to(dtype)
     flen = cfg.frame_length_samples
     fft_length = next_pow2(flen)
     mag = stft_magnitude(audio, flen, cfg.frame_step_samples, fft_length)
     mel_mat = torch.from_numpy(mel_weight_matrix(
         cfg.mel_bins, fft_length // 2 + 1, cfg.sample_rate, cfg.hertz_low,
-        cfg.hertz_high)).to(audio.device)
+        cfg.hertz_high)).to(audio.device, dtype)
     return torch.log(mag @ mel_mat + 1e-6)
 
 

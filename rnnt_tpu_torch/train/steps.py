@@ -5,8 +5,10 @@ when the batch carries `loss_weight` (repeat-padded filler rows weigh 0),
 else the mean nll.  "fused" runs the fused joint + loss (kernels K6 and K7,
 with the encoder and prediction LSTMs in K4 and K5 when training); "ref"
 and "pallas" materialise the [B, T', U+1, V] logits and run the loss with
-the plain lattice or kernel K7.  The train step threads the BatchNorm
-running statistics back into the parameters after the update.
+the plain lattice or kernel K7.  A training batch given a generator gets
+the configured input noise, then SpecAugment (`ops.specaug`), on its own
+device, before any loss path.  The train step threads the BatchNorm running
+statistics back into the parameters after the update.
 """
 
 from __future__ import annotations
@@ -33,10 +35,6 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
         raise NotImplementedError(
             f"loss_impl={loss_impl!r} is not yet ported (the PyTorch port "
             f"has {', '.join(LOSS_IMPLS)})")
-    if training and (cfg.specaug_freq_masks > 0 or cfg.specaug_time_masks > 0):
-        raise NotImplementedError(
-            "SpecAugment is not yet ported to the PyTorch port; set "
-            "specaug_freq_masks=0 and specaug_time_masks=0")
     if model.int8_names():
         raise ValueError(
             "int8 weights (int8 execution) cannot feed the RNN-T loss: the "
@@ -47,6 +45,16 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
     if training and cfg.input_noise_stddev > 0 and generator is not None:
         mel = mel + cfg.input_noise_stddev * torch.randn(
             mel.shape, generator=generator, device=mel.device, dtype=mel.dtype)
+    if training and generator is not None and (
+            cfg.specaug_freq_masks > 0 or cfg.specaug_time_masks > 0):
+        from rnnt_tpu_torch.ops.specaug import spec_augment
+
+        mel = spec_augment(
+            generator, mel, batch["spec_lengths"], mel_bins=cfg.mel_bins,
+            freq_masks=cfg.specaug_freq_masks,
+            freq_width=cfg.specaug_freq_width,
+            time_masks=cfg.specaug_time_masks,
+            time_width=cfg.specaug_time_width)
     if loss_impl == "fused":
         from rnnt_tpu_torch.ops.joint_loss_fused import transducer_loss_fused
 

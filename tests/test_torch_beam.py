@@ -181,15 +181,52 @@ def test_beam_gate_holds_plain_and_rejects_swapped_w2(sharp):
     _, _, tm, enc = sharp
     e, lens = torch.from_numpy(enc), torch.from_numpy(LENS)
     kw = dict(beam_width=3, max_output_length=L, expansions_per_frame=2)
-    stats, stats2, stats3 = {}, {}, {}
-    want = TB.beam_search_encoded_plain(tm, e, lens, stats=stats, **kw)
+    stats2, stats3 = {}, {}
     got = TB.beam_search_encoded_plain(tm, e, lens, stats=stats2, **kw)
+    want, stats = chip_smoke.plain_along(tm, e, lens, stats2, kw)
     V = CFG.vocab_size
     fails, notes, _, rel = chip_smoke.gate_beam(got, stats2, want, stats,
                                                 lens, 2, V, 1e-4)
     assert fails == [] and notes == [] and rel == 0.0
     with chip_smoke.swapped_w2_halves(tm):
         bad = TB.beam_search_encoded_plain(tm, e, lens, stats=stats3, **kw)
+    want, stats = chip_smoke.plain_along(tm, e, lens, stats3, kw)
     fails, _, _, _ = chip_smoke.gate_beam(bad, stats3, want, stats, lens, 2,
                                           V, 1e-2)
     assert any("not a near tie" in f for f in fails), fails
+
+
+@pytest.mark.parametrize("K,E", [(4, 1), (3, 3)])
+def test_follow_scores_another_searchs_path(sharp, K, E):
+    """`follow`: along its own trace the search reproduces itself (slack
+    0); along the trace of a search on other weights it takes that search's
+    picks and tokens, scores them on its own weights, and its slack shows
+    the selections where they leave its own top K."""
+    jm, params, tm, enc = sharp
+    tok, ln, sc, stats = _port(tm, enc, LENS, K, E, True)
+    kw = dict(beam_width=K, max_output_length=L, expansions_per_frame=E)
+    again = {}
+    tok2, ln2, sc2 = TB.beam_search_encoded_plain(
+        tm, torch.from_numpy(enc), torch.from_numpy(LENS), stats=again,
+        follow=stats, **kw)
+    np.testing.assert_array_equal(tok2.numpy(), tok)
+    np.testing.assert_array_equal(sc2.numpy(), sc)
+    assert torch.equal(again["idx"], stats["idx"])
+    assert torch.equal(again["own"], stats["idx"])
+    assert float(again["slack"].max()) == 0.0
+
+    other = TB.beam_search_encoded_plain  # the same search, other weights
+    tm2 = torch_model(CFG, sharpen_joint(init_transducer_params(
+        jax.random.PRNGKey(4), CFG)))
+    theirs = {}
+    tok3, ln3, _ = other(tm2, torch.from_numpy(enc), torch.from_numpy(LENS),
+                         stats=theirs, **kw)
+    mine = {}
+    tok4, ln4, _ = TB.beam_search_encoded_plain(
+        tm, torch.from_numpy(enc), torch.from_numpy(LENS), stats=mine,
+        follow=theirs, **kw)
+    np.testing.assert_array_equal(ln4.numpy(), ln3.numpy())
+    np.testing.assert_array_equal(tok4.numpy(), tok3.numpy())
+    assert torch.equal(mine["idx"], theirs["idx"])
+    assert float(mine["slack"].max()) > 0.1
+    assert not torch.equal(mine["own"], mine["idx"])

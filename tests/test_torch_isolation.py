@@ -39,6 +39,13 @@ import rnnt_tpu_torch.ops.int8_exec, rnnt_tpu_torch.ops.quantize
 import rnnt_tpu_torch.native, rnnt_tpu_torch.native.build
 import rnnt_tpu_torch.native.flac, rnnt_tpu_torch.native.loss
 import rnnt_tpu_torch.cli.quantize_model
+import rnnt_tpu_torch.data.tokenizer, rnnt_tpu_torch.data.common_voice
+import rnnt_tpu_torch.ops.specaug, rnnt_tpu_torch.cli.preprocess
+import rnnt_tpu_torch.cli.preprocess_librispeech
+import rnnt_tpu_torch.cli.preprocess_common_voice
+import rnnt_tpu_torch.cli.debug_dataset, rnnt_tpu_torch.cli.corpus_stats
+import rnnt_tpu_torch.cli.remove_missing_samples
+import rnnt_tpu_torch.cli.convert_common_voice
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
@@ -80,6 +87,14 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quantize_model.main(["--checkpoint", str(tmp_path)])
+    from rnnt_tpu_torch.cli import preprocess_common_voice, \
+        preprocess_librispeech
+
+    for cli in (preprocess_librispeech, preprocess_common_voice):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--data_dir", str(tmp_path),
+                      "--output_dir", str(tmp_path / "out")])
+        assert not (tmp_path / "out").exists()
     cfg = tiny_config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_train_state(cfg)

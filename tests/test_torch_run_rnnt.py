@@ -83,17 +83,11 @@ def test_train_then_resume_then_test(data_dir, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--model_parallel", "2"], ["--multihost"], ["--ckpt_backend", "orbax"],
-    ["--loss_impl", "banded"], ["--profile_dir", "prof"]])
+    ["--loss_impl", "banded"]])
 def test_unported_flags_are_refused(flags, capsys):
     with pytest.raises(SystemExit):
         run_rnnt.parse_args(["--data_dir", "d", *flags])
     assert "not yet ported" in capsys.readouterr().err
-
-
-def test_specaugment_is_refused(data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
-        run_rnnt.main(_argv("train", data_dir, output_dir=str(tmp_path / "r"),
-                            config_override="specaug_time_masks=2"))
 
 
 @pytest.fixture
