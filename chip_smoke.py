@@ -71,7 +71,22 @@ worst case.
    K6's kernels); and SpecAugment on a B=8 batch of those features on the
    card in fp32 and bf16 (whole frames and whole bins, in every stacked
    copy, set to zero; padding never masked; the rest untouched; equal to
-   the CPU's masks from the same draws);
+   the CPU's masks from the same draws); then export and the banded loss:
+   `export_transcribe`, cli.export_model on the run directory (fp32,
+   frozen, --batch 1 --frames 512 --max_output_length 200 --check; it
+   writes the streaming step too), then `export.load_artifact` of the
+   transcribe .pt2 called on the 15 s request's log-mel (its call must
+   launch K2, every launch FMA, no call of K2's plain version, and give the
+   live eager greedy decode's tokens and lengths; export, load and call
+   times and each .pt2's size printed); `export_streaming`, the streaming
+   step's .pt2 loaded and run over the 5 s request's log-mel in chunks of
+   4 stacked frames from `streaming_init_state` (tokens, n and every state
+   tensor equal to the live chunked decode's at every chunk, K2 launched
+   by every chunk, all FMA); the host cost of K2's registered operator
+   over a direct wrapper call; `train_banded`, cli.run_rnnt --loss_impl
+   banded on its own synthetic shards, 2 bf16 steps at B=32 and one eval
+   batch (finite losses, an eval line, a checkpoint restored, per step 10
+   K4 (MMA) and 10 K5 launches, one K6 (WGMMA) and one K7 (warp));
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4 at
    each request's audio, at every chunk length of the TCP stream, at 8 kHz
@@ -124,7 +139,17 @@ worst case.
    untouched; and one whole fp32 train step at the parity width (B=32,
    T=256, U=64) through K4-K7 on the card against the same step on the CPU
    (every wrapper's plain version): loss <= 1e-4 and every gradient <= 1e-3
-   relative error;
+   relative error; the banded loss at the train shapes (B=32, T'=128,
+   U+1=65, band 32): K6 at the banded row shapes (512 rows of 8 x 32
+   cells) against its plain planes (fp32 FMA <= 1e-4, bf16 WGMMA <=
+   PLANES_BF16_TOL, inputs untouched), K7 over the banded, mostly NEG
+   planes against the plain scans (finite, the same reachable cells,
+   <= 1e-5 on them), a band >= U+1 equal to the fused loss (fp32: loss
+   1e-5, gradients 1e-4 relative), at band 32 the NLL >= the exact NLL -
+   1e-4 for every utterance and loss and gradients within 1e-4 and 1e-3 of
+   the same function on the host CPU, a fully pruned utterance at 1e9 with
+   exactly zero gradient rows; and a bf16 train step fused against banded
+   at B=32 timed in turns;
 5. profiles each request's encoder, greedy decode and beam decode with
    torch.profiler: wall time and device busy time on the profiler's one
    clock (the wall between two marker kernels launched just before and
@@ -147,9 +172,11 @@ worst case.
    version's op chain as `composite_ms`, for K7 also at B=96 and at the
    edge widths; for K2, K4 and K5 the cuDNN yardstick's median, minimum and
    maximum of 30 runs and the launches by design, for K2 also the time of
-   a one-step launch and at B=32, T=256 and each case's design, for K4 and
+   a one-step launch and at B=32, T=256 and each case's design and the
+   export paths' record, for K4 and
    K5 also the time at B=96; for K6 the time, bound and cuBLAS product
-   at B=96, the W2 packing's own time and the launches by design; for K3
+   at B=96, the W2 packing's own time, the time and bound at the banded
+   rows, the fused and banded train steps and the launches by design; for K3
    also the
    weight traffic of re-reading the weights at every product, and its time
    split over the phases of a search from the timed build: block 0's, the
@@ -3014,6 +3041,406 @@ def check_loss_oracle(paths, seed, B=4, T=64, U=32, J=640, V=4096):
             f"disagrees with the OpenMP oracle: loss {err}, grads {errs}")
 
 
+# ------------------------------------------ export and the banded loss
+
+EXPORT_MAX_OUT = 200  # the transcribe artifact's max_output_length
+EXPORT_CHUNK, EXPORT_CHUNK_TOKENS = 4, 64  # the streaming step's
+
+
+@contextlib.contextmanager
+def count_plain_k2():
+    """Counts the calls of K2's plain version while in use (the port calls
+    it only for CPU tensors; an exported path on the card must make none).
+    Yields the list of counts, one entry a call."""
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    plain, calls = lstm_cuda.lstm_seq_infer_plain, []
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    lstm_cuda.lstm_seq_infer_plain = counted
+    try:
+        yield calls
+    finally:
+        lstm_cuda.lstm_seq_infer_plain = plain
+
+
+def k2_launches():
+    """(K2 launches, K2 FMA launches) so far."""
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    k2 = lstm_cuda.lstm_seq_infer
+    return k2.launches, k2.launches_by_design["fma"]
+
+
+def synced_s(fn):
+    """(fn()'s result, its host seconds ending in a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_export_transcribe(model32, mel_p, t, device="cuda"):
+    """The `export_transcribe` path: cli.export_model on the run directory
+    (fp32, frozen, --batch 1 --frames 512 --max_output_length 200 --check,
+    which also writes the streaming step), then `load_artifact` of the
+    transcribe .pt2 and a call on the 15 s request's log-mel.  The call must
+    launch K2, every launch on its fp32 FMA design, make no call of K2's
+    plain version, and give the tokens and lengths of the live eager
+    `greedy_decode` on the same input.  Returns a record of export, load
+    and call times, the artifacts' sizes and the launches."""
+    import torch
+
+    from rnnt_tpu_torch import export as ex
+    from rnnt_tpu_torch.cli import export_model
+    from rnnt_tpu_torch.decode.greedy import greedy_decode
+
+    out = os.path.join(RUN_DIR, "export")
+    with count_plain_k2() as plain:
+        t0 = time.perf_counter()
+        lines, _ = run_main("export_model", export_model.main, [
+            "--checkpoint", RUN_DIR, "--output", out, "--batch", "1",
+            "--frames", str(mel_p.shape[1]), "--max_output_length",
+            str(EXPORT_MAX_OUT), "--chunk_frames", str(EXPORT_CHUNK),
+            "--max_tokens_per_chunk", str(EXPORT_CHUNK_TOKENS), "--device",
+            device, "--check"])
+        export_s = time.perf_counter() - t0
+        require(any("parity: OK" in line for line in lines),
+                "export_model --check did not report parity")
+        path = os.path.join(out, "transcribe.pt2")
+        artifact, load_s = synced_s(lambda: ex.load_artifact(path).module())
+        lens = torch.tensor([t], dtype=torch.int32, device=device)
+        k2_before = k2_launches()
+        with torch.no_grad():
+            got, call_s = synced_s(lambda: artifact(mel_p, lens))
+            k2_after = k2_launches()
+            times = [synced_s(lambda: artifact(mel_p, lens))[1]
+                     for _ in range(2)]
+            want, eager_s = synced_s(lambda: greedy_decode(
+                model32, mel_p, lens, max_output_length=EXPORT_MAX_OUT))
+            eager = [synced_s(lambda: greedy_decode(
+                model32, mel_p, lens, max_output_length=EXPORT_MAX_OUT))[1]
+                for _ in range(2)]
+    launches = k2_after[0] - k2_before[0]
+    fma = k2_after[1] - k2_before[1]
+    rec = {"export_and_check_s": export_s, "load_s": load_s,
+           "pt2_bytes": {n: os.path.getsize(os.path.join(out, f"{n}.pt2"))
+                         for n in ("transcribe", "streaming_step")},
+           "artifact_call_ms": [call_s * 1e3] + [s * 1e3 for s in times],
+           "eager_greedy_ms": [eager_s * 1e3] + [s * 1e3 for s in eager],
+           "tokens": int(got[1][0]), "k2_launches_by_the_call": launches,
+           "k2_fma_launches_by_the_call": fma, "plain_k2_calls": len(plain)}
+    log("export_transcribe " + json.dumps(rec))
+    require(launches > 0 and fma == launches,
+            f"the transcribe artifact's K2 launches: {launches}, {fma} FMA")
+    require(not plain, f"{len(plain)} calls of K2's plain version")
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "the transcribe artifact's tokens differ from the live greedy "
+            "decode's")
+    return rec
+
+
+def drive_export_streaming(model32, cfg, mel, device="cuda"):
+    """The `export_streaming` path: `load_artifact` of the streaming step
+    that `export_transcribe` wrote (4 stacked frames a chunk, at most 64
+    tokens), then the 5 s request's log-mel [T, F] chunk by chunk from
+    `streaming_init_state`: tokens, n and every state tensor equal to the
+    live chunked decode (`encode` with state, then `greedy_decode_encoded`
+    with carry) at every chunk, and K2 launched by every chunk (every
+    launch FMA), no call of K2's plain version.  Returns a record."""
+    import torch
+
+    from rnnt_tpu_torch import export as ex
+    from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
+
+    path = os.path.join(RUN_DIR, "export", "streaming_step.pt2")
+    with count_plain_k2() as plain:
+        step, load_s = synced_s(lambda: ex.load_artifact(path).module())
+        enc_state, pred_state = ex.streaming_init_state(cfg, device=device)
+        carry = ex.start_carry(model32, pred_state)
+        enc_live, pred_live = ex.streaming_init_state(cfg, device=device)
+        carry_live = ex.start_carry(model32, pred_live)
+        n_chunks = mel.shape[0] // EXPORT_CHUNK
+        chunk_ms, live_ms, tokens = [], [], 0
+        for i in range(n_chunks):
+            m = mel[i * EXPORT_CHUNK: (i + 1) * EXPORT_CHUNK].contiguous()
+            before = k2_launches()
+            with torch.no_grad():
+                (tok, n, enc_state, carry), s = synced_s(
+                    lambda: step(m, enc_state, carry))
+            after = k2_launches()
+            chunk_ms.append(s * 1e3)
+            require(after[0] > before[0] and after[1] - before[1]
+                    == after[0] - before[0],
+                    f"chunk {i}: K2 launches {after} after {before}")
+
+            def live():
+                enc, st = model32.encode(m[None], state=enc_live)
+                tk, n_live, cr = greedy_decode_encoded(
+                    model32, enc, torch.full((1,), enc.shape[1],
+                                             device=device),
+                    max_output_length=EXPORT_CHUNK_TOKENS, carry=carry_live)
+                return tk, n_live, st, cr
+
+            with torch.no_grad():
+                (tk, n_live, enc_live, carry_live), s = synced_s(live)
+            live_ms.append(s * 1e3)
+            require(int(n) == int(n_live[0]) and torch.equal(
+                tok[: int(n)], tk[0, : int(n)]),
+                f"chunk {i}: tokens differ from the live decode")
+            got = [x for st in enc_state for x in st] + [carry[0]] + [
+                x for st in carry[1] for x in st]
+            want = [x for st in enc_live for x in st] + [carry_live[0]] + [
+                x for st in carry_live[1] for x in st]
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"chunk {i}: a state tensor differs from the live "
+                    "decode's")
+            tokens += int(n)
+    rec = {"load_s": load_s, "chunks": n_chunks, "tokens": tokens,
+           "chunk_ms_median": statistics.median(chunk_ms),
+           "chunk_ms_max": max(chunk_ms),
+           "live_chunk_ms_median": statistics.median(live_ms),
+           "plain_k2_calls": len(plain)}
+    log("export_streaming " + json.dumps(rec))
+    require(not plain, f"{len(plain)} calls of K2's plain version")
+    return rec
+
+
+def k2_operator_cost(model, batches=5, calls=200):
+    """The host time a call of K2's registered operator (`ops.library`, the
+    route an exported graph records) adds to a direct call of the wrapper
+    (the eager route), at a greedy prediction-net step's shape (B=1, T=1,
+    the prediction net's layer 0): the enqueue time of `calls` calls each
+    way in turns, each batch ended by a synchronize, the least of
+    `batches`.  Returns {route: us a call}."""
+    import torch
+
+    from rnnt_tpu_torch.models.lstm import matmul_to
+    from rnnt_tpu_torch.ops import library, lstm_cuda
+
+    lstm = model.prediction.layers[0].lstm
+    dt = lstm.wh.dtype
+    x = model.prediction.embed[:1].to(dt)
+    xp = matmul_to(x, lstm.wx, dt).reshape(1, 1, -1)
+    c0, h0 = lstm.zero_state(1)
+    args = (xp, lstm.wh, lstm.wp, lstm.bias, h0, c0)
+    best = {}
+    for _ in range(batches):
+        for name, fn in (("wrapper", lstm_cuda.lstm_seq_infer),
+                         ("operator", library.lstm_seq_infer)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            us = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+            best[name] = min(best.get(name, us), us)
+    log(f"K2 one-step call, host enqueue: wrapper {best['wrapper']:.2f} us, "
+        f"through the registered operator {best['operator']:.2f} us")
+    return best
+
+
+def time_banded_step(cfg, seed, device="cuda", reps=3):
+    """A bf16 train step (make_train_step) at the train_cli shapes (B=32,
+    T=256 stacked frames, U=64, full-length rows) with the fused and the
+    banded loss (band cfg.loss_band), in turns on one state: median host
+    ms of each, every step ending in a read of its loss."""
+    import torch
+
+    from rnnt_tpu_torch.train.state import create_train_state
+    from rnnt_tpu_torch.train.steps import make_train_step
+
+    state = create_train_state(cfg, torch.bfloat16, device, seed)
+    batch = random_batch(cfg, TRAIN_BATCH, 256, 64, device, seed)
+    steps = {impl: make_train_step(cfg, loss_impl=impl)
+             for impl in ("fused", "banded")}
+    times = {impl: [] for impl in steps}
+    for impl in ("fused", "banded") + ("fused", "banded", "banded",
+                                        "fused") * reps:
+        (loss, s) = synced_s(lambda: float(steps[impl](state, batch)["loss"]))
+        require(np.isfinite(loss), f"{impl} step loss {loss}")
+        times[impl].append(s * 1e3)
+    rec = {impl: statistics.median(t[1:]) for impl, t in times.items()}
+    rec["band"] = cfg.loss_band
+    log(f"train step B={TRAIN_BATCH} T=256 U=64 bf16, fused vs banded "
+        f"(median of {2 * reps} each, after a warm-up): {json.dumps(rec)}")
+    return rec
+
+
+BANDED_B, BANDED_T, BANDED_U1, BAND = 32, 128, 65, 32  # the train shapes
+BANDED_STEPS = 2  # the train_banded path's run
+
+
+def banded_problem(cfg, device, seed, pruned_row=None):
+    """The banded loss's inputs at the train shapes in fp32 (f, g, b1, W2,
+    b2 from `planes_inputs`, labels [B, U], ragged frame and label
+    lengths); with `pruned_row`, that row gets 10 frames for 64 labels,
+    too steep for a band of 32 (every path pruned)."""
+    import torch
+
+    f, g, y, b1, w2, b2 = planes_inputs(cfg, BANDED_B, BANDED_T, BANDED_U1,
+                                        device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    fl = torch.randint(BANDED_T - 28, BANDED_T + 1, (BANDED_B,),
+                       generator=gen, device=device)
+    yl = torch.randint(BANDED_U1 - 26, BANDED_U1, (BANDED_B,), generator=gen,
+                       device=device)
+    if pruned_row is not None:
+        fl[pruned_row], yl[pruned_row] = 10, BANDED_U1 - 1
+    return [f, g, b1, w2, b2], y[:, :-1].contiguous(), fl, yl
+
+
+def banded_loss_and_grads(params, labels, fl, yl, band, device):
+    """The banded loss (or the fused one, band None) and the gradients of
+    its sum for f, g, b1, W2, b2, on `device`."""
+    import torch
+
+    from rnnt_tpu_torch.ops.joint_loss_banded import rnnt_loss_banded
+    from rnnt_tpu_torch.ops.joint_loss_fused import rnnt_loss_fused
+
+    ps = [p.detach().to(device).requires_grad_(True) for p in params]
+    rest = [x.to(device) for x in (labels, fl, yl)]
+    loss = (rnnt_loss_fused(*ps, *rest) if band is None
+            else rnnt_loss_banded(*ps, *rest, band=band))
+    grads = torch.autograd.grad(loss.sum(), ps)
+    return loss.detach(), [x.detach() for x in grads]
+
+
+def check_banded(cfg, device="cuda", seed=21):
+    """The banded loss's gates on the card at the train shapes (B=32,
+    T'=128, U+1=65, J=640, V=4096, ragged lengths): K6 at the banded row
+    shapes ([B nT, 8, W] rows of f, the label windows of g and y, W = 32)
+    against its plain planes, fp32 (FMA) <= 1e-4 and bf16 (WGMMA) <=
+    PLANES_BF16_TOL, inputs untouched; K7 over the banded (mostly NEG) b/e
+    planes against the plain scans: finite everywhere, the same reachable
+    cells, alpha and beta there and ll within LATTICE_TOL; a band >= U+1
+    equal to the fused loss in fp32 (loss 1e-5, each gradient 1e-4
+    relative); at band 32 with one fully pruned utterance: the NLL >= the
+    exact NLL - 1e-4 for every utterance, loss and gradients within 1e-4
+    and 1e-3 of the same function on the host CPU (every wrapper's plain
+    version), the pruned utterance's loss 1e9 and its f and g gradient rows
+    exactly zero, nothing NaN.  Returns K6's banded-row record."""
+    import torch
+
+    from rnnt_tpu_torch.ops import joint_loss_banded as JB
+    from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda, rnnt_loss_ref
+    from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG
+
+    params, labels, fl, yl = banded_problem(cfg, device, seed, pruned_row=7)
+    f, g, b1, w2, b2 = params
+    W = BAND
+    U1p = -(-BANDED_U1 // 8) * 8
+    g_p = torch.nn.functional.pad(g, (0, 0, 0, U1p - BANDED_U1))
+    y_p = torch.nn.functional.pad(labels, (0, U1p - 1 - labels.shape[1]))
+    u0 = JB.band_starts(fl, yl, BANDED_T, U1p, W)
+    rows32 = JB.banded_rows(f, g_p, rnnt_loss_ref.pad_labels(y_p), u0,
+                            W) + (b1, w2, b2)
+    n_rows = rows32[0].shape[0]
+    what = f"banded rows [{n_rows}, 8, {W}]"
+    err32, _ = planes_case(rows32, 1e-4, "fma", what + " fp32")
+    rows16 = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
+                   for a in rows32)
+    err16, _ = planes_case(rows16, PLANES_BF16_TOL, "wgmma", what + " bf16")
+    J, V = cfg.joint_size, cfg.vocab_size
+    record = {
+        "shape_banded": f"rows [{n_rows}, 8, {W}] (B={BANDED_B} T'="
+                        f"{BANDED_T} U+1={BANDED_U1}, band {W}) J={J} V={V} "
+                        "bf16",
+        "ms_banded": cuda_ms(lambda: planes_cuda.joint_planes(*rows16),
+                             reps=10),
+        "bound_ms_banded": bound_of(*planes_cost(n_rows, 8, W, J, V, 2),
+                                    PEAK_BF16_FLOPS)["bound_ms"],
+        "max_abs_err_banded": {"float32": err32, "bfloat16": err16}}
+    log(f"K6 at the banded rows: {record['ms_banded']:.4f} ms (bound "
+        f"{record['bound_ms_banded']:.4f})")
+
+    # K7 over the banded planes (NEG outside the band)
+    _, b, e, _ = JB.banded_planes(f, g_p, b1, w2, b2, y_p, yl, u0, W)
+    kept = [x.clone() for x in (b, e)]
+    before = dict(lattice_cuda.lattice_scan.launches_by_design)
+    got = lattice_cuda.lattice_scan(b, e, fl, yl)
+    ran = [d for d, n in lattice_cuda.lattice_scan.launches_by_design.items()
+           if n > before[d]]
+    want = rnnt_loss_ref.lattice_scan_plain(b, e, fl, yl)
+    require(torch.equal(b, kept[0]) and torch.equal(e, kept[1]),
+            "K7 wrote into the banded planes")
+    require(ran == ["warp"], f"K7 on the banded planes ran {ran}")
+    require(all(torch.isfinite(x).all() for x in got),
+            "K7 on the banded planes: non-finite values")
+    t_idx = torch.arange(BANDED_T, device=device)[None, :, None]
+    u_idx = torch.arange(U1p, device=device)[None, None, :]
+    valid = (t_idx < fl[:, None, None]) & (u_idx <= yl[:, None, None])
+    rel = []
+    for k in (0, 1):
+        reach = valid & (want[k] > NEG / 2)
+        require(torch.equal(reach, valid & (got[k] > NEG / 2)),
+                "K7 on the banded planes: reachable cells differ")
+        rel.append(rel_err(got[k][reach], want[k][reach]))
+    alive = want[2] > NEG / 2
+    rel.append(rel_err(got[2][alive], want[2][alive]))
+    log(f"K7 on the banded planes ({ran}): rel err alpha {rel[0]:.3e} beta "
+        f"{rel[1]:.3e} ll {rel[2]:.3e}; {int(valid.sum())} valid cells, "
+        f"{int((valid & (want[0] > NEG / 2)).sum())} reachable; "
+        f"{int((~alive).sum())} utterance(s) fully pruned")
+    require(max(rel) <= LATTICE_TOL, f"K7 on the banded planes: {rel}")
+
+    # a band >= U+1 is exact
+    ok_params, ok_labels, ok_fl, ok_yl = banded_problem(cfg, device, seed + 2)
+    wide, wide_g = banded_loss_and_grads(ok_params, ok_labels, ok_fl, ok_yl,
+                                         BANDED_U1, device)
+    fused, fused_g = banded_loss_and_grads(ok_params, ok_labels, ok_fl,
+                                           ok_yl, None, device)
+    wide_rel = [rel_err(wide, fused)] + [rel_err(a, c)
+                                         for a, c in zip(wide_g, fused_g)]
+    log(f"banded loss, band {BANDED_U1} >= U+1 vs the fused loss (fp32): "
+        f"loss rel err {wide_rel[0]:.3e}, gradients f g b1 w2 b2 "
+        + " ".join(f"{r:.3e}" for r in wide_rel[1:]))
+    require(wide_rel[0] <= 1e-5 and max(wide_rel[1:]) <= 1e-4,
+            f"the wide band is not exact: {wide_rel}")
+
+    # band 32: an upper bound, the same function as on the CPU, a pruned row
+    k_loss, k_grads = banded_loss_and_grads(params, labels, fl, yl, BAND,
+                                            device)
+    exact, _ = banded_loss_and_grads(params, labels, fl, yl, None, device)
+    t0 = time.perf_counter()
+    c_loss, c_grads = banded_loss_and_grads(params, labels, fl, yl, BAND,
+                                            "cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = k_loss - exact
+    live = torch.arange(BANDED_B) != 7
+    loss_rel = rel_err(k_loss.cpu()[live], c_loss[live])
+    grad_rel = [rel_err(a.cpu(), c) for a, c in zip(k_grads, c_grads)]
+    log(f"banded loss, band {BAND} (fp32): NLL - exact NLL min "
+        f"{float(gap.min()):.4e} median {float(gap.median()):.4e}; vs the "
+        f"CPU ({cpu_s:.1f} s): loss rel err {loss_rel:.3e}, gradients "
+        + " ".join(f"{r:.3e}" for r in grad_rel)
+        + f"; pruned row loss {float(k_loss[7]):.6g}")
+    require(bool((gap >= -1e-4).all()),
+            f"the banded NLL undercuts the exact one: {float(gap.min())}")
+    require(loss_rel <= 1e-4 and max(grad_rel) <= 1e-3,
+            f"banded loss on the card vs the CPU: {loss_rel}, {grad_rel}")
+    require(float(k_loss[7]) == JB.PRUNED_LOSS == float(c_loss[7]),
+            f"the pruned utterance's loss {float(k_loss[7])}")
+    require(all(torch.isfinite(x).all() for x in k_grads)
+            and bool((k_grads[0][7] == 0).all())
+            and bool((k_grads[1][7] == 0).all()),
+            "the pruned utterance's gradient is not exactly zero")
+    return record
+
+
+def require_fma_k2(name, launches) -> None:
+    """Every K2 launch of an fp32 path ran the FMA design."""
+    d = launches["lstm_seq_infer_by_design"]
+    require(d["fma"] == launches["lstm_seq_infer"] > 0,
+            f"path {name}: K2 launches by design {d}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3132,6 +3559,19 @@ def main(argv=None) -> int:
         check_stream_kernels(model32, srv.service.tokenizer, audios[1])
         log(f"phase stream kernels vs plain: "
             f"{time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        export_rec, paths["export_transcribe"] = drive_path(
+            "export_transcribe", lambda: drive_export_transcribe(
+                model32, mel_long, t_long), ("lstm_seq_infer",))
+        mel5 = F.preprocess_audio(torch.from_numpy(audios[1]).cuda(), cfg)
+        export_rec["streaming"], paths["export_streaming"] = drive_path(
+            "export_streaming", lambda: drive_export_streaming(
+                model32, cfg, mel5), ("lstm_seq_infer",))
+        for name in ("export_transcribe", "export_streaming"):
+            require_fma_k2(name, paths[name])
+        export_rec["k2_call_host_us"] = k2_operator_cost(served)
+        k2["export_paths"] = export_rec
+        log(f"phase export paths: {time.perf_counter() - t_phase:.1f} s")
         del model32
         t_phase = time.perf_counter()
         train_kernels = ("lstm_fwd", "lstm_bwd", "lattice_scan")
@@ -3155,6 +3595,20 @@ def main(argv=None) -> int:
             train_kernels)
         require_train_launches("train_pallas_loss", paths["train_pallas_loss"],
                                1, 1, pallas=True)
+        t_banded = time.perf_counter()
+        data = os.path.join(TRAIN_DIR, "data_banded")
+        write_train_data(cfg, data, BANDED_STEPS * TRAIN_BATCH, TRAIN_BATCH,
+                         args.seed + 2)
+        _, paths["train_banded"] = drive_path(
+            "train_banded", lambda: run_train_cli(
+                data, os.path.join(TRAIN_DIR, "run_banded"), "banded",
+                BANDED_STEPS),
+            train_kernels + ("joint_planes", "lstm_seq_infer"))
+        require_train_launches("train_banded", paths["train_banded"],
+                               BANDED_STEPS, 1, pallas=False)
+        require_resident_k2("train_banded", paths["train_banded"])
+        log(f"path train_banded with its data: "
+            f"{time.perf_counter() - t_banded:.1f} s")
         log(f"phase training paths: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         timed, k3["bench_decode_inputs"] = drive_bench_entry_points(
@@ -3187,6 +3641,10 @@ def main(argv=None) -> int:
                                     for case, d in designs.items()
                                     if k["name"] in d}
         k6, planes32 = check_planes(cfg)
+        t_banded = time.perf_counter()
+        k6.update(check_banded(cfg))
+        k6["train_step_ms_fused_vs_banded"] = time_banded_step(cfg, args.seed)
+        log(f"banded loss gates: {time.perf_counter() - t_banded:.1f} s")
         k7 = check_lattice(planes32)
         k7["ms_by_wide_U1"] = check_lattice_wide()
         del planes32

@@ -15,9 +15,10 @@ prediction net's and joint's products run in int8, beam decoding searches
 with the XLA beam's counterpart, and no loss is reported (the loss paths
 read fp joint weights).  --profile_dir P wraps the mode's work in
 torch.profiler (CPU activities, and CUDA activities on the card) and
-writes a Chrome trace under P.  Not yet ported, and refused with an
-error: --model_parallel > 1, --multihost, --ckpt_backend orbax,
---loss_impl banded.
+writes a Chrome trace under P.  --loss_impl banded trains (and, in
+eval/test, scores) on the banded loss with the config's loss_band.  Not yet
+ported, and refused with an error: --model_parallel > 1, --multihost,
+--ckpt_backend orbax.
 """
 
 from __future__ import annotations
@@ -66,9 +67,13 @@ def parse_args(argv=None):
     p.add_argument("--loss_impl", default="fused",
                    choices=["fused", "banded", "auto", "ref", "pallas"],
                    help="fused = joint + loss kernels, never materialising "
-                        "the lattice logits; auto, ref and pallas materialise "
-                        "them (pallas: the lattice kernel, else the plain "
-                        "lattice); banded is not yet ported")
+                        "the lattice logits (exact); banded = the same "
+                        "kernels over a label window of the config's "
+                        "loss_band around the alignment diagonal, a "
+                        "lower-bound objective on the log-likelihood that "
+                        "is exact when the band covers U+1; auto, ref and "
+                        "pallas materialise the logits (pallas: the lattice "
+                        "kernel, else the plain lattice)")
     p.add_argument("--decode", default="greedy", choices=["greedy", "beam"],
                    help="eval-time decoder")
     p.add_argument("--quantized", default=None, metavar="MODEL_INT8_NPZ",
@@ -109,8 +114,7 @@ def parse_args(argv=None):
     unported = [flag for flag, on in (
         ("--model_parallel > 1", args.model_parallel > 1),
         ("--multihost", args.multihost),
-        ("--ckpt_backend orbax", args.ckpt_backend == "orbax"),
-        ("--loss_impl banded", args.loss_impl == "banded")) if on]
+        ("--ckpt_backend orbax", args.ckpt_backend == "orbax")) if on]
     if unported:
         p.error(f"not yet ported to the PyTorch port: {', '.join(unported)}")
     return args

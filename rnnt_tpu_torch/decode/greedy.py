@@ -68,6 +68,75 @@ def greedy_decode_encoded(model: Transducer, encoded: torch.Tensor,
     return out_tokens, out_lengths, (pred_out, pred_state)
 
 
+def greedy_decode_encoded_graph(model: Transducer, encoded: torch.Tensor,
+                                enc_lengths: torch.Tensor, *,
+                                max_output_length: int = 200, carry=None):
+    """`greedy_decode_encoded` with no host read, for `torch.export`: the
+    same contract and the same tokens.  The frame and symbol loops are one
+    `while_loop` whose state carries the frame t and the symbol count n; the
+    frame advances when no element emitted or n reaches
+    max_symbols_per_frame.  Frames past every element's length are not
+    visited; a frame where no element is active takes one step that emits
+    nothing (the eager loop takes none).  The body is functional: every
+    carried tensor keeps its shape, dtype and device, the token write is an
+    out-of-place scatter, and the prediction state travels as a flat tuple
+    of (c, h) pairs."""
+    from torch._higher_order_ops import while_loop
+
+    B, T, _ = encoded.shape
+    dev = encoded.device
+    max_sym = model.cfg.max_symbols_per_frame
+    if carry is None:
+        state0 = model.prediction_zero_state(B, encoded.dtype)
+        pred_out, pred_state = model.predict_step(
+            torch.zeros((B,), dtype=torch.long, device=dev), state0)
+    else:
+        pred_out, pred_state = carry
+    n_layers = len(pred_state)
+    enc_lengths = enc_lengths.to(dev)
+    t_end = torch.clamp(enc_lengths.max(), max=T).long()
+    if max_sym < 1:
+        t_end = torch.zeros_like(t_end)
+
+    def cond(t, n, active, out_tokens, out_lengths, pred_out, *flat):
+        return t < t_end
+
+    def body(t, n, active, out_tokens, out_lengths, pred_out, *flat):
+        active = torch.where(n == 0, t < enc_lengths, active)
+        enc_t = encoded.index_select(1, t.reshape(1))[:, 0]
+        logits = model.joint_step(enc_t, pred_out)
+        pred_id = torch.argmax(logits, dim=-1)
+        emit = active & (pred_id != 0) & (out_lengths < max_output_length)
+        slot = torch.clamp(out_lengths, max=max_output_length - 1).long()[
+            :, None]
+        cur = out_tokens.gather(1, slot)
+        out_tokens = out_tokens.scatter(1, slot, torch.where(
+            emit[:, None], pred_id.to(torch.int32)[:, None], cur))
+        out_lengths = out_lengths + emit.to(torch.int32)
+        state = [(flat[2 * i], flat[2 * i + 1]) for i in range(n_layers)]
+        new_out, new_state = model.predict_step(pred_id, state)
+        pred_out = torch.where(emit[:, None], new_out, pred_out)
+        flat = tuple(torch.where(emit[:, None], nw, old)
+                     for new_st, old_st in zip(new_state, state)
+                     for nw, old in zip(new_st, old_st))
+        n = n + 1
+        advance = ~emit.any() | (n >= max_sym)
+        return (torch.where(advance, t + 1, t),
+                torch.where(advance, 0, n), emit, out_tokens, out_lengths,
+                pred_out, *flat)
+
+    t0, n0 = (torch.zeros((), dtype=torch.long, device=dev) for _ in "tn")
+    init = (t0, n0, torch.zeros((B,), dtype=torch.bool, device=dev),
+            torch.zeros((B, max_output_length), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev), pred_out,
+            *(x for st in pred_state for x in st))
+    _, _, _, out_tokens, out_lengths, pred_out, *flat = while_loop(
+        cond, body, init)
+    pred_state = [(flat[2 * i], flat[2 * i + 1]) for i in range(n_layers)]
+    return out_tokens, out_lengths, (pred_out, pred_state)
+
+
 class JointRecorder:
     """While in use (`with JointRecorder(model) as rec:`), wraps the model's
     joint_step and records, at every call, row 0's argmax (`ids`) and the

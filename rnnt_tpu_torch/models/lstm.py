@@ -9,7 +9,11 @@ The input projection x @ Wx over all timesteps is one matmul outside the
 recurrence, cast to the weight dtype as the TPU kernel receives it; the
 recurrence itself is `ops.lstm_cuda.lstm_seq_infer` in inference and the
 differentiable `ops.lstm_cuda.lstm_seq` in training (the CUDA kernels on the
-card, their plain versions on the CPU).  The cell state c is fp32.
+card, their plain versions on the CPU).  Under `torch.export` (or
+`torch.compile`) inference calls the kernel through its registered operator
+(`ops.library`), which the traced graph records; eager calls go to the
+wrapper directly, since the operator's dispatch adds host time to each
+call (`chip_smoke.py` measures it; `PERF.md`).  The cell state c is fp32.
 
 A layer whose wx, wh or wp is an int8 `ops.int8_exec.QuantWeight` (int8
 execution, `ops.quantize.int8_exec_params`) runs a plain step loop on
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rnnt_tpu_torch.ops import lstm_cuda
+from rnnt_tpu_torch.ops import library, lstm_cuda
 from rnnt_tpu_torch.ops.int8_exec import act_dtype, is_quant, qdot, weight_shape
 from rnnt_tpu_torch.ops.matmul import matmul_to
 
@@ -95,8 +99,10 @@ class ProjLSTM(nn.Module):
                                       c0, h0)
         xp = matmul_to(x.reshape(B * T, F), self.wx, self.wh.dtype).reshape(
             B, T, -1)
-        h_seq, c_fin = lstm_cuda.lstm_seq_infer(
-            xp.transpose(0, 1), self.wh, self.wp, self.bias, h0, c0)
+        infer = (library.lstm_seq_infer if torch.compiler.is_compiling()
+                 else lstm_cuda.lstm_seq_infer)
+        h_seq, c_fin = infer(xp.transpose(0, 1), self.wh, self.wp, self.bias,
+                             h0, c0)
         return h_seq.transpose(0, 1), (c_fin, h_seq[-1].to(h0.dtype))
 
     def _gates_step(self, xp_t, c, h):

@@ -3,7 +3,10 @@
 The loss of a batch is sum(nll * loss_weight) / max(sum(loss_weight), 1)
 when the batch carries `loss_weight` (repeat-padded filler rows weigh 0),
 else the mean nll.  "fused" runs the fused joint + loss (kernels K6 and K7,
-with the encoder and prediction LSTMs in K4 and K5 when training); "ref"
+with the encoder and prediction LSTMs in K4 and K5 when training);
+"banded" the banded loss (`ops.joint_loss_banded`: K6 over a label window of
+cfg.loss_band around the alignment diagonal, K7 over the full lattice), an
+upper bound on the exact NLL that equals it when the band covers U+1; "ref"
 and "pallas" materialise the [B, T', U+1, V] logits and run the loss with
 the plain lattice or kernel K7.  A training batch given a generator gets
 the configured input noise, then SpecAugment (`ops.specaug`), on its own
@@ -21,7 +24,7 @@ from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models.encoder import encoded_length
 from rnnt_tpu_torch.train import state as state_mod
 
-LOSS_IMPLS = ("fused", "auto", "ref", "pallas")
+LOSS_IMPLS = ("fused", "banded", "auto", "ref", "pallas")
 
 
 def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
@@ -55,14 +58,21 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
             freq_width=cfg.specaug_freq_width,
             time_masks=cfg.specaug_time_masks,
             time_width=cfg.specaug_time_width)
-    if loss_impl == "fused":
-        from rnnt_tpu_torch.ops.joint_loss_fused import transducer_loss_fused
-
+    if loss_impl in ("fused", "banded"):
         encoded, pred_out, bn_stats = model.encode_predict(
             mel, batch["pred_inp"], training=training, generator=generator)
-        nll = transducer_loss_fused(model.joint, encoded, pred_out,
-                                    batch["labels"], enc_lengths,
-                                    batch["label_lengths"])
+        args = (model.joint, encoded, pred_out, batch["labels"], enc_lengths,
+                batch["label_lengths"])
+        if loss_impl == "banded":
+            from rnnt_tpu_torch.ops.joint_loss_banded import \
+                transducer_loss_banded
+
+            nll = transducer_loss_banded(*args, band=cfg.loss_band)
+        else:
+            from rnnt_tpu_torch.ops.joint_loss_fused import \
+                transducer_loss_fused
+
+            nll = transducer_loss_fused(*args)
     else:
         from rnnt_tpu_torch.ops.rnnt_loss import rnnt_loss
 

@@ -46,6 +46,9 @@ import rnnt_tpu_torch.cli.preprocess_common_voice
 import rnnt_tpu_torch.cli.debug_dataset, rnnt_tpu_torch.cli.corpus_stats
 import rnnt_tpu_torch.cli.remove_missing_samples
 import rnnt_tpu_torch.cli.convert_common_voice
+import rnnt_tpu_torch.export, rnnt_tpu_torch.ops.library
+import rnnt_tpu_torch.ops.joint_loss_banded
+import rnnt_tpu_torch.cli.export_model
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
@@ -87,6 +90,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quantize_model.main(["--checkpoint", str(tmp_path)])
+    from rnnt_tpu_torch import export
+    from rnnt_tpu_torch.cli import export_model
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_model.main(["--checkpoint", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.streaming_init_state(tiny_config())
     from rnnt_tpu_torch.cli import preprocess_common_voice, \
         preprocess_librispeech
 

@@ -82,8 +82,7 @@ def test_train_then_resume_then_test(data_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model_parallel", "2"], ["--multihost"], ["--ckpt_backend", "orbax"],
-    ["--loss_impl", "banded"]])
+    ["--model_parallel", "2"], ["--multihost"], ["--ckpt_backend", "orbax"]])
 def test_unported_flags_are_refused(flags, capsys):
     with pytest.raises(SystemExit):
         run_rnnt.parse_args(["--data_dir", "d", *flags])
