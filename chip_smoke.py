@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (rnnt_tpu_torch) on one H100.
 
-  python3 chip_smoke.py [--seed 0]
+  python3 chip_smoke.py [--seed 0] [--phases all]
+
+--phases takes a comma list of the phases below (PHASES: serving, k1_k2,
+encoder_greedy, beam, stream_kernels, export, training,
+bench_entry_points, data_prep, int8_flac_oracle, k4_k7, bench_step,
+data_parallel); a phase brings the phases it reads from (PHASE_NEEDS),
+and the default runs every phase and every gate.  Each phase logs its
+time.  A plain version's comparison run is timed as it runs (`once_ms`)
+and not run again to be timed.
 
 Drives the port's serving and training paths at the parity width
 (RNNTConfig(): 8x2048/640 encoder, 2x2048 prediction net, joint 640, V=4096,
@@ -42,16 +50,16 @@ worst case.
    10 launches a step, every K6 launch WGMMA and every K7 launch warp);
    `bench_loss`, cli.bench_loss --B 8 --iters 3 (ref, pallas, fused; the
    fused line's TFLOP/s; K6 and K7 launched); `bench_decode`,
-   cli.bench_decode --batch 8 --frames 128 --reps 2 (its four rows; one K3
+   cli.bench_decode --batch 8 --frames 128 --reps 1 (its four rows; one K3
    launch a search of the two cuda rows, none by the plain row; after the
    path, K3 on the same inputs at E=1 and E=6, where N = 32 hypothesis
    rows must run the FMA design, held against the plain search by the
    beam gate below at the bf16 tolerance);
-   `bench_streaming_latency`, cli.bench_streaming --chunks 40 (K1 and K2);
+   `bench_streaming_latency`, cli.bench_streaming --chunks 20 (K1 and K2);
    `bench_streaming_wer`, cli.bench_streaming against the run directory
    and three WAVs of 2-3 s with their trans.txt in LibriSpeech layout (3
    utterances, both WERs finite); `bench_serve`, cli.bench_serve on the run
-   directory with --requests 8 --concurrency 2 (every line printed, K1, K2
+   directory with --requests 4 --concurrency 2 (every line printed, K1, K2
    and K3 launched, no server thread left running); each must return 0;
    then data preparation and augmented training on a LibriSpeech-layout
    corpus written from --seed (48 train, 8 dev, 8 test utterances of 2-8 s,
@@ -87,6 +95,18 @@ worst case.
    banded on its own synthetic shards, 2 bf16 steps at B=32 and one eval
    batch (finite losses, an eval line, a checkpoint restored, per step 10
    K4 (MMA) and 10 K5 launches, one K6 (WGMMA) and one K7 (warp));
+   and data parallelism (`data_parallel`): `dp_nccl`, cli.run_rnnt
+   --multihost as one process on NCCL (bf16, B=32, 2 steps and an eval
+   batch writing a .dcp checkpoint, then --checkpoint auto resuming from
+   it for one more step and an eval batch; per step 10 K4 (MMA), 10 K5,
+   one K6 (WGMMA), one K7 (warp)); `dp_two_ranks`, two processes sharing
+   the card over gloo (`--dp_worker`), fp32, one step at B=16 a rank
+   against one process's step on both ranks' rows: loss <= 1e-5, every
+   gradient <= 1e-4, the BatchNorm statistics and every updated parameter
+   <= 1e-5 relative error (a parameter that was zero before the step, which
+   then holds its update alone, <= 1e-4), per rank 10 K4, 10 K5, one K6 and
+   one K7 (warp); `bench_scaling`, cli.bench_scaling --devices 1 at B=32
+   for 3 steps (its JSON line, efficiency_vs_1dev 1.0);
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4 at
    each request's audio, at every chunk length of the TCP stream, at 8 kHz
@@ -138,13 +158,14 @@ worst case.
    block design; runs of positions a thread above 1024), <= 1e-5, inputs
    untouched; and one whole fp32 train step at the parity width (B=32,
    T=256, U=64) through K4-K7 on the card against the same step on the CPU
-   (every wrapper's plain version): loss <= 1e-4 and every gradient <= 1e-3
-   relative error; the banded loss at the train shapes (B=32, T'=128,
-   U+1=65, band 32): K6 at the banded row shapes (512 rows of 8 x 32
-   cells) against its plain planes (fp32 FMA <= 1e-4, bf16 WGMMA <=
-   PLANES_BF16_TOL, inputs untouched), K7 over the banded, mostly NEG
-   planes against the plain scans (finite, the same reachable cells,
-   <= 1e-5 on them), a band >= U+1 equal to the fused loss (fp32: loss
+   (every wrapper's plain version; a process of its own started before
+   the int8 phase, so it overlaps the card's phases): loss <= 1e-4 and
+   every gradient <= 1e-3 relative error; the banded loss at the train
+   shapes (B=32, T'=128, U+1=65, band 32): K6 at the banded row shapes
+   (512 rows of 8 x 32 cells) against its plain planes (fp32 FMA <= 1e-4,
+   bf16 WGMMA <= PLANES_BF16_TOL, inputs untouched), K7 over the banded,
+   mostly NEG planes against the plain scans (finite, the same reachable
+   cells, <= 1e-5 on them), a band >= U+1 equal to the fused loss (fp32: loss
    1e-5, gradients 1e-4 relative), at band 32 the NLL >= the exact NLL -
    1e-4 for every utterance and loss and gradients within 1e-4 and 1e-3 of
    the same function on the host CPU, a fully pruned utterance at 1e9 with
@@ -242,6 +263,26 @@ def cuda_times(fn, reps: int, warmup: int = 2) -> list:
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median milliseconds of fn() on the card."""
     return statistics.median(cuda_times(fn, reps, warmup))
+
+
+def once_ms(fn):
+    """(fn()'s result, its milliseconds on the card) from one run, CUDA
+    events around it after a synchronise, no warm-up: a plain version's
+    comparison run timed as it runs, never repeated to be timed."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+PLAIN_ONCE = ("one run: the comparison's own run of the plain version, "
+              "timed once without a warm-up")
 
 
 def require(ok, what) -> None:
@@ -620,8 +661,8 @@ def check_lstm_layer(model, mel_p):
     c0, h0 = lstm.zero_state(B)
     args = (xp, lstm.wh, lstm.wp, lstm.bias, h0, c0)
     h_k, c_k = lstm_cuda.lstm_seq_infer(*args)
-    h_p, c_p = lstm_cuda.lstm_seq_infer_plain(*args)
-    torch.cuda.synchronize()
+    (h_p, c_p), plain_ms = once_ms(
+        lambda: lstm_cuda.lstm_seq_infer_plain(*args))
     err_h, err_c = rel_err(h_k, h_p), rel_err(c_k, c_p)
     max_abs = float((h_k.float() - h_p.float()).abs().max())
     log(f"K2 lstm layer xp {tuple(xp.shape)} {dt}: rel err h {err_h:.3e} "
@@ -650,8 +691,8 @@ def check_lstm_layer(model, mel_p):
         "replaces": "rnnt_tpu/ops/lstm_pallas.py:135",
         "max_abs_err": max_abs,
         "ms": cuda_ms(lambda: lstm_cuda.lstm_seq_infer(*args), reps=10),
-        "plain_ms": cuda_ms(lambda: lstm_cuda.lstm_seq_infer_plain(*args),
-                            reps=3, warmup=1),
+        "plain_ms": plain_ms,
+        "plain_ms_note": PLAIN_ONCE,
         **bound_of(*k2_cost(T, B, H, P, esize), peak),
         "library_ms": lib["median_ms"],
         "library_runs_ms": lib,
@@ -1181,14 +1222,13 @@ def check_beam(model32, served, cfg, cases):
     bucket)."""
     import torch
 
-    from rnnt_tpu_torch.decode.beam import (beam_search_encoded_plain,
-                                            default_expansions)
+    from rnnt_tpu_torch.decode.beam import default_expansions
     from rnnt_tpu_torch.ops import beam_cuda
 
     E = default_expansions(cfg)
     worst_bf16 = 0.0
     control = stale = None
-    designs = {}
+    designs, plain_ms_by_case = {}, {}
     for label, mel_p, lengths, sharp, cap in cases:
         kw = dict(beam_width=BEAM, max_output_length=cap,
                   expansions_per_frame=E)
@@ -1202,8 +1242,9 @@ def check_beam(model32, served, cfg, cases):
                 got = beam_cuda.beam_search(model, enc, enc_len, trace=trace,
                                             **kw)
                 design = beam_cuda.beam_search.last_design
-                want, stats = plain_along(model, enc, enc_len, trace, kw)
-                torch.cuda.synchronize()
+                (want, stats), plain_ms = once_ms(
+                    lambda: plain_along(model, enc, enc_len, trace, kw))
+                plain_ms_by_case[label, dt] = plain_ms
             fails, notes, max_abs, rel = gate_beam(
                 got, trace, want, stats, enc_len, E, cfg.vocab_size,
                 BEAM_SCORE_TOL[dt])
@@ -1248,8 +1289,8 @@ def check_beam(model32, served, cfg, cases):
     require(fails, "the bf16 beam gate let the swapped-W2 control through")
     check_beam_staleness(served, cfg, stale)
     # times, bound and phases at the 512-frame request in bf16
-    _, mel_p, lengths, _, _ = [c for c in cases if c[1].shape[0] == 1
-                               and c[4] == MAX_TOKENS][-1]
+    label, mel_p, lengths, _, _ = [c for c in cases if c[1].shape[0] == 1
+                                   and c[4] == MAX_TOKENS][-1]
     kw = dict(beam_width=BEAM, max_output_length=MAX_TOKENS,
               expansions_per_frame=E)
     with torch.no_grad():
@@ -1258,8 +1299,6 @@ def check_beam(model32, served, cfg, cases):
         frames = min(enc.shape[1], int(enc_len.max()))
         ms = cuda_ms(lambda: beam_cuda.beam_search(served, enc, enc_len, **kw),
                      reps=5)
-        plain_ms = cuda_ms(lambda: beam_search_encoded_plain(
-            served, enc, enc_len, **kw), reps=1, warmup=0)
         phase_ns = torch.zeros(
             (beam_cuda.grid_blocks(enc.device), len(beam_cuda.PHASES)),
             dtype=torch.int64, device=enc.device)
@@ -1277,7 +1316,9 @@ def check_beam(model32, served, cfg, cases):
         "replaces": "rnnt_tpu/ops/beam_pallas.py:161",
         "max_abs_err": worst_bf16,
         "ms": ms,
-        "plain_ms": plain_ms,
+        # the gate's plain search along the kernel's picks on this request
+        "plain_ms": plain_ms_by_case[label, str(served.dtype)[6:]],
+        "plain_ms_note": PLAIN_ONCE + " (along the kernel's picks)",
         **beam_bound(served, enc, frames, BEAM, E),
         "library_ms": None,
         "shape": f"enc [{enc.shape[1]},1,{enc.shape[2]}] "
@@ -1623,7 +1664,8 @@ def check_lstm_train(H, P, B=TRAIN_BATCH, device="cuda"):
             "replaces": f"rnnt_tpu/ops/lstm_pallas.py:{line}",
             "max_abs_err": worst["bfloat16", kind[5:]],
             "ms": cuda_ms(lambda: fn(*args), reps=10),
-            "plain_ms": cuda_ms(lambda: plain(*args), reps=2, warmup=1),
+            "plain_ms": once_ms(lambda: plain(*args))[1],
+            "plain_ms_note": "one run, no warm-up",
             **bound_of(nbytes, flops, PEAK_BF16_FLOPS),
             "library_ms": lib_f if kind == "lstm_fwd" else lib_fb - lib_f,
             "library": (f"torch.nn.LSTM(proj_size={P}) (cuDNN), training mode, "
@@ -1708,10 +1750,11 @@ def planes_inputs(cfg, B, T, U1, device, seed, J=None, V=None):
             rand((J, V), lim), rand((V,), 0.1))
 
 
-def planes_case(args, tol, design, what):
+def planes_case(args, tol, design, what, plain_times=None):
     """One K6 call against its plain version: every plane within `tol`
     relative error, the inputs untouched, and the launch on `design`.
-    Returns (max |d|, the plain planes)."""
+    Returns (max |d|, the plain planes); the plain run's time (`once_ms`)
+    goes into plain_times[what]."""
     import torch
 
     from rnnt_tpu_torch.ops import planes_cuda
@@ -1721,7 +1764,9 @@ def planes_case(args, tol, design, what):
     got = planes_cuda.joint_planes(*args)
     ran = [d for d, n in planes_cuda.joint_planes.launches_by_design.items()
            if n != counts[d]]
-    want = planes_cuda.joint_planes_plain(*args)
+    want, plain_ms = once_ms(lambda: planes_cuda.joint_planes_plain(*args))
+    if plain_times is not None:
+        plain_times[what] = plain_ms
     require(all(torch.equal(a, b) for a, b in zip(args, before)),
             f"K6 {what} wrote into its inputs")
     rel = [rel_err(a, b) for a, b in zip(got, want)]
@@ -1769,8 +1814,9 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
                                             f"B={B} T={T} U+1={U1} fp32")
     designs["train shape fp32"] = "fma"
     args = tuple(a.to(bf16) if a.is_floating_point() else a for a in args32)
+    plain_t = {}
     errs["bfloat16"], _ = planes_case(args, PLANES_BF16_TOL, "wgmma",
-                                      f"B={B} T={T} U+1={U1} bf16")
+                                      f"B={B} T={T} U+1={U1} bf16", plain_t)
     designs["train shape bf16"] = "wgmma"
     Bb = bench.B
     fb, gb, yb, b1b, w2b, b2b = planes_inputs(cfg, Bb, T, U1, device, 7)
@@ -1821,8 +1867,8 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
         "replaces": "rnnt_tpu/ops/joint_loss_fused.py:61",
         "max_abs_err": errs["bfloat16"],
         "ms": cuda_ms(lambda: planes_cuda.joint_planes(*args), reps=5),
-        "plain_ms": cuda_ms(lambda: planes_cuda.joint_planes_plain(*args),
-                            reps=2, warmup=1),
+        "plain_ms": plain_t[f"B={B} T={T} U+1={U1} bf16"],
+        "plain_ms_note": PLAIN_ONCE,
         **bound_of(*planes_cost(B, T, U1, J, V, 2), PEAK_BF16_FLOPS),
         "library_ms": cuda_ms(lambda: torch.mm(h2d, args[4]), reps=5),
         "library": "cuBLAS bf16 [C,J]x[J,V] product alone (torch.mm), "
@@ -1842,11 +1888,12 @@ def check_planes(cfg, B=32, T=128, U1=65, device="cuda"):
     return entry, planes32
 
 
-def lattice_case(b, e, fl, yl, design, what):
+def lattice_case(b, e, fl, yl, design, what, plain_times=None):
     """K7 vs its plain version on one input: alpha and beta over the valid
     cells and ll within LATTICE_TOL relative error, inputs untouched, the
     launch on `design`.  Returns (relative errors, max |d| over the valid
-    cells)."""
+    cells); the plain run's time (`once_ms`) goes into
+    plain_times[f"B={B}"]."""
     import torch
 
     from rnnt_tpu_torch.ops import lattice_cuda, rnnt_loss_ref
@@ -1858,7 +1905,9 @@ def lattice_case(b, e, fl, yl, design, what):
     before = dict(k7.launches_by_design)
     got = k7(*args)
     ran = [d for d, n in k7.launches_by_design.items() if n > before[d]]
-    want = rnnt_loss_ref.lattice_scan_plain(*args)
+    want, plain_ms = once_ms(lambda: rnnt_loss_ref.lattice_scan_plain(*args))
+    if plain_times is not None:
+        plain_times[f"B={B}"] = plain_ms
     require(all(torch.equal(a, c) for a, c in zip(args, kept)),
             "K7 wrote into its inputs")
     require(ran == [design], f"K7 {what} ran {ran}, not {design}")
@@ -1896,7 +1945,7 @@ def check_lattice(planes32, device="cuda", seed=5):
     B, T, U1 = denom.shape
     g = torch.Generator(device=device).manual_seed(seed)
     u_idx = torch.arange(U1, device=device)[None, None, :]
-    inputs, errs = {}, {}
+    inputs, errs, plain_t = {}, {}, {}
     for nb in (B, 3 * B):
         fl = torch.randint(max(1, T - 28), T + 1, (nb,), generator=g,
                            device=device)
@@ -1908,7 +1957,7 @@ def check_lattice(planes32, device="cuda", seed=5):
                         rnnt_loss_ref.NEG)
         inputs[nb] = (b, e, fl, yl)
         errs[f"B={nb}"] = lattice_case(*inputs[nb], lattice_design(U1),
-                                       "from the planes")
+                                       "from the planes", plain_t)
     cells = B * T * U1
 
     def cost(nb):  # planes in, alpha and beta out; ~10 fp32 ops a cell
@@ -1923,8 +1972,8 @@ def check_lattice(planes32, device="cuda", seed=5):
         "rel_err_by_case": {k: max(r) for k, (r, _) in errs.items()},
         "ms": device_ms(lambda: lattice_cuda.lattice_scan(*inputs[B]),
                         reps=20),
-        "plain_ms": cuda_ms(lambda: rnnt_loss_ref.lattice_scan_plain(
-            *inputs[B]), reps=2, warmup=1),
+        "plain_ms": plain_t[f"B={B}"],
+        "plain_ms_note": PLAIN_ONCE,
         **bound_of(*cost(B), PEAK_FP32_FLOPS),
         "library_ms": None,
         "shape": f"B={B} T'={T} U+1={U1} fp32",
@@ -1982,38 +2031,100 @@ def random_batch(cfg, B, T, U, device, seed):
             "label_lengths": torch.full((B,), U, device=device)}
 
 
-def check_train_step_fp32(cfg, seed, B=TRAIN_BATCH, device="cuda"):
+PLAIN_STEP_THREADS = 4  # the plain step's; the card's phases keep the rest
+
+
+def start_plain_train_step_fp32(cfg, seed, B=TRAIN_BATCH, device="cuda"):
+    """Start the plain side of `check_train_step_fp32` in a process of its
+    own (`--plain_step`), on the host CPU beside the card's phases, so its
+    minute and a half overlaps them: the train_cli path's B=32, T=256,
+    U=64 batch is drawn on the card and handed over in a file.  Returns
+    (the batch on the card, the process, its directory)."""
+    import subprocess
+
+    import torch
+
+    batch = random_batch(cfg, B, 256, 64, device, seed)
+    path = os.path.join(TRAIN_DIR, "fp32_step")
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in batch.items()},
+               os.path.join(path, "batch.pt"))
+    cfg.save(path)
+    with open(os.path.join(path, "plain.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--plain_step", path,
+             "--seed", str(seed)], stdout=out, stderr=subprocess.STDOUT,
+            cwd=REPO)
+    log(f"plain fp32 train step started on the host CPU "
+        f"({PLAIN_STEP_THREADS} threads, pid {proc.pid})")
+    return batch, proc, path
+
+
+def plain_train_step(path, seed) -> int:
+    """The plain fp32 train step (`--plain_step`): the model of path's
+    config from `seed` on the CPU, where every wrapper runs its plain
+    version, on the batch in path/batch.pt; writes its loss, gradients and
+    seconds."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from rnnt_tpu_torch.config import RNNTConfig
+    from rnnt_tpu_torch.train.state import create_train_state, trainable_names
+    from rnnt_tpu_torch.train.steps import batch_loss
+
+    torch.set_num_threads(PLAIN_STEP_THREADS)
+    cfg = RNNTConfig.load(path)
+    batch = torch.load(os.path.join(path, "batch.pt"))
+    model = create_train_state(cfg, torch.float32, "cpu", seed).model
+    t0 = time.perf_counter()
+    loss, _ = batch_loss(model, cfg, batch, training=True, loss_impl="fused")
+    loss.backward()
+    params = dict(model.named_parameters())
+    torch.save({"loss": float(loss.detach()),
+                "grads": {n: params[n].grad for n in trainable_names(model)},
+                "secs": time.perf_counter() - t0,
+                "threads": torch.get_num_threads()},
+               os.path.join(path, "plain.pt"))
+    return 0
+
+
+def check_train_step_fp32(cfg, seed, plain, device="cuda"):
     """One whole fp32 train step's loss and gradients through the kernels
     (K4-K7, on the card) against the plain versions (the same step on the
-    CPU, where every wrapper runs its plain version), at the parity width
-    and depth and the train_cli path's B=32, T=256, U=64: loss within 1e-4
-    and every gradient within 1e-3 relative error (to its largest
-    element)."""
+    host CPU, where every wrapper runs its plain version, started earlier
+    by `start_plain_train_step_fp32`: `plain`), at the parity width and
+    depth and the train_cli path's B=32, T=256, U=64: loss within 1e-4 and
+    every gradient within 1e-3 relative error (to its largest element)."""
     import torch
 
     from rnnt_tpu_torch.train.state import create_train_state, trainable_names
     from rnnt_tpu_torch.train.steps import batch_loss
 
-    batch = random_batch(cfg, B, 256, 64, device, seed)
-    runs = []
-    for dev in (device, "cpu"):
-        model = create_train_state(cfg, torch.float32, dev, seed).model
-        t0 = time.perf_counter()
-        loss, _ = batch_loss(model, cfg, {k: v.to(dev) for k, v in
-                                          batch.items()},
-                             training=True, loss_impl="fused")
-        loss.backward()
-        params = dict(model.named_parameters())
-        grads = {n: params[n].grad.cpu() for n in trainable_names(model)}
-        runs.append((float(loss.detach()), grads, time.perf_counter() - t0))
-        del model, params, loss
-    (loss_k, grads_k, secs_k), (loss_p, grads_p, secs_p) = runs
+    batch, proc, path = plain
+    B = batch["labels"].shape[0]
+    model = create_train_state(cfg, torch.float32, device, seed).model
+    t0 = time.perf_counter()
+    loss, _ = batch_loss(model, cfg, batch, training=True, loss_impl="fused")
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads_k = {n: params[n].grad.cpu() for n in trainable_names(model)}
+    loss_k, secs_k = float(loss.detach()), time.perf_counter() - t0
+    del model, params, loss
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(path, "plain.log")) as f:
+        for line in f.read().splitlines()[-20:]:
+            log(f"plain fp32 step: {line}")
+    require(rc == 0, f"the plain fp32 train step exited {rc}")
+    ref = torch.load(os.path.join(path, "plain.pt"))
+    loss_p, grads_p = ref["loss"], ref["grads"]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     errs = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_p}
     worst = max(errs, key=errs.get)
     log(f"fp32 train step B={B} T=256 U=64 kernels ({secs_k:.2f} s) vs plain "
-        f"on the CPU ({secs_p:.2f} s, {torch.get_num_threads()} threads): "
-        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst "
+        f"on the CPU ({ref['secs']:.2f} s, {ref['threads']} threads, beside "
+        f"the card's phases; waited {time.perf_counter() - t0:.2f} s for it):"
+        f" loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst "
         f"gradient {worst} rel err {errs[worst]:.3e}")
     require(loss_rel <= 1e-4, f"fp32 train-step loss disagrees: {loss_rel}")
     require(errs[worst] <= 1e-3, f"fp32 gradient {worst} disagrees: "
@@ -2086,6 +2197,10 @@ def bench_train_step(smi, timed, seed, device="cuda"):
 
 # ------------------------------------------ data preparation and SpecAugment
 
+# the bench entry points' depth: every one drives a path that another phase
+# also drives (greedy and beam serving, the TCP stream, bench_decode's K3
+# gate), so one timed repetition, 20 stream chunks and 4 requests do
+BENCH_REPS, BENCH_CHUNKS, BENCH_REQUESTS = 1, 20, 4
 PREP_SPLITS = (("train-mini", 48), ("dev-mini", 8), ("test-mini", 8))
 PREP_WORDS = ("the and of to a in that he was it his i with as had you her "
               "for she not but at be him on they all by this which said "
@@ -2419,13 +2534,12 @@ def check_bench_decode_beam(batch, frames, reps):
     (`bench_decode.setup`: bf16, the blank bias lowered, encoder outputs
     normal x 2) at E=1 and at E=6, the two cuda rows' searches: N = batch x
     BEAM hypothesis rows above the streamed plan's MAXN, so each must run
-    the FMA design, held by `gate_beam` at the bf16 tolerance.  The plain
-    E=1 search is timed beside the kernel's, as the row that bench_decode
-    prints.  Returns {E: record} with the largest |d score| of each."""
+    the FMA design, held by `gate_beam` at the bf16 tolerance.  At E=1 the
+    kernel is timed and the gate's plain search beside it (its one run).
+    Returns {E: record} with the largest |d score| of each."""
     import torch
 
     from rnnt_tpu_torch.cli import bench_decode
-    from rnnt_tpu_torch.decode.beam import beam_search_encoded_plain
     from rnnt_tpu_torch.ops import beam_cuda
 
     cfg, model, enc, lens = bench_decode.setup(batch, frames, True, "cuda")
@@ -2439,8 +2553,8 @@ def check_bench_decode_beam(batch, frames, reps):
             trace = {}
             got = beam_cuda.beam_search(model, enc, lens, trace=trace, **kw)
             design = beam_cuda.beam_search.last_design
-            want, stats = plain_along(model, enc, lens, trace, kw)
-            torch.cuda.synchronize()
+            (want, stats), plain_ms = once_ms(
+                lambda: plain_along(model, enc, lens, trace, kw))
         fails, notes, max_abs, rel = gate_beam(
             got, trace, want, stats, lens, E, cfg.vocab_size,
             BEAM_SCORE_TOL["bfloat16"])
@@ -2461,8 +2575,7 @@ def check_bench_decode_beam(batch, frames, reps):
             with torch.no_grad():
                 rec["ms"] = cuda_ms(lambda: beam_cuda.beam_search(
                     model, enc, lens, **kw), reps=reps)
-                rec["plain_ms"] = cuda_ms(lambda: beam_search_encoded_plain(
-                    model, enc, lens, **kw), reps=reps, warmup=0)
+            rec["plain_ms"], rec["plain_ms_note"] = plain_ms, PLAIN_ONCE
         out[E] = rec
     del model, enc
     return out
@@ -2508,7 +2621,7 @@ def drive_bench_entry_points(paths, cfg, seed):
             f"bench_loss fused line {fused}")
     require(len(out) == 4, f"bench_loss printed {out}")
 
-    reps = 2
+    reps = BENCH_REPS
     (out, _), launches = drive_path(
         "bench_decode", lambda: run_main(
             "bench_decode", bench_decode.main,
@@ -2528,7 +2641,8 @@ def drive_bench_entry_points(paths, cfg, seed):
 
     (out, _), paths["bench_streaming_latency"] = drive_path(
         "bench_streaming_latency", lambda: run_main(
-            "bench_streaming", bench_streaming.main, ["--chunks", "40"]),
+            "bench_streaming", bench_streaming.main,
+            ["--chunks", str(BENCH_CHUNKS)]),
         ("log_mel_frontend", "lstm_seq_infer"))
     rec = json_line("bench_streaming", out)
     require(rec["backend"] == "cuda" and np.isfinite(rec["value"]),
@@ -2550,8 +2664,8 @@ def drive_bench_entry_points(paths, cfg, seed):
     (out, _), paths["bench_serve"] = drive_path(
         "bench_serve", lambda: run_main(
             "bench_serve", bench_serve.main,
-            ["--checkpoint", RUN_DIR, "--requests", "8", "--concurrency",
-             "2"]),
+            ["--checkpoint", RUN_DIR, "--requests", str(BENCH_REQUESTS),
+             "--concurrency", "2"]),
         ("log_mel_frontend", "lstm_seq_infer", "beam_search"))
     heads = ("rtt_ms: ", "cold start: ", "first beam-4 request: ",
              "sequential: ", "concurrent x2: ", "streaming: ")
@@ -2576,6 +2690,7 @@ INT8_ROWS = (1, 8, 32)  # greedy B=1, bench_decode's B=8, the eval batch
 INT8_SHAPES = ((500, 8192), (640, 8192), (2048, 640), (640, 640),
                (640, 4096), (640, 31), (500, 31))
 PEAK_INT8_OPS = 1979e12  # tensor cores, dense int8
+INT8_STEP_REPS = 50  # the int8-exec greedy step's timings (host-bound)
 
 
 @contextlib.contextmanager
@@ -2762,15 +2877,16 @@ def profile_int8_request(model, mel_p, t, label, smi):
         pred = torch.randn((1, model.cfg.projection_size), device="cuda").to(
             enc.dtype)
         enc_t = enc[:, 0]
-        step_ms = cuda_ms(lambda: model.joint_step(enc_t, pred), reps=200)
+        reps = INT8_STEP_REPS
+        step_ms = cuda_ms(lambda: model.joint_step(enc_t, pred), reps=reps)
         h = torch.tanh(int8_exec.qdot(enc_t + pred, model.joint.w1))
         qdot_ms = (cuda_ms(lambda: int8_exec.qdot(enc_t + pred,
-                                                  model.joint.w1), reps=200)
+                                                  model.joint.w1), reps=reps)
                    + cuda_ms(lambda: int8_exec.qdot(h, model.joint.w2),
-                             reps=200))
+                             reps=reps))
         state = model.prediction_zero_state(1, enc.dtype)
         tok = torch.ones((1,), dtype=torch.long, device="cuda")
-        pstep_ms = cuda_ms(lambda: model.predict_step(tok, state), reps=200)
+        pstep_ms = cuda_ms(lambda: model.predict_step(tok, state), reps=reps)
     log(f"int8-exec greedy step ({label}, B=1, CUDA events, {smi}): joint "
         f"step {step_ms:.4f} ms, of it its two qdots {qdot_ms:.4f} ms "
         f"({qdot_ms / step_ms:.2f}); prediction-net step {pstep_ms:.4f} ms")
@@ -2865,7 +2981,7 @@ def check_int8_entry_points(paths, data_dir, train_run, art, smi):
             f"int8_exec eval printed {out}")
     log(f"int8_exec eval: greedy WER {wer} ({smi})")
 
-    reps = 2
+    reps = BENCH_REPS
     (out, _), launches = drive_int8_path(
         "bench_decode_int8", lambda: run_main(
             "bench_decode --int8", bench_decode.main,
@@ -2887,8 +3003,8 @@ def check_int8_entry_points(paths, data_dir, train_run, art, smi):
     (out, _), paths["bench_serve_int8"] = drive_int8_path(
         "bench_serve_int8", lambda: run_main(
             "bench_serve --quantized --int8_exec", bench_serve.main,
-            ["--checkpoint", RUN_DIR, "--requests", "8", "--concurrency",
-             "2", "--quantized", art, "--int8_exec"]),
+            ["--checkpoint", RUN_DIR, "--requests", str(BENCH_REQUESTS),
+             "--concurrency", "2", "--quantized", art, "--int8_exec"]),
         ("log_mel_frontend", "lstm_seq_infer"), True)
     heads = ("rtt_ms: ", "cold start: ", "first beam-4 request: ",
              "sequential: ", "concurrent x2: ", "streaming: ")
@@ -3441,13 +3557,339 @@ def require_fma_k2(name, launches) -> None:
             f"path {name}: K2 launches by design {d}")
 
 
+# --------------------------------------------------- data parallelism ----
+
+DP_STEPS = 2          # dp_nccl: bf16 steps at B=32, then one resumed step
+DP_RANK_BATCH = 16    # dp_two_ranks: each rank's rows (32 in all)
+DP_WORKER_TIMEOUT_S = 600
+
+
+def run_dp_nccl(cfg, seed, device="cuda"):
+    """`run_rnnt --multihost` on NCCL as one process (world 1, the card's
+    one device), bf16 at B=32 with the fixed (256, 64) bucket: DP_STEPS
+    steps and one eval batch writing a collective .dcp checkpoint (dcp
+    named: `auto` picks it above one process), then
+    `--checkpoint auto` resumes from it for one more step and one more
+    eval batch.  Returns its record: losses, eval lines, the
+    checkpoints and the logged step seconds."""
+    import torch.distributed as dist
+
+    from rnnt_tpu_torch.cli import run_rnnt
+    from rnnt_tpu_torch.train import checkpoint as ckpt_mod
+
+    data = os.path.join(TRAIN_DIR, "dp_data")
+    data_resume = os.path.join(TRAIN_DIR, "dp_data_resume")
+    write_train_data(cfg, data, DP_STEPS * TRAIN_BATCH, TRAIN_BATCH, seed)
+    write_train_data(cfg, data_resume, TRAIN_BATCH, TRAIN_BATCH, seed + 1)
+    out = os.path.join(TRAIN_DIR, "run_dp")
+    shutil.rmtree(out, ignore_errors=True)
+    common = ["--multihost", "--num_processes", "1", "--process_id", "0",
+              "--batch_size", str(TRAIN_BATCH), "--n_epochs", "1",
+              "--steps_per_log", "1", "--eval_size", "1", "--pad_frames",
+              "256", "--pad_tokens", "64", "--output_dir", out,
+              "--ckpt_backend", "dcp", "--device", device]
+    state = run_rnnt.main(["--mode", "train", "--data_dir", data, *common])
+    require(not dist.is_initialized(), "run_rnnt left its process group")
+    require(state.step == DP_STEPS, f"dp_nccl trained {state.step} steps")
+    first = ckpt_mod.latest_checkpoint(out)
+    require(first is not None and first.endswith(
+        f"checkpoint_{DP_STEPS:08d}.dcp"), f"dp_nccl checkpoint {first}")
+    state = run_rnnt.main(["--mode", "train", "--data_dir", data_resume,
+                           "--checkpoint", "auto", *common])
+    require(state.step == DP_STEPS + 1,
+            f"dp_nccl resumed to step {state.step}, want {DP_STEPS + 1}")
+    steps = ckpt_mod.list_checkpoint_steps(out)
+    require(steps == [DP_STEPS, DP_STEPS + 1], f"dp_nccl checkpoints {steps}")
+    with open(os.path.join(out, "tb", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    evals = [r["eval_loss"] for r in recs if "eval_loss" in r]
+    require(len(losses) == DP_STEPS + 1 and all(np.isfinite(losses)),
+            f"dp_nccl train losses {losses}")
+    require(len(evals) == 2 and all(np.isfinite(evals)),
+            f"dp_nccl eval losses {evals}")
+    rec = {"losses": losses, "eval_losses": evals,
+           "checkpoints": [os.path.basename(p) for p in sorted(
+               os.listdir(out)) if p.endswith(".dcp")],
+           "step_seconds": [r["step_seconds"] for r in recs
+                            if "step_seconds" in r]}
+    log(f"dp_nccl: {json.dumps(rec)}")
+    return rec
+
+
+def step_with_grads(cfg, state, batch, mesh):
+    """One train step; returns (loss, the gradients the optimizer read)."""
+    from rnnt_tpu_torch.train import state as state_mod
+    from rnnt_tpu_torch.train.steps import make_train_step
+
+    seen = {}
+    apply_ = state_mod.Optimizer.apply_
+
+    def spy(self, model, grads, opt_state):
+        seen.update({n: g.detach().clone() for n, g in grads.items()})
+        return apply_(self, model, grads, opt_state)
+
+    state_mod.Optimizer.apply_ = spy
+    try:
+        m = make_train_step(cfg, loss_impl="fused", mesh=mesh)(state, batch)
+        loss = float(m["loss"])
+    finally:
+        state_mod.Optimizer.apply_ = apply_
+    return loss, seen
+
+
+def dp_worker(rank, port, data, seed, device="cuda") -> int:
+    """One rank of dp_two_ranks (a process of its own; two share the card
+    over gloo): one fp32 fused step at the parity width on this rank's
+    DP_RANK_BATCH rows (its shard of `data`, under `data`'s config), then,
+    from the same initial state, one process's step on both ranks' rows
+    concatenated; writes the launches of the data-parallel step and the
+    errors between the two to data/dp_rank{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from rnnt_tpu_torch.config import RNNTConfig
+    from rnnt_tpu_torch.data.pipeline import batches_from_shards
+    from rnnt_tpu_torch.parallel import mesh as mesh_mod
+    from rnnt_tpu_torch.train.loop import to_device
+    from rnnt_tpu_torch.train.state import Optimizer, create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_mod.init_distributed(f"localhost:{port}", 2, rank, device,
+                                    timeout_s=DP_WORKER_TIMEOUT_S,
+                                    backend="gloo")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        mesh = mesh_mod.make_mesh(device=dev)
+        cfg = RNNTConfig.load(data)
+        rows = [next(batches_from_shards(
+            os.path.join(data, "train-*.rnr"), DP_RANK_BATCH,
+            process_index=r, process_count=2, t_buckets=[256],
+            u_buckets=[64])) for r in range(2)]
+        mine = to_device(rows[rank], dev)
+        both = to_device({k: np.concatenate([rows[0][k], rows[1][k]])
+                          for k in rows[0]}, dev)
+        state = create_train_state(cfg, torch.float32, dev, seed)
+        mesh_mod.broadcast_module_(state.model, mesh)
+        init = {k: v.clone() for k, v in state.model.state_dict().items()}
+        sync()
+        zero_launches()
+        t0 = time.perf_counter()
+        loss, grads = step_with_grads(cfg, state, mine, mesh)
+        sync()
+        dp_s = time.perf_counter() - t0
+        launches = read_launches()
+        launches.update({f"{k}_by_design": v
+                         for k, v in read_designs().items()})
+        after = {k: v.clone() for k, v in state.model.state_dict().items()}
+        state.model.load_state_dict(init)
+        state.opt_state, state.step = Optimizer(cfg).init(state.model), 0
+        loss_ref, grads_ref = step_with_grads(cfg, state, both, None)
+        want = state.model.state_dict()
+        grad_err = {n: rel_err(g, grads_ref[n]) for n, g in grads.items()}
+        # a tensor that was zero before the step holds its update alone
+        # (-lr x the clipped gradient), so its error is a gradient's
+        bn = ("encoder.bn.mean", "encoder.bn.var")
+        fresh = {n for n, v in init.items()
+                 if not bool(v.any()) and n not in bn}
+        err = {n: rel_err(after[n], want[n]) for n in want}
+        param_err = {n: e for n, e in err.items()
+                     if n not in fresh and n not in bn}
+        update_err = {n: err[n] for n in fresh}
+        worst_g = max(grad_err, key=grad_err.get)
+        worst_p = max(param_err, key=param_err.get)
+        worst_u = max(update_err, key=update_err.get)
+        rec = {"rank": rank, "loss": loss, "loss_ref": loss_ref,
+               "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+               "worst_grad": worst_g, "grad_rel": grad_err[worst_g],
+               "worst_param": worst_p, "param_rel": param_err[worst_p],
+               "zero_before": sorted(fresh), "worst_zero_before": worst_u,
+               "zero_before_rel": update_err[worst_u],
+               "bn_rel": max(err[n] for n in bn),
+               "dp_step_s": dp_s, "launches": launches,
+               "backend": dist.get_backend(mesh.group),
+               "device": str(dev)}
+        with open(os.path.join(data, f"dp_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_dp_two_ranks(cfg, seed, device="cuda"):
+    """Two processes on the one card over gloo (NCCL puts one rank on a
+    device), each a rank of `dp_worker`: the data-parallel step must equal
+    one process's step on the concatenated rows: loss within 1e-5
+    relative, every gradient within 1e-4 (to its largest element), the
+    BatchNorm running statistics and every updated parameter within 1e-5,
+    except a parameter that was all zero before the step (the biases whose
+    value after it is the update, -lr x the gradient): it is held to the
+    gradient bound 1e-4; each rank launches per step 10 K4, 10 K5 (fp32:
+    FMA), one K6 and one K7.  Returns (the record, the path's launches
+    summed over ranks)."""
+    import subprocess
+
+    from rnnt_tpu_torch.parallel.mesh import free_port
+
+    data = os.path.join(TRAIN_DIR, "dp2_data")
+    write_train_data(cfg, data, 2 * DP_RANK_BATCH, DP_RANK_BATCH, seed)
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(open(os.path.join(data, f"dp_rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp_worker",
+             str(r), "--dp_port", port, "--dp_dir", data, "--seed",
+             str(seed), "--dp_device", device], stdout=logs[-1],
+            stderr=subprocess.STDOUT,
+            cwd=REPO))
+    deadline = time.time() + DP_WORKER_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines()[-40:]:
+                log(f"dp_two_ranks rank {r}: {line}")
+            f.close()
+    codes = [p.returncode for p in procs]
+    require(codes == [0, 0], f"dp_two_ranks workers exited {codes}")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(data, f"dp_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    log("dp_two_ranks: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "launches"} for r in recs]))
+    launches = {}
+    for rec in recs:
+        n = rec["launches"]
+        require(rec["loss_rel"] <= 1e-5, f"dp_two_ranks rank {rec['rank']}: "
+                f"loss {rec['loss']} vs one process {rec['loss_ref']}")
+        require(rec["grad_rel"] <= 1e-4, f"dp_two_ranks rank {rec['rank']}: "
+                f"gradient {rec['worst_grad']} rel err {rec['grad_rel']}")
+        require(rec["bn_rel"] <= 1e-5 and rec["param_rel"] <= 1e-5,
+                f"dp_two_ranks rank {rec['rank']}: BatchNorm statistics "
+                f"{rec['bn_rel']}, parameter {rec['worst_param']} "
+                f"{rec['param_rel']}")
+        require(rec["zero_before_rel"] <= 1e-4, f"dp_two_ranks rank "
+                f"{rec['rank']}: parameter {rec['worst_zero_before']} (zero "
+                f"before the step) {rec['zero_before_rel']}")
+        for k, want in (("lstm_fwd", 10), ("lstm_bwd", 10),
+                        ("joint_planes", 1), ("lattice_scan", 1)):
+            require(n[k] == want, f"dp_two_ranks rank {rec['rank']}: {k} "
+                    f"launched {n[k]} times, want {want}")
+        require_warp_k7("dp_two_ranks", n["lattice_scan_by_design"], 1)
+        for k, v in n.items():
+            if isinstance(v, dict):
+                launches.setdefault(k, dict.fromkeys(v, 0))
+                for d, c in v.items():
+                    launches[k][d] += c
+            else:
+                launches[k] = launches.get(k, 0) + v
+        rec.pop("launches")
+    return recs, launches
+
+
+def drive_data_parallel(paths, cfg, seed, smi, device="cuda"):
+    """The data-parallel phase: dp_nccl, dp_two_ranks and bench_scaling,
+    each a driven path (dp_two_ranks' launches are its ranks')."""
+    from rnnt_tpu_torch.cli import bench_scaling
+
+    train_kernels = ("lstm_fwd", "lstm_bwd", "joint_planes", "lattice_scan")
+    t0 = time.perf_counter()
+    rec = {}
+    rec["dp_nccl"], paths["dp_nccl"] = drive_path(
+        "dp_nccl", lambda: run_dp_nccl(cfg, seed, device), train_kernels
+        + ("lstm_seq_infer",))
+    require_train_launches("dp_nccl", paths["dp_nccl"], DP_STEPS + 1, 2,
+                           pallas=False)
+    require_resident_k2("dp_nccl", paths["dp_nccl"])
+    log(f"path dp_nccl with its data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["dp_two_ranks"], paths["dp_two_ranks"] = run_dp_two_ranks(cfg, seed,
+                                                                   device)
+    log(f"path dp_two_ranks with its data: {time.perf_counter() - t0:.1f} s")
+    steps = 3
+    (out, _), paths["bench_scaling"] = drive_path(
+        "bench_scaling", lambda: run_main(
+            "bench_scaling", bench_scaling.main,
+            ["--devices", "1", "--per_device_batch", str(TRAIN_BATCH),
+             "--steps", str(steps), "--device", device]), train_kernels)
+    line = json_line("bench_scaling", out)
+    require(line["devices"] == 1 and line["efficiency_vs_1dev"] == 1.0
+            and np.isfinite(line["audio_s_per_s"])
+            and line["audio_s_per_s"] > 0, f"bench_scaling {line}")
+    require_train_launches("bench_scaling", paths["bench_scaling"],
+                           steps + 1, 0, pallas=False)
+    rec["bench_scaling"] = dict(line, card=smi)
+    return rec
+
+
+PHASES = ("serving", "k1_k2", "encoder_greedy", "beam", "stream_kernels",
+          "export", "training", "bench_entry_points", "data_prep",
+          "int8_flac_oracle", "k4_k7", "bench_step", "data_parallel")
+# what a phase reads from an earlier one: the run directory and the server
+# (serving), the train_cli run and its shards (training), the bench's
+# timed steps (bench_entry_points)
+PHASE_NEEDS = {"k1_k2": ("serving",), "encoder_greedy": ("serving",),
+               "beam": ("serving",), "stream_kernels": ("serving",),
+               "export": ("serving",), "bench_entry_points": ("serving",),
+               "int8_flac_oracle": ("serving", "training"),
+               "bench_step": ("serving", "bench_entry_points")}
+
+
+def select_phases(spec: str) -> list:
+    """The phases of a comma list ('all': every phase), with the phases
+    they read from, in the script's order."""
+    want = set(PHASES) if spec == "all" else set(spec.split(","))
+    bad = sorted(want - set(PHASES))
+    if bad:
+        raise SystemExit(f"unknown phases {bad}; the phases are "
+                         f"{', '.join(PHASES)}")
+    todo = list(want)
+    while todo:
+        for dep in PHASE_NEEDS.get(todo.pop(), ()):
+            if dep not in want:
+                want.add(dep)
+                todo.append(dep)
+    return [p for p in PHASES if p in want]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--phases", default="all",
+                   help="comma list of phases to run (default all: "
+                        f"{','.join(PHASES)}); a phase brings the phases it "
+                        "reads from")
+    p.add_argument("--dp_worker", type=int, default=None,
+                   help=argparse.SUPPRESS)  # a rank of dp_two_ranks
+    p.add_argument("--dp_port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dp_dir", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dp_device", default="cuda", help=argparse.SUPPRESS)
+    p.add_argument("--plain_step", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
 
+    if args.dp_worker is not None:
+        return dp_worker(args.dp_worker, args.dp_port, args.dp_dir, args.seed,
+                         args.dp_device)
+    if args.plain_step is not None:
+        return plain_train_step(args.plain_step, args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3456,6 +3898,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    phases = select_phases(args.phases)
     from rnnt_tpu_torch.config import RNNTConfig
     from rnnt_tpu_torch.kernels import build
     from rnnt_tpu_torch.models.transducer import Transducer
@@ -3468,19 +3911,22 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi_line()
     log(f"device: {kind} ({smi}); torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; phases {','.join(phases)}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    paths = build.build_all()
-    log(f"built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    build.build_all()
+    log(f"built the kernel libraries in {time.perf_counter() - t0:.1f} s")
 
     cfg = RNNTConfig()
     rng = np.random.default_rng(args.seed)
     audios = [synthetic_audio(s, rng) for s in REQUEST_SECONDS]
-    t0 = time.perf_counter()
-    model32 = Transducer(cfg).init_(args.seed)
-    log(f"parity model: {sum(p.numel() for p in model32.parameters())} "
-        f"params, init {time.perf_counter() - t0:.1f} s")
+    model32 = None
+    if "serving" in phases:
+        t0 = time.perf_counter()
+        model32 = Transducer(cfg).init_(args.seed)
+        log(f"parity model: {sum(p.numel() for p in model32.parameters())} "
+            f"params, init {time.perf_counter() - t0:.1f} s")
 
     def padded_mel(audio, device="cuda"):
         mel = F.preprocess_audio(torch.from_numpy(audio).to(device), cfg)
@@ -3490,173 +3936,208 @@ def main(argv=None) -> int:
         mel_p[0, :t] = mel
         return mel_p, t
 
-    srv = None
-    try:
-        t0 = time.perf_counter()
-        write_run_dir(model32, cfg, RUN_DIR)
-        log(f"run dir written in {time.perf_counter() - t0:.1f} s")
-        srv = start_server()
-        served = srv.service.model
-        paths = {}
-        records, paths["greedy_http"] = drive_path(
-            "greedy HTTP", lambda: post_requests(srv, audios),
-            ("log_mel_frontend", "lstm_seq_infer"))
-        beam_records, paths["beam_http"] = drive_path(
-            f"beam {BEAM} HTTP", lambda: post_requests(srv, audios,
-                                                       f"?beam={BEAM}"),
-            ("log_mel_frontend", "lstm_seq_infer", "beam_search"))
-        require(all(r["launches"]["beam_search"] == 1 for r in beam_records),
-                "one beam launch a request")
-        require_streamed_k3("beam_http", paths["beam_http"])
-        _, paths["stream_tcp"] = drive_path(
-            "stream TCP", lambda: tcp_session(srv, audios[1]),
-            ("log_mel_frontend", "lstm_seq_infer"))
-        t_phase = time.perf_counter()
+    phase_s = {}
+    t_phase = [time.perf_counter()]
 
-        k1 = check_frontend(cfg, audios)
-        mel_long, t_long = padded_mel(audios[-1])
-        k2 = check_lstm_layer(served, mel_long)
-        k2["designs_by_case"] = check_lstm_cases(cfg.encoder_size,
-                                                 cfg.projection_size)
-        for audio, secs in zip(audios, REQUEST_SECONDS):
-            profile_request(served, *padded_mel(audio), f"{secs:g} s bf16")
-            profile_beam(served, *padded_mel(audio), f"{secs:g} s bf16")
-        log(f"phase K1/K2 checks and profiles: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        model32 = model32.cuda()
-        for audio in audios:
-            mel_p, t = padded_mel(audio)
-            check_encoder_and_greedy(model32, mel_p, t, 1e-4, True)
-            check_encoder_and_greedy(served, mel_p, t, 2e-2, False)
-        log(f"phase encoder and greedy checks: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        # three utterances of up to 2 s in the 128-frame bucket
-        short = [audios[0], audios[1][: 16000 * 3 // 2], audios[2][:16000]]
-        mels = [padded_mel(a) for a in short]
-        batch = torch.zeros((3, 128, cfg.input_feat_size), device="cuda")
-        for i, (m, t) in enumerate(mels):
-            batch[i, :t] = m[0, :t]
-        cases = [("B=3 128-bucket", batch,
-                  torch.tensor([t for _, t in mels]), False, MAX_TOKENS)]
-        mel_p, t = padded_mel(audios[1])
-        cases.append(("5 s, joint x8", mel_p, torch.tensor([t]), True,
-                      MAX_TOKENS))
-        # with --seed 0 the sharp joint emits 6 tokens in the 15 s request's
-        # first 60 frames and 16 in all 250 (fp32): a cap of 8 is reached
-        # well before the end, then only blanks settle
-        mel_p, t = padded_mel(audios[2])
-        cases.append(("15 s, joint x8", mel_p, torch.tensor([t]), True, 8))
-        for audio, secs in zip(audios, REQUEST_SECONDS):
-            mel_p, t = padded_mel(audio)
-            cases.append((f"{secs:g} s", mel_p, torch.tensor([t]), False,
+    def end_phase(name):
+        phase_s[name] = time.perf_counter() - t_phase[0]
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        t_phase[0] = time.perf_counter()
+
+    srv = plain_step = None
+    paths, per_request, found = {}, {}, {}
+    timed = export_rec = k3_decode = None
+    try:
+        if "serving" in phases:
+            t0 = time.perf_counter()
+            write_run_dir(model32, cfg, RUN_DIR)
+            log(f"run dir written in {time.perf_counter() - t0:.1f} s")
+            srv = start_server()
+            served = srv.service.model
+            records, paths["greedy_http"] = drive_path(
+                "greedy HTTP", lambda: post_requests(srv, audios),
+                ("log_mel_frontend", "lstm_seq_infer"))
+            beam_records, paths["beam_http"] = drive_path(
+                f"beam {BEAM} HTTP", lambda: post_requests(srv, audios,
+                                                           f"?beam={BEAM}"),
+                ("log_mel_frontend", "lstm_seq_infer", "beam_search"))
+            require(all(r["launches"]["beam_search"] == 1
+                        for r in beam_records), "one beam launch a request")
+            require_streamed_k3("beam_http", paths["beam_http"])
+            _, paths["stream_tcp"] = drive_path(
+                "stream TCP", lambda: tcp_session(srv, audios[1]),
+                ("log_mel_frontend", "lstm_seq_infer"))
+            per_request = {"greedy_http": records, "beam_http": beam_records}
+            end_phase("serving")
+            model32 = model32.cuda()
+
+        if "k1_k2" in phases:
+            found["k1"] = check_frontend(cfg, audios)
+            mel_long, _ = padded_mel(audios[-1])
+            k2 = found["k2"] = check_lstm_layer(served, mel_long)
+            k2["designs_by_case"] = check_lstm_cases(cfg.encoder_size,
+                                                     cfg.projection_size)
+            for audio, secs in zip(audios, REQUEST_SECONDS):
+                profile_request(served, *padded_mel(audio), f"{secs:g} s bf16")
+                profile_beam(served, *padded_mel(audio), f"{secs:g} s bf16")
+            end_phase("k1_k2")
+
+        if "encoder_greedy" in phases:
+            for audio in audios:
+                mel_p, t = padded_mel(audio)
+                check_encoder_and_greedy(model32, mel_p, t, 1e-4, True)
+                check_encoder_and_greedy(served, mel_p, t, 2e-2, False)
+            end_phase("encoder_greedy")
+
+        if "beam" in phases:
+            # three utterances of up to 2 s in the 128-frame bucket
+            short = [audios[0], audios[1][: 16000 * 3 // 2],
+                     audios[2][:16000]]
+            mels = [padded_mel(a) for a in short]
+            batch = torch.zeros((3, 128, cfg.input_feat_size), device="cuda")
+            for i, (m, t) in enumerate(mels):
+                batch[i, :t] = m[0, :t]
+            cases = [("B=3 128-bucket", batch,
+                      torch.tensor([t for _, t in mels]), False, MAX_TOKENS)]
+            mel_p, t = padded_mel(audios[1])
+            cases.append(("5 s, joint x8", mel_p, torch.tensor([t]), True,
                           MAX_TOKENS))
-        k3 = check_beam(model32, served, cfg, cases)
-        log(f"phase beam checks and times: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        check_stream_kernels(model32, srv.service.tokenizer, audios[1])
-        log(f"phase stream kernels vs plain: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        export_rec, paths["export_transcribe"] = drive_path(
-            "export_transcribe", lambda: drive_export_transcribe(
-                model32, mel_long, t_long), ("lstm_seq_infer",))
-        mel5 = F.preprocess_audio(torch.from_numpy(audios[1]).cuda(), cfg)
-        export_rec["streaming"], paths["export_streaming"] = drive_path(
-            "export_streaming", lambda: drive_export_streaming(
-                model32, cfg, mel5), ("lstm_seq_infer",))
-        for name in ("export_transcribe", "export_streaming"):
-            require_fma_k2(name, paths[name])
-        export_rec["k2_call_host_us"] = k2_operator_cost(served)
-        k2["export_paths"] = export_rec
-        log(f"phase export paths: {time.perf_counter() - t_phase:.1f} s")
-        del model32
-        t_phase = time.perf_counter()
-        train_kernels = ("lstm_fwd", "lstm_bwd", "lattice_scan")
-        data = os.path.join(TRAIN_DIR, "data")
-        write_train_data(cfg, data, TRAIN_STEPS * TRAIN_BATCH, TRAIN_BATCH,
-                         args.seed)
-        _, paths["train_cli"] = drive_path(
-            "train_cli (fused loss)", lambda: run_train_cli(
-                data, os.path.join(TRAIN_DIR, "run_fused"), "fused",
-                TRAIN_STEPS),
-            train_kernels + ("joint_planes", "lstm_seq_infer"))
-        require_train_launches("train_cli", paths["train_cli"], TRAIN_STEPS,
-                               1, pallas=False)
-        for name in ("greedy_http", "beam_http", "stream_tcp", "train_cli"):
-            require_resident_k2(name, paths[name])
-        data = os.path.join(TRAIN_DIR, "data_pallas")
-        write_train_data(cfg, data, TRAIN_BATCH, TRAIN_BATCH, args.seed + 1)
-        _, paths["train_pallas_loss"] = drive_path(
-            "train_pallas_loss", lambda: run_train_cli(
-                data, os.path.join(TRAIN_DIR, "run_pallas"), "pallas", 1),
-            train_kernels)
-        require_train_launches("train_pallas_loss", paths["train_pallas_loss"],
-                               1, 1, pallas=True)
-        t_banded = time.perf_counter()
-        data = os.path.join(TRAIN_DIR, "data_banded")
-        write_train_data(cfg, data, BANDED_STEPS * TRAIN_BATCH, TRAIN_BATCH,
-                         args.seed + 2)
-        _, paths["train_banded"] = drive_path(
-            "train_banded", lambda: run_train_cli(
-                data, os.path.join(TRAIN_DIR, "run_banded"), "banded",
-                BANDED_STEPS),
-            train_kernels + ("joint_planes", "lstm_seq_infer"))
-        require_train_launches("train_banded", paths["train_banded"],
-                               BANDED_STEPS, 1, pallas=False)
-        require_resident_k2("train_banded", paths["train_banded"])
-        log(f"path train_banded with its data: "
-            f"{time.perf_counter() - t_banded:.1f} s")
-        log(f"phase training paths: {time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        timed, k3["bench_decode_inputs"] = drive_bench_entry_points(
-            paths, cfg, args.seed)
-        k3["max_abs_err"] = max([k3["max_abs_err"]] + [
-            r["max_abs_err"] for r in k3["bench_decode_inputs"].values()])
-        log(f"phase bench entry points: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        check_prep_and_specaug(paths, cfg, args.seed, smi)
-        log(f"phase data preparation and augmented training: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        art = os.path.join(RUN_DIR, "model_int8.npz")
-        run_quantize(RUN_DIR, art)
-        check_qdot(smi)
-        check_quantized_serving(paths, srv, cfg, audios, art, smi)
-        check_int8_entry_points(paths, os.path.join(TRAIN_DIR, "data"),
-                                os.path.join(TRAIN_DIR, "run_fused"), art,
-                                smi)
-        check_flac(paths, audios[1])
-        check_loss_oracle(paths, args.seed)
-        log(f"phase int8, FLAC and loss oracle: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)
-        designs = check_lstm_designs(cfg.encoder_size, cfg.projection_size)
-        for k in k45:
-            k["designs_by_case"] = {case: d[k["name"]]
-                                    for case, d in designs.items()
-                                    if k["name"] in d}
-        k6, planes32 = check_planes(cfg)
-        t_banded = time.perf_counter()
-        k6.update(check_banded(cfg))
-        k6["train_step_ms_fused_vs_banded"] = time_banded_step(cfg, args.seed)
-        log(f"banded loss gates: {time.perf_counter() - t_banded:.1f} s")
-        k7 = check_lattice(planes32)
-        k7["ms_by_wide_U1"] = check_lattice_wide()
-        del planes32
-        check_train_step_fp32(cfg, args.seed)
-        log(f"phase K4-K7 checks and times: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        bench_train_step(smi, timed, args.seed)
-        log(f"phase bench-geometry train step: "
-            f"{time.perf_counter() - t_phase:.1f} s")
-        kernels = [k1, k2, k3, *k45, k6, k7]
-        per_request = {"greedy_http": records, "beam_http": beam_records}
+            # with --seed 0 the sharp joint emits 6 tokens in the 15 s
+            # request's first 60 frames and 16 in all 250 (fp32): a cap of
+            # 8 is reached well before the end, then only blanks settle
+            mel_p, t = padded_mel(audios[2])
+            cases.append(("15 s, joint x8", mel_p, torch.tensor([t]), True, 8))
+            for audio, secs in zip(audios, REQUEST_SECONDS):
+                mel_p, t = padded_mel(audio)
+                cases.append((f"{secs:g} s", mel_p, torch.tensor([t]), False,
+                              MAX_TOKENS))
+            found["k3"] = check_beam(model32, served, cfg, cases)
+            end_phase("beam")
+
+        if "stream_kernels" in phases:
+            check_stream_kernels(model32, srv.service.tokenizer, audios[1])
+            end_phase("stream_kernels")
+
+        if "export" in phases:
+            mel_long, t_long = padded_mel(audios[-1])
+            export_rec, paths["export_transcribe"] = drive_path(
+                "export_transcribe", lambda: drive_export_transcribe(
+                    model32, mel_long, t_long), ("lstm_seq_infer",))
+            mel5 = F.preprocess_audio(torch.from_numpy(audios[1]).cuda(), cfg)
+            export_rec["streaming"], paths["export_streaming"] = drive_path(
+                "export_streaming", lambda: drive_export_streaming(
+                    model32, cfg, mel5), ("lstm_seq_infer",))
+            for name in ("export_transcribe", "export_streaming"):
+                require_fma_k2(name, paths[name])
+            export_rec["k2_call_host_us"] = k2_operator_cost(served)
+            end_phase("export")
+        model32 = None
+
+        if "training" in phases:
+            train_kernels = ("lstm_fwd", "lstm_bwd", "lattice_scan")
+            data = os.path.join(TRAIN_DIR, "data")
+            write_train_data(cfg, data, TRAIN_STEPS * TRAIN_BATCH,
+                             TRAIN_BATCH, args.seed)
+            _, paths["train_cli"] = drive_path(
+                "train_cli (fused loss)", lambda: run_train_cli(
+                    data, os.path.join(TRAIN_DIR, "run_fused"), "fused",
+                    TRAIN_STEPS),
+                train_kernels + ("joint_planes", "lstm_seq_infer"))
+            require_train_launches("train_cli", paths["train_cli"],
+                                   TRAIN_STEPS, 1, pallas=False)
+            for name in ("greedy_http", "beam_http", "stream_tcp",
+                         "train_cli"):
+                if name in paths:
+                    require_resident_k2(name, paths[name])
+            data = os.path.join(TRAIN_DIR, "data_pallas")
+            write_train_data(cfg, data, TRAIN_BATCH, TRAIN_BATCH,
+                             args.seed + 1)
+            _, paths["train_pallas_loss"] = drive_path(
+                "train_pallas_loss", lambda: run_train_cli(
+                    data, os.path.join(TRAIN_DIR, "run_pallas"), "pallas",
+                    1), train_kernels)
+            require_train_launches("train_pallas_loss",
+                                   paths["train_pallas_loss"], 1, 1,
+                                   pallas=True)
+            t_banded = time.perf_counter()
+            data = os.path.join(TRAIN_DIR, "data_banded")
+            write_train_data(cfg, data, BANDED_STEPS * TRAIN_BATCH,
+                             TRAIN_BATCH, args.seed + 2)
+            _, paths["train_banded"] = drive_path(
+                "train_banded", lambda: run_train_cli(
+                    data, os.path.join(TRAIN_DIR, "run_banded"), "banded",
+                    BANDED_STEPS),
+                train_kernels + ("joint_planes", "lstm_seq_infer"))
+            require_train_launches("train_banded", paths["train_banded"],
+                                   BANDED_STEPS, 1, pallas=False)
+            require_resident_k2("train_banded", paths["train_banded"])
+            log(f"path train_banded with its data: "
+                f"{time.perf_counter() - t_banded:.1f} s")
+            end_phase("training")
+
+        if "bench_entry_points" in phases:
+            timed, k3_decode = drive_bench_entry_points(paths, cfg, args.seed)
+            end_phase("bench_entry_points")
+
+        if "data_prep" in phases:
+            check_prep_and_specaug(paths, cfg, args.seed, smi)
+            end_phase("data_prep")
+
+        if "k4_k7" in phases:
+            # the plain side of the fp32 step gate runs on the host CPU
+            # beside the int8 phase's host-bound decodes (or K4-K7's gates)
+            plain_step = start_plain_train_step_fp32(cfg, args.seed)
+        if "int8_flac_oracle" in phases:
+            art = os.path.join(RUN_DIR, "model_int8.npz")
+            run_quantize(RUN_DIR, art)
+            check_qdot(smi)
+            check_quantized_serving(paths, srv, cfg, audios, art, smi)
+            check_int8_entry_points(paths, os.path.join(TRAIN_DIR, "data"),
+                                    os.path.join(TRAIN_DIR, "run_fused"), art,
+                                    smi)
+            check_flac(paths, audios[1])
+            check_loss_oracle(paths, args.seed)
+            end_phase("int8_flac_oracle")
+
+        if "k4_k7" in phases:
+            k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)
+            designs = check_lstm_designs(cfg.encoder_size,
+                                         cfg.projection_size)
+            for k in k45:
+                k["designs_by_case"] = {case: d[k["name"]]
+                                        for case, d in designs.items()
+                                        if k["name"] in d}
+            found["k4"], found["k5"] = k45
+            k6, planes32 = check_planes(cfg)
+            t_banded = time.perf_counter()
+            k6.update(check_banded(cfg))
+            k6["train_step_ms_fused_vs_banded"] = time_banded_step(cfg,
+                                                                   args.seed)
+            log(f"banded loss gates: {time.perf_counter() - t_banded:.1f} s")
+            k7 = check_lattice(planes32)
+            k7["ms_by_wide_U1"] = check_lattice_wide()
+            del planes32
+            found["k6"], found["k7"] = k6, k7
+            check_train_step_fp32(cfg, args.seed, plain_step)
+            end_phase("k4_k7")
+
+        if "bench_step" in phases:
+            bench_train_step(smi, timed, args.seed)
+            end_phase("bench_step")
+
+        if "data_parallel" in phases:
+            dp = drive_data_parallel(paths, cfg, args.seed, smi)
+            end_phase("data_parallel")
+
+        if "k2" in found and export_rec is not None:
+            found["k2"]["export_paths"] = export_rec
+        if "k3" in found and k3_decode is not None:
+            k3 = found["k3"]
+            k3["bench_decode_inputs"] = k3_decode
+            k3["max_abs_err"] = max([k3["max_abs_err"]] + [
+                r["max_abs_err"] for r in k3_decode.values()])
+        kernels = [found[k] for k in ("k1", "k2", "k3", "k4", "k5", "k6",
+                                      "k7") if k in found]
         for k in kernels:
             name = k["name"]
             k["launches"] = sum(p[name] for p in paths.values())
@@ -3665,25 +4146,33 @@ def main(argv=None) -> int:
             k["launches_per_request"] = {
                 path: [r["launches"][name] for r in recs]
                 for path, recs in per_request.items()}
-            if f"{name}_by_design" in paths["train_cli"]:
-                k["launches_by_design"] = {
-                    d: sum(p[f"{name}_by_design"][d] for p in paths.values())
-                    for d in paths["train_cli"][f"{name}_by_design"]}
-            log(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, "
+            designs = {}
+            for counts in paths.values():
+                for d, n in counts.get(f"{name}_by_design", {}).items():
+                    designs[d] = designs.get(d, 0) + n
+            if designs:
+                k["launches_by_design"] = designs
+            log(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']}, "
                 f"bound {k['bound_ms']:.5f} by {k['bound_by']}, library "
                 f"{k['library_ms']}), launches {k['launches_by_path']}")
+        if "data_parallel" in phases:
+            log("data_parallel " + json.dumps(dp))
     finally:
         if srv is not None:
             srv.shutdown()
+        if plain_step is not None and plain_step[1].poll() is None:
+            plain_step[1].kill()
+            plain_step[1].wait()
         shutil.rmtree(RUN_DIR, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
+    log(f"phase times (s): {json.dumps(phase_s)}; script "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,5 +1,5 @@
 """Train or evaluate a model on preprocessed record shards, on the card
-(PyTorch/CUDA port of `rnnt_tpu.cli.run_rnnt`, one process, one device).
+(PyTorch/CUDA port of `rnnt_tpu.cli.run_rnnt`, one process a device).
 
   python -m rnnt_tpu_torch.cli.run_rnnt --mode train \\
       --data_dir data/ls --output_dir runs/ls100 [--checkpoint runs/ls100]
@@ -16,14 +16,27 @@ with the XLA beam's counterpart, and no loss is reported (the loss paths
 read fp joint weights).  --profile_dir P wraps the mode's work in
 torch.profiler (CPU activities, and CUDA activities on the card) and
 writes a Chrome trace under P.  --loss_impl banded trains (and, in
-eval/test, scores) on the banded loss with the config's loss_band.  Not yet
-ported, and refused with an error: --model_parallel > 1, --multihost,
---ckpt_backend orbax.
+eval/test, scores) on the banded loss with the config's loss_band.
+
+--multihost runs data parallel over torch.distributed, one process a
+device (NCCL on the card, gloo on the CPU): each process is started with
+--coordinator_address HOST:PORT --num_processes N --process_id I, or by
+torchrun, whose environment gives the same (then the three flags are left
+out).  --batch_size is then each process's batch (the global batch is
+batch_size x N), --pad_frames and --pad_tokens are required (every rank
+runs the same shapes), each process reads its own shards, the epochs run
+in lockstep (the fewest batches any rank keeps), the BatchNorm statistics
+and the loss are the global batch's, eval sums its statistics across
+ranks and process 0 reports, and checkpoints are collective
+(checkpoint_NNNNNNNN.dcp; --ckpt_backend auto picks dcp across processes).
+Not yet ported, and refused with an error: --model_parallel > 1;
+--ckpt_backend orbax is the JAX package's (the port writes npz or dcp).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import shutil
 import sys
@@ -45,7 +58,8 @@ def parse_args(argv=None):
                    help="warm start: weights from this checkpoint, fresh "
                         "optimizer and step (ignored when a resume "
                         "checkpoint applies)")
-    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--batch_size", type=int, default=32,
+                   help="examples a step; under --multihost each process's")
     p.add_argument("--n_epochs", type=int, default=1000)
     p.add_argument("--steps_per_log", type=int, default=10)
     p.add_argument("--steps_per_checkpoint", type=int, default=1000)
@@ -89,18 +103,21 @@ def parse_args(argv=None):
                         "of a few steps: the trace is held in host memory "
                         "until the run ends")
     p.add_argument("--ckpt_backend", default="auto",
-                   choices=["auto", "npz", "orbax"],
-                   help="auto and npz write npz checkpoints; orbax is not "
-                        "yet ported")
+                   choices=["auto", "npz", "dcp", "orbax"],
+                   help="auto = dcp (torch.distributed.checkpoint, "
+                        "collective) across processes, npz otherwise; "
+                        "orbax is the JAX package's and is refused")
     p.add_argument("--multihost", action="store_true",
-                   help="not yet ported")
+                   help="data parallel over torch.distributed, one process "
+                        "a device (see above)")
     p.add_argument("--coordinator_address", default=None,
-                   help="with --multihost only")
+                   help="HOST:PORT of process 0 (omit under torchrun)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--pad_frames", type=int, default=0,
                    help="pad every batch to this many mel frames (one "
-                        "static shape instead of (T, U) buckets)")
+                        "static shape instead of (T, U) buckets); "
+                        "required with --multihost")
     p.add_argument("--pad_tokens", type=int, default=0,
                    help="pad every batch to this many label tokens")
     p.add_argument("--config_override", nargs="*", default=[],
@@ -111,12 +128,16 @@ def parse_args(argv=None):
     if args.reader_threads > 1 and args.shuffle_buffer <= 1:
         p.error("--reader_threads > 1 requires --shuffle_buffer > 1 "
                 "(parallel reads interleave nondeterministically)")
-    unported = [flag for flag, on in (
-        ("--model_parallel > 1", args.model_parallel > 1),
-        ("--multihost", args.multihost),
-        ("--ckpt_backend orbax", args.ckpt_backend == "orbax")) if on]
-    if unported:
-        p.error(f"not yet ported to the PyTorch port: {', '.join(unported)}")
+    if args.model_parallel > 1:
+        p.error("not yet ported to the PyTorch port: --model_parallel > 1 "
+                "(vocab tensor parallelism)")
+    if args.ckpt_backend == "orbax":
+        p.error("--ckpt_backend orbax: the PyTorch port cannot write orbax "
+                "checkpoints; use dcp (collective) or npz")
+    if args.multihost and not (args.pad_frames and args.pad_tokens):
+        p.error("--multihost requires --pad_frames/--pad_tokens: every "
+                "rank must run the same batch shape each step (bucketed "
+                "per-rank padding would desynchronise the collectives)")
     return args
 
 
@@ -144,16 +165,43 @@ def _load_config(args):
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
+    # a process group this call creates is destroyed when it returns
+    owns_group = args.multihost and not dist.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args):
     import torch
 
     from rnnt_tpu_torch.data import pipeline
+    from rnnt_tpu_torch.data import records as records_mod
     from rnnt_tpu_torch.data.tokenizer import SUBWORD_FILENAME, get_tokenizer
     from rnnt_tpu_torch.device import resolve_device
+    from rnnt_tpu_torch.parallel import mesh as mesh_mod
     from rnnt_tpu_torch.train import checkpoint as ckpt_mod
     from rnnt_tpu_torch.train.loop import run_evaluate, run_training
     from rnnt_tpu_torch.train.state import create_train_state
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.multihost:
+        dev = mesh_mod.init_distributed(
+            args.coordinator_address, args.num_processes, args.process_id,
+            args.device)
+        mesh = mesh_mod.make_mesh(data=-1, model=args.model_parallel,
+                                  device=dev)
+        if args.mode == "train" and args.batch_size % mesh.shape["data"]:
+            sys.exit(f"--batch_size {args.batch_size} must be divisible by "
+                     f"the data-axis size {mesh.shape['data']} of the "
+                     f"{mesh.shape} mesh")
+    else:
+        dev = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     if args.checkpoint == "auto":
         args.checkpoint = (args.output_dir if ckpt_mod.list_checkpoint_steps(
             args.output_dir) else None)
@@ -167,25 +215,32 @@ def main(argv=None):
         if os.path.exists(os.path.join(cand, SUBWORD_FILENAME)):
             tok_src = cand
     tokenizer = get_tokenizer(tok_src, cfg.token_type, cfg.vocab_size)
-    if cfg.token_type == "word-piece" and args.mode == "train":
+    # every rank has read the sidecars before the first rank rewrites them
+    mesh_mod.barrier(mesh)
+    if cfg.token_type == "word-piece" and args.mode == "train" and lead:
         src = os.path.join(tok_src, SUBWORD_FILENAME)
         dst = os.path.join(args.output_dir, SUBWORD_FILENAME)
         if os.path.abspath(src) != os.path.abspath(dst):
             shutil.copy(src, dst)
     cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
     # the sidecar records the training recipe: eval/test never rewrite it
-    if args.mode == "train":
+    if args.mode == "train" and lead:
         cfg.save(args.output_dir)
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.checkpoint:
-        state = ckpt_mod.restore_checkpoint(args.checkpoint, cfg, dtype, dev)
+        state = ckpt_mod.restore_checkpoint(args.checkpoint, cfg, dtype, dev,
+                                            mesh)
     elif args.init_from:
-        print(f"warm-start: weights from {args.init_from}, fresh "
-              "optimizer/step")
-        state = ckpt_mod.init_from_checkpoint(args.init_from, cfg, dtype, dev)
+        if lead:
+            print(f"warm-start: weights from {args.init_from}, fresh "
+                  "optimizer/step")
+        state = ckpt_mod.init_from_checkpoint(args.init_from, cfg, dtype, dev,
+                                              mesh)
     else:
         state = create_train_state(cfg, dtype, dev)
+    # every rank starts from rank 0's parameters
+    mesh_mod.broadcast_module_(state.model, mesh)
     int8_exec = bool(args.quantized) and args.int8_exec
     if args.quantized:
         from rnnt_tpu_torch.ops.quantize import load_quantized_into_
@@ -203,15 +258,40 @@ def main(argv=None):
         bucket_kw = dict(t_buckets=[args.pad_frames],
                          u_buckets=[args.pad_tokens])
 
+    # each read group (one rank on the data axis) reads its own shards
+    read_group, read_groups = (mesh_mod.data_read_group(mesh)
+                               if mesh is not None else (0, 1))
+    steps_per_epoch = None
+    if mesh is not None and args.mode == "train":
+        # lockstep: a rank that ran out of batches while the others step
+        # would hang their collectives, so every epoch stops at the fewest
+        # batches any rank keeps (a metadata scan, counting only the
+        # examples inside the --pad_frames/--pad_tokens bounds)
+        kept = sum(1 for d in records_mod.scan_lengths(
+            os.path.join(args.data_dir, "train-*.rnr"),
+            process_index=read_group, process_count=read_groups)
+            if d.get("spec_lengths", 0) <= args.pad_frames
+            and d.get("label_lengths", 0) <= args.pad_tokens)
+        counts = mesh_mod.all_gather_ints(-(-kept // args.batch_size), mesh)
+        steps_per_epoch = min(counts)
+        if lead:
+            print(f"multi-process lockstep: {steps_per_epoch} steps/epoch "
+                  f"(per-rank batch counts {counts})")
+
     def batches(split, shuffle=False):
         def gen(epoch=0):
             stream = pipeline.batches_from_shards(
                 os.path.join(args.data_dir, f"{split}-*.rnr"), args.batch_size,
+                process_index=read_group, process_count=read_groups,
                 shuffle_buffer=args.shuffle_buffer if shuffle else 0,
-                seed=epoch * 9973,
+                # seeded by read group: replicas of one group read alike
+                seed=epoch * 9973 + read_group,
                 reader_threads=args.reader_threads if shuffle else 1,
                 **bucket_kw)
-            yield from pipeline.prefetch(stream, depth=2)
+            out = pipeline.prefetch(stream, depth=2)
+            if steps_per_epoch is not None and split == "train":
+                out = itertools.islice(out, steps_per_epoch)
+            yield from out
         return gen
 
     def run_mode():
@@ -223,7 +303,8 @@ def main(argv=None):
                          steps_per_log=args.steps_per_log,
                          steps_per_checkpoint=args.steps_per_checkpoint,
                          eval_max_batches=args.eval_size,
-                         loss_impl=args.loss_impl, mel_dtype=mel_dtype)
+                         loss_impl=args.loss_impl, mel_dtype=mel_dtype,
+                         ckpt_backend=args.ckpt_backend, mesh=mesh)
             return state
         split = "dev" if args.mode == "eval" else "test"
         t0 = time.time()
@@ -232,9 +313,10 @@ def main(argv=None):
         metrics = run_evaluate(cfg, state.model, batches(split)(),
                                tokenizer=tokenizer, decode=args.decode,
                                loss_impl=args.loss_impl, mel_dtype=mel_dtype,
-                               loss_metrics=not int8_exec)
-        print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-        print(f"eval wall-clock: {time.time() - t0:.1f}s")
+                               loss_metrics=not int8_exec, mesh=mesh)
+        if lead:
+            print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            print(f"eval wall-clock: {time.time() - t0:.1f}s")
         return metrics
 
     if args.mode != "train" and not args.checkpoint:
@@ -247,7 +329,9 @@ def main(argv=None):
     with torch.profiler.profile(activities=activities) as prof:
         result = run_mode()
     os.makedirs(args.profile_dir, exist_ok=True)
-    path = os.path.join(args.profile_dir, f"run_rnnt_{args.mode}.pt.trace.json")
+    rank = f".rank{mesh.rank}" if mesh is not None and mesh.size > 1 else ""
+    path = os.path.join(args.profile_dir,
+                        f"run_rnnt_{args.mode}{rank}.pt.trace.json")
     prof.export_chrome_trace(path)
     print(f"profile trace written to {path}")
     return result

@@ -18,7 +18,7 @@ import glob as globlib
 import os
 import struct
 import zlib
-from typing import Dict, Iterable, Iterator, List
+from typing import Dict, Iterable, Iterator, List, Sequence
 
 import numpy as np
 
@@ -133,6 +133,57 @@ def read_shard(path: str, *, verify_crc: bool = True) -> Iterator[Example]:
             yield _deserialize(payload)
 
 
+def _shard_paths(pattern_or_paths) -> List[str]:
+    if isinstance(pattern_or_paths, str):
+        paths = sorted(globlib.glob(pattern_or_paths))
+    else:
+        paths = list(pattern_or_paths)
+    if not paths:
+        raise FileNotFoundError(f"no shards match {pattern_or_paths}")
+    return paths
+
+
+def scan_lengths(pattern_or_paths, *, process_index: int = 0,
+                 process_count: int = 1,
+                 fields: Sequence[str] = ("spec_lengths", "label_lengths")
+                 ) -> Iterator[Dict[str, int]]:
+    """Metadata-only scan: yields the scalar `fields` of every record of
+    this process's shards (as `read_shards` splits them) without reading
+    the payloads: large arrays are skipped with seeks, no CRC, no numpy
+    arrays.  Counting the examples that survive the --pad_frames /
+    --pad_tokens bounds for the multi-process steps-per-epoch agreement
+    reads a few bytes a record."""
+    want = set(fields)
+    for p in _shard_paths(pattern_or_paths)[process_index::process_count]:
+        with open(p, "rb") as f:
+            if f.read(8)[:4] != MAGIC:
+                raise ValueError(f"{p}: not a RNTR shard")
+            while True:
+                hdr = f.read(12)
+                if len(hdr) < 12:
+                    break
+                (ln,) = struct.unpack("<Q", hdr[:8])
+                end = f.tell() + ln
+                (n,) = struct.unpack("<B", f.read(1))
+                out: Dict[str, int] = {}
+                for _ in range(n):
+                    (lnm,) = struct.unpack("<B", f.read(1))
+                    name = f.read(lnm).decode()
+                    (ld,) = struct.unpack("<B", f.read(1))
+                    dtype = np.dtype(f.read(ld).decode())
+                    (nd,) = struct.unpack("<B", f.read(1))
+                    if nd:
+                        f.seek(8 * nd, 1)
+                    (nb,) = struct.unpack("<Q", f.read(8))
+                    if name in want and nb <= 16:
+                        out[name] = int(np.frombuffer(
+                            f.read(nb), dtype=dtype).reshape(-1)[0])
+                    else:
+                        f.seek(nb, 1)
+                f.seek(end)  # realign past any trailing fields
+                yield out
+
+
 def read_shards(pattern_or_paths, *, process_index: int = 0,
                 process_count: int = 1) -> Iterator[Example]:
     """Stream examples from shards, interleaved round-robin per process.
@@ -140,11 +191,5 @@ def read_shards(pattern_or_paths, *, process_index: int = 0,
     With process_count > 1 each host reads a disjoint shard subset — the
     host-sharded input pipeline for multi-host training (SURVEY.md §2.3).
     """
-    if isinstance(pattern_or_paths, str):
-        paths = sorted(globlib.glob(pattern_or_paths))
-    else:
-        paths = list(pattern_or_paths)
-    if not paths:
-        raise FileNotFoundError(f"no shards match {pattern_or_paths}")
-    for p in paths[process_index::process_count]:
+    for p in _shard_paths(pattern_or_paths)[process_index::process_count]:
         yield from read_shard(p)

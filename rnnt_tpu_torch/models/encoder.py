@@ -70,10 +70,11 @@ class Encoder(nn.Module):
         T' = ceil(T / time_reduction_factor)."""
         return self._layers(self.bn(mel), state, False, None)
 
-    def forward_train(self, mel: torch.Tensor, generator=None):
+    def forward_train(self, mel: torch.Tensor, generator=None, mesh=None):
         """The training forward from a zero state: (encoded, (new BatchNorm
-        mean, var))."""
-        x, bn_stats = self.bn.forward_train(mel)
+        mean, var)); with a data-parallel `mesh` the BatchNorm statistics
+        are the global batch's."""
+        x, bn_stats = self.bn.forward_train(mel, mesh)
         return self._layers(x, None, True, generator)[0], bn_stats
 
     def _layers(self, x, state, training, generator):

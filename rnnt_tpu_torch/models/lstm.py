@@ -38,6 +38,7 @@ from torch import nn
 from rnnt_tpu_torch.ops import library, lstm_cuda
 from rnnt_tpu_torch.ops.int8_exec import act_dtype, is_quant, qdot, weight_shape
 from rnnt_tpu_torch.ops.matmul import matmul_to
+from rnnt_tpu_torch.parallel import mesh as mesh_mod
 
 
 def frozen_param(shape) -> nn.Parameter:
@@ -171,19 +172,40 @@ class BatchNorm(nn.Module):
         y = (x.float() - mean) * torch.rsqrt(var + 1e-3)
         return (y * self.scale.float() + self.bias.float()).to(x.dtype)
 
-    def forward_train(self, x: torch.Tensor):
+    def forward_train(self, x: torch.Tensor, mesh=None):
         """Normalise with the batch statistics over (B, T), padded frames
         included, biased variance.  Returns (y, (new_mean, new_var)) with
         new = 0.99 * running + 0.01 * batch (Keras' momentum); the running
-        statistics are not changed here (the train step writes them)."""
+        statistics are not changed here (the train step writes them).
+
+        With a `parallel.mesh.Mesh` of more than one rank the batch is the
+        global one: the frame sum and count are summed across ranks first,
+        then the squared deviations from the global mean (two passes, as
+        `jnp.var`), both through a differentiable all-reduce, so the
+        gradient flows through the statistics as in one process."""
         momentum = 0.99
         xf = x.float()
-        mean = xf.mean(dim=(0, 1))
-        var = xf.var(dim=(0, 1), unbiased=False)
+        if mesh is not None and mesh.size > 1:
+            mean, var = self._global_stats(xf, mesh)
+        else:
+            mean = xf.mean(dim=(0, 1))
+            var = xf.var(dim=(0, 1), unbiased=False)
         with torch.no_grad():
             new = (momentum * self.mean.float() + (1 - momentum) * mean,
                    momentum * self.var.float() + (1 - momentum) * var)
         return self._normalize(x, mean, var), new
+
+    @staticmethod
+    def _global_stats(xf: torch.Tensor, mesh):
+        F = xf.shape[-1]
+        count = torch.full((1,), float(xf.shape[0] * xf.shape[1]),
+                           device=xf.device)
+        sums = mesh_mod.all_reduce_sum(
+            torch.cat([xf.sum(dim=(0, 1)), count]), mesh)
+        mean = sums[:F] / sums[F]
+        sq = mesh_mod.all_reduce_sum((xf - mean).square().sum(dim=(0, 1)),
+                                     mesh)
+        return mean, sq / sums[F]
 
 
 def time_reduction(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -106,13 +106,14 @@ class Transducer(nn.Module):
         return self.encoder.layers[0].lstm.wh.dtype
 
     def encode_predict(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
-                       training: bool = False, generator=None):
+                       training: bool = False, generator=None, mesh=None):
         """Encoder and prediction net over a batch: (encoded [B, T', P],
         pred_out [B, U+1, P], (BatchNorm mean, var)).  In training the
-        BatchNorm statistics are the updated running ones; otherwise the
-        current ones."""
+        BatchNorm statistics are the updated running ones (of the global
+        batch across a data-parallel `mesh`); otherwise the current ones."""
         if training:
-            encoded, bn_stats = self.encoder.forward_train(mel, generator)
+            encoded, bn_stats = self.encoder.forward_train(mel, generator,
+                                                           mesh)
         else:
             encoded, _ = self.encoder(mel)
             bn_stats = (self.encoder.bn.mean, self.encoder.bn.var)
@@ -121,10 +122,10 @@ class Transducer(nn.Module):
         return encoded, pred_out, bn_stats
 
     def apply(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
-              training: bool = False, generator=None):
+              training: bool = False, generator=None, mesh=None):
         """Full forward: (logits [B, T', U+1, V] fp32, BatchNorm stats)."""
         encoded, pred_out, bn_stats = self.encode_predict(
-            mel, pred_inp, training=training, generator=generator)
+            mel, pred_inp, training=training, generator=generator, mesh=mesh)
         return joint_mod.joint_logits(self.joint, encoded, pred_out), bn_stats
 
     def encode(self, mel: torch.Tensor, state: Optional[State] = None):

@@ -15,12 +15,20 @@ in order), then the optimizer state (`train.state.Optimizer.slots`).  bf16
 leaves are stored as fp32.  So either package resumes the other's
 checkpoints with the optimizer state.  Writes publish atomically (a
 temporary file renamed into place) and keep the newest `keep` steps.
+
+A multi-process run writes the same leaves collectively with
+`torch.distributed.checkpoint` (backend "dcp", the counterpart of the JAX
+package's orbax backend, which the port cannot import) as
+`checkpoint_{step:08d}.dcp/`, each leaf in its own dtype; every rank takes
+part in the save and the restore.  Only the port reads these; npz stays
+the format both packages read.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 import threading
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -29,19 +37,24 @@ import torch
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.device import resolve_device
+from rnnt_tpu_torch.parallel import mesh as mesh_mod
 
 _CKPT_RE = re.compile(r"^checkpoint_(\d+)$")
+_DCP_RE = re.compile(r"^checkpoint_(\d+)\.dcp$")
 _ORBAX_RE = re.compile(r"^checkpoint_(\d+)\.orbax$")
+BACKENDS = ("auto", "npz", "dcp")
 
 
 def sidecar_dir(ckpt_dir: str, filename: str = "config.json") -> str:
     """The directory that owns a checkpoint's sidecars: the directory itself,
-    or, for a pinned step directory `checkpoint_NNNNNNNN` without them, its
-    run directory.  Any other directory never falls back to its parent."""
+    or, for a pinned step directory (`checkpoint_NNNNNNNN` or its `.dcp`)
+    without them, its run directory.  Any other directory never falls back
+    to its parent."""
     if not os.path.exists(os.path.join(ckpt_dir, filename)):
         path = os.path.abspath(ckpt_dir)
         parent = os.path.dirname(path)
-        if (_CKPT_RE.match(os.path.basename(path))
+        name = os.path.basename(path)
+        if ((_CKPT_RE.match(name) or _DCP_RE.match(name))
                 and os.path.exists(os.path.join(parent, filename))):
             return parent
     return ckpt_dir
@@ -82,22 +95,34 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def list_checkpoint_steps(ckpt_dir: str) -> List[int]:
-    """Steps with a published state.npz under a run directory."""
-    steps = []
+def _is_dcp(path: str) -> bool:
+    return os.path.exists(os.path.join(path, ".metadata"))
+
+
+def _published_steps(ckpt_dir: str) -> Dict[int, str]:
+    """step -> its published step directory (npz over dcp for one step)."""
+    out: Dict[int, str] = {}
     if os.path.isdir(ckpt_dir):
-        for name in os.listdir(ckpt_dir):
+        for name in sorted(os.listdir(ckpt_dir), reverse=True):
+            path = os.path.join(ckpt_dir, name)
             m = _CKPT_RE.match(name)
-            if m and os.path.exists(os.path.join(ckpt_dir, name, "state.npz")):
-                steps.append(int(m.group(1)))
-    return sorted(steps)
+            if m and os.path.exists(os.path.join(path, "state.npz")):
+                out[int(m.group(1))] = path
+            m = _DCP_RE.match(name)
+            if m and _is_dcp(path):
+                out.setdefault(int(m.group(1)), path)
+    return out
+
+
+def list_checkpoint_steps(ckpt_dir: str) -> List[int]:
+    """Steps with a published checkpoint (state.npz or a .dcp directory)
+    under a run directory."""
+    return sorted(_published_steps(ckpt_dir))
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    steps = list_checkpoint_steps(ckpt_dir)
-    if not steps:
-        return None
-    return os.path.join(ckpt_dir, f"checkpoint_{steps[-1]:08d}")
+    steps = _published_steps(ckpt_dir)
+    return steps[max(steps)] if steps else None
 
 
 def has_orbax(path: str) -> bool:
@@ -106,50 +131,81 @@ def has_orbax(path: str) -> bool:
                 _ORBAX_RE.match(n) for n in os.listdir(path))))
 
 
-def _latest_step_dir(run_dir: str) -> str:
-    latest = latest_checkpoint(run_dir)
+def _resolve_step_dir(path_or_dir: str) -> str:
+    """The step directory to read: the path itself when it holds a
+    checkpoint, else its latest step.  Orbax checkpoints are refused."""
+    if has_orbax(path_or_dir):
+        raise ValueError(
+            f"{path_or_dir}: orbax checkpoints are not readable by the "
+            "PyTorch port; save with backend='npz' or, across processes, "
+            "backend='dcp'")
+    if (os.path.exists(os.path.join(path_or_dir, "state.npz"))
+            or _is_dcp(path_or_dir)):
+        return path_or_dir
+    latest = latest_checkpoint(path_or_dir)
     if latest is None:
-        raise FileNotFoundError(f"no checkpoint under {run_dir}")
+        raise FileNotFoundError(f"no checkpoint under {path_or_dir}")
     return latest
 
 
-def restore_params(path_or_dir: str,
-                   cfg: RNNTConfig) -> Tuple[int, Dict[str, torch.Tensor]]:
-    """Read a `state.npz` checkpoint: a step directory, or a run directory
-    (its latest step).  Returns (step, state_dict) with fp32 tensors named
-    as `Transducer.state_dict()`; every leaf's shape is checked against
-    `cfg`.  Orbax checkpoints are refused."""
+def _load_leaves(path: str, count: Optional[int] = None,
+                 mesh=None) -> List[torch.Tensor]:
+    """The first `count` (None: all) `leaf_{i}` of a step directory as CPU
+    tensors: an npz's as stored (fp32, int32), a .dcp's in their saved
+    dtypes (a collective load over the mesh's group, or the default group
+    when one exists)."""
+    if not _is_dcp(path):
+        with np.load(os.path.join(path, "state.npz")) as data:
+            n = len(data.files) if count is None else min(count,
+                                                          len(data.files))
+            arrs = [data[f"leaf_{i}"] for i in range(n)]
+        for i, a in enumerate(arrs):
+            if a.dtype.kind == "V":
+                raise ValueError(f"{path}: leaf {i} holds raw bfloat16 bytes "
+                                 "(legacy layout), re-save it as fp32")
+        return [torch.from_numpy(np.asarray(a)) for a in arrs]
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    n = len(meta) if count is None else min(count, len(meta))
+    leaves = {}
+    for i in range(n):
+        m = meta[f"leaf_{i}"]
+        leaves[f"leaf_{i}"] = torch.empty(tuple(m.size),
+                                          dtype=m.properties.dtype)
+    dcp.load(leaves, checkpoint_id=path,
+             process_group=mesh.group if mesh is not None else None,
+             no_dist=not dist.is_initialized())
+    return [leaves[f"leaf_{i}"] for i in range(n)]
+
+
+def restore_params(path_or_dir: str, cfg: RNNTConfig, mesh=None
+                   ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """Read a checkpoint's parameters: a step directory (npz or .dcp), or a
+    run directory (its latest step).  Returns (step, state_dict) with fp32
+    tensors named as `Transducer.state_dict()`; every leaf's shape is
+    checked against `cfg`.  Orbax checkpoints are refused."""
     from rnnt_tpu_torch.models.transducer import Transducer
 
-    path = path_or_dir
-    if has_orbax(path):
-        raise ValueError(
-            f"{path_or_dir}: orbax checkpoints are not readable by the "
-            "PyTorch port; save with backend='npz'")
-    if not os.path.exists(os.path.join(path, "state.npz")):
-        path = _latest_step_dir(path)
+    path = _resolve_step_dir(path_or_dir)
     with torch.device("meta"):  # shapes only, no storage
         shapes = {k: tuple(v.shape)
                   for k, v in Transducer(cfg).state_dict().items()}
     names = flatten_order(shapes)
+    leaves = _load_leaves(path, 1 + len(names), mesh)
+    if len(leaves) < 1 + len(names):
+        raise ValueError(f"{path}: {len(leaves)} leaves, the model needs "
+                         f"1 + {len(names)} (config mismatch?)")
     sd: Dict[str, torch.Tensor] = {}
-    with np.load(os.path.join(path, "state.npz")) as data:
-        n_leaves = len(data.files)
-        if n_leaves < 1 + len(names):
-            raise ValueError(f"{path}: {n_leaves} leaves, the model needs "
-                             f"1 + {len(names)} (config mismatch?)")
-        step = int(data["leaf_0"])
-        for i, name in enumerate(names, start=1):
-            arr = data[f"leaf_{i}"]
-            if arr.dtype.kind == "V":
-                raise ValueError(f"{path}: leaf {i} holds raw bfloat16 bytes "
-                                 "(legacy layout), re-save it as fp32")
-            if arr.shape != shapes[name]:
-                raise ValueError(
-                    f"leaf {i} ({name}): checkpoint shape {arr.shape} != "
-                    f"model {shapes[name]} (config mismatch?)")
-            sd[name] = torch.from_numpy(arr.astype(np.float32))
-    return step, sd
+    for i, name in enumerate(names, start=1):
+        if tuple(leaves[i].shape) != shapes[name]:
+            raise ValueError(
+                f"leaf {i} ({name}): checkpoint shape "
+                f"{tuple(leaves[i].shape)} != model {shapes[name]} "
+                "(config mismatch?)")
+        sd[name] = leaves[i].float()
+    return int(leaves[0]), sd
 
 
 # ---------------------------------------------------------------- training
@@ -175,6 +231,70 @@ def state_arrays(step: int, sd: Dict[str, torch.Tensor],
     return out
 
 
+def state_tensors(step: int, sd: Dict[str, torch.Tensor],
+                  opt_state: Dict) -> Dict[str, torch.Tensor]:
+    """The leaves of `state_arrays` as tensors in their own dtypes (where
+    they live; counts as int32 scalars on the host), for a .dcp save."""
+    from rnnt_tpu_torch.train.state import Optimizer
+
+    leaves = [step] + [sd[n] for n in flatten_order(sd)]
+    leaves += [c[k] for c, k in Optimizer.slots(opt_state)]
+    return {f"leaf_{i}": (x.detach() if isinstance(x, torch.Tensor)
+                          else torch.tensor(int(x), dtype=torch.int32))
+            for i, x in enumerate(leaves)}
+
+
+def _prune(ckpt_dir: str, keep: int) -> None:
+    """Delete all but the newest `keep` steps (npz and .dcp alike)."""
+    for s in list_checkpoint_steps(ckpt_dir)[:-keep]:
+        for name in (f"checkpoint_{s:08d}", f"checkpoint_{s:08d}.dcp"):
+            shutil.rmtree(os.path.join(ckpt_dir, name), ignore_errors=True)
+
+
+def resolve_backend(backend: str, mesh=None) -> str:
+    """'auto' is dcp across more than one process and npz otherwise; npz
+    across processes is refused (each rank would write the same file)."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"checkpoint backend {backend!r}: the PyTorch port writes "
+            f"{', '.join(BACKENDS)} (orbax is the JAX package's; use dcp)")
+    multi = mesh is not None and mesh.size > 1
+    if backend == "auto":
+        return "dcp" if multi else "npz"
+    if backend == "npz" and multi:
+        raise ValueError(
+            "backend='npz' cannot save from several processes; use "
+            "backend='dcp' (ckpt_backend='auto' picks it)")
+    return backend
+
+
+def _write_dcp(ckpt_dir: str, tensors: Dict[str, torch.Tensor],
+               cfg: RNNTConfig, *, keep: int, step: int, mesh=None) -> str:
+    """Write checkpoint_{step}.dcp collectively (every rank of the mesh's
+    group calls this) into a temporary directory that the first rank
+    renames into place, then prunes."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.join(ckpt_dir, f"checkpoint_{step:08d}.dcp")
+    tmp = path + ".tmp"
+    first = mesh is None or mesh.rank == 0
+    if first:
+        cfg.save(ckpt_dir)
+        shutil.rmtree(tmp, ignore_errors=True)
+    mesh_mod.barrier(mesh)
+    dcp.save(tensors, checkpoint_id=tmp,
+             process_group=mesh.group if mesh is not None else None,
+             no_dist=not dist.is_initialized())
+    mesh_mod.barrier(mesh)
+    if first:
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        _prune(ckpt_dir, keep)
+    mesh_mod.barrier(mesh)
+    return path
+
+
 def _write_npz(ckpt_dir: str, arrays: Dict[str, np.ndarray], cfg: RNNTConfig,
                *, keep: int, step: int) -> str:
     """Write checkpoint_{step}/state.npz with an atomic publish, then prune
@@ -190,18 +310,19 @@ def _write_npz(ckpt_dir: str, arrays: Dict[str, np.ndarray], cfg: RNNTConfig,
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(path, "state.npz"))
-    for s in list_checkpoint_steps(ckpt_dir)[:-keep]:
-        old = os.path.join(ckpt_dir, f"checkpoint_{s:08d}")
-        for root, dirs, files in os.walk(old, topdown=False):
-            for fn in files:
-                os.unlink(os.path.join(root, fn))
-            os.rmdir(root)
+    _prune(ckpt_dir, keep)
     return path
 
 
 def save_checkpoint(ckpt_dir: str, state, cfg: RNNTConfig, *,
-                    keep: int = 5) -> str:
-    """Write checkpoint_{step} (synchronously); prunes beyond `keep`."""
+                    keep: int = 5, backend: str = "npz", mesh=None) -> str:
+    """Write checkpoint_{step} (synchronously; backend 'dcp': the
+    collective checkpoint_{step}.dcp); prunes beyond `keep`."""
+    backend = resolve_backend(backend, mesh)
+    if backend == "dcp":
+        return _write_dcp(ckpt_dir, state_tensors(
+            state.step, state.model.state_dict(), state.opt_state), cfg,
+            keep=keep, step=int(state.step), mesh=mesh)
     arrays = state_arrays(state.step, state.model.state_dict(),
                           state.opt_state)
     return _write_npz(ckpt_dir, arrays, cfg, keep=keep, step=int(state.step))
@@ -212,7 +333,8 @@ class AsyncSaver:
     its device (copies queued on the current stream, so the next steps
     cannot change them), and a thread moves the copies to the host and runs
     the same atomic npz write as save_checkpoint.  One save is in flight at
-    a time; wait() joins it and re-raises a writer error."""
+    a time; wait() joins it and re-raises a writer error.  A 'dcp' save is
+    collective and runs on the calling thread."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
@@ -229,8 +351,12 @@ class AsyncSaver:
         return self._last_path
 
     def save(self, ckpt_dir: str, state, cfg: RNNTConfig, *,
-             keep: int = 5) -> str:
+             keep: int = 5, backend: str = "npz", mesh=None) -> str:
         self.wait()
+        if resolve_backend(backend, mesh) == "dcp":
+            self._last_path = save_checkpoint(ckpt_dir, state, cfg, keep=keep,
+                                              backend="dcp", mesh=mesh)
+            return self._last_path
         step = int(state.step)
         sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
         opt = {k: ({n: t.detach().clone() for n, t in v.items()}
@@ -259,23 +385,14 @@ def _template_state(cfg: RNNTConfig, dtype, device):
     return TrainState(step=0, model=model, opt_state=Optimizer(cfg).init(model))
 
 
-def _resolve_step_dir(path_or_dir: str) -> str:
-    if has_orbax(path_or_dir):
-        raise ValueError(
-            f"{path_or_dir}: orbax checkpoints are not readable by the "
-            "PyTorch port; save with backend='npz'")
-    if os.path.exists(os.path.join(path_or_dir, "state.npz")):
-        return path_or_dir
-    return _latest_step_dir(path_or_dir)
-
-
 def restore_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
-                       device="cuda"):
+                       device="cuda", mesh=None):
     """Full resume (parameters, optimizer state and step) from a step
-    directory or a run directory's latest step, written by either package,
-    onto `device` (the card unless 'cpu' is asked for).  dtype: the
-    parameter dtype (None: cfg.compute_dtype); leaf shapes and the leaf
-    count are checked against `cfg`."""
+    directory or a run directory's latest step (npz, written by either
+    package, or the port's .dcp, read collectively: every rank of the mesh
+    calls this), onto `device` (the card unless 'cpu' is asked for).
+    dtype: the parameter dtype (None: cfg.compute_dtype); leaf shapes and
+    the leaf count are checked against `cfg`."""
     from rnnt_tpu_torch.train.state import Optimizer
 
     device = resolve_device(device)
@@ -287,38 +404,35 @@ def restore_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
     sd = state.model.state_dict()
     names = flatten_order(sd)
     slots = Optimizer.slots(state.opt_state)
-    with np.load(os.path.join(path, "state.npz")) as data:
-        n = len(data.files)
-        if n != 1 + len(names) + len(slots):
-            raise ValueError(
-                f"{path}: {n} leaves, the config's train state has "
-                f"{1 + len(names) + len(slots)} (config mismatch?)")
-        arrs = [data[f"leaf_{i}"] for i in range(n)]
-    for i, a in enumerate(arrs):
-        if a.dtype.kind == "V":
-            raise ValueError(f"{path}: leaf {i} holds raw bfloat16 bytes "
-                             "(legacy layout), re-save it as fp32")
+    arrs = _load_leaves(path, mesh=mesh)
+    n = len(arrs)
+    if n != 1 + len(names) + len(slots):
+        raise ValueError(
+            f"{path}: {n} leaves, the config's train state has "
+            f"{1 + len(names) + len(slots)} (config mismatch?)")
     state.step = int(arrs[0])
     with torch.no_grad():
         for i, name in enumerate(names, start=1):
-            if arrs[i].shape != tuple(sd[name].shape):
+            if tuple(arrs[i].shape) != tuple(sd[name].shape):
                 raise ValueError(
-                    f"leaf {i} ({name}): checkpoint shape {arrs[i].shape} != "
-                    f"model {tuple(sd[name].shape)} (config mismatch?)")
-            sd[name].copy_(torch.from_numpy(arrs[i].astype(np.float32)))
+                    f"leaf {i} ({name}): checkpoint shape "
+                    f"{tuple(arrs[i].shape)} != model "
+                    f"{tuple(sd[name].shape)} (config mismatch?)")
+            sd[name].copy_(arrs[i])
         for (c, k), a in zip(slots, arrs[1 + len(names):]):
             if isinstance(c[k], torch.Tensor):
-                if a.shape != tuple(c[k].shape):
-                    raise ValueError(f"optimizer leaf {k}: shape {a.shape} != "
-                                     f"{tuple(c[k].shape)} (config mismatch?)")
-                c[k].copy_(torch.from_numpy(np.asarray(a, np.float32)))
+                if tuple(a.shape) != tuple(c[k].shape):
+                    raise ValueError(
+                        f"optimizer leaf {k}: shape {tuple(a.shape)} != "
+                        f"{tuple(c[k].shape)} (config mismatch?)")
+                c[k].copy_(a)
             else:
                 c[k] = int(a)
     return state
 
 
 def init_from_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """Warm start: the parameters of a checkpoint (read under its own
     sidecar config when it has one, since the optimizer layout follows the
     config), fresh optimizer state and step 0 under `cfg`, on `device`
@@ -330,7 +444,7 @@ def init_from_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
     sc = sidecar_dir(path_or_dir)
     if os.path.exists(os.path.join(sc, "config.json")):
         src_cfg = RNNTConfig.load(sc)
-    old = restore_checkpoint(path_or_dir, src_cfg, dtype, device)
+    old = restore_checkpoint(path_or_dir, src_cfg, dtype, device, mesh)
     fresh = _template_state(cfg, old.model.dtype, device)
     mine = fresh.model.state_dict()
     with torch.no_grad():

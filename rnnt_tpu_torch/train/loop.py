@@ -1,5 +1,5 @@
-"""Training and evaluation loops: the port of `rnnt_tpu.train.loop` for one
-process on one device.
+"""Training and evaluation loops: the port of `rnnt_tpu.train.loop`, one
+process a device.
 
 `run_training` iterates epochs of bucketed batches, logs every
 `steps_per_log` steps (the loss read there is the only host sync of a
@@ -7,6 +7,14 @@ step), evaluates and checkpoints every `steps_per_checkpoint` steps and at
 the end, and on SIGTERM writes a checkpoint at the next step boundary and
 returns.  `run_evaluate` reports the eval loss and, from the port's greedy
 or beam decoder, token accuracy, WER and CER over the whole set.
+
+With a data-parallel `parallel.mesh.Mesh` every rank runs the loop on its
+own rows (the caller keeps the epochs in lockstep), the steps reduce across
+ranks (`train.steps`), periodic eval runs on every rank and sums the
+statistics across ranks once, checkpoints are collective (`dcp`), and only
+the mesh's first rank writes metrics and logs.  Each rank's generator
+(input noise, SpecAugment, dropout) is seeded by (step, rank), so ranks
+draw independently.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.metrics import error_rate
+from rnnt_tpu_torch.parallel import mesh as mesh_mod
 from rnnt_tpu_torch.train import checkpoint as ckpt_mod
 from rnnt_tpu_torch.train import observe
 from rnnt_tpu_torch.train.state import TrainState
@@ -64,13 +73,16 @@ def _decode(model, kind: str, mel, spec_lengths, max_out: int):
 def run_evaluate(cfg: RNNTConfig, model, eval_batches: Iterable[Dict], *,
                  tokenizer=None, eval_step=None, max_batches: int = 0,
                  decode: str = "greedy", loss_impl: str = "fused",
-                 mel_dtype=None, loss_metrics: bool = True
+                 mel_dtype=None, loss_metrics: bool = True, mesh=None
                  ) -> Dict[str, float]:
     """Eval loss (mean nll over the real rows), eval_accuracy (1 - token
     error rate of the decoded tokens) and, with a tokenizer, eval_wer and
     eval_cer, over at most max_batches batches (0: all).  loss_metrics=False
     skips the loss (eval_loss nan), as int8 execution needs: its int8 joint
-    weights cannot feed the loss paths."""
+    weights cannot feed the loss paths.  With a `mesh` each rank evaluates
+    its own batches and the sufficient statistics are summed across ranks
+    (once; every rank must call this), so every rank returns the metrics
+    of the whole set."""
     if loss_metrics:
         eval_step = eval_step or make_eval_step(cfg, loss_impl=loss_impl)
     dev = next(model.parameters()).device
@@ -102,12 +114,19 @@ def run_evaluate(cfg: RNNTConfig, model, eval_batches: Iterable[Dict], *,
                 n_txt += 1
         if max_batches and n >= max_batches:
             break
-    out = {"eval_loss": float(np.mean(losses)) if losses else float("nan")}
-    if n_utt:
-        out["eval_accuracy"] = 1.0 - tok_err / n_utt
-        if n_txt:
-            out["eval_wer"] = wer_sum / n_txt
-            out["eval_cer"] = cer_sum / n_txt
+    # [loss_sum, loss_n, tok_rate_sum, n_utt, wer_sum, cer_sum, n_txt]
+    stats = torch.tensor([float(np.sum(losses)), len(losses), tok_err, n_utt,
+                          wer_sum, cer_sum, n_txt], dtype=torch.float64)
+    if mesh is not None and mesh.reduces:
+        stats = stats.to(dev)
+        mesh_mod.all_reduce_sum_([stats], mesh)
+    stats = stats.cpu().tolist()
+    out = {"eval_loss": stats[0] / stats[1] if stats[1] else float("nan")}
+    if stats[3]:
+        out["eval_accuracy"] = 1.0 - stats[2] / stats[3]
+        if stats[6]:
+            out["eval_wer"] = stats[4] / stats[6]
+            out["eval_cer"] = stats[5] / stats[6]
     return out
 
 
@@ -117,17 +136,26 @@ def run_training(cfg: RNNTConfig, state: TrainState,
                  eval_batches_fn: Optional[Callable[[], Iterable[Dict]]] = None,
                  tokenizer=None, n_epochs: int = 1, steps_per_log: int = 10,
                  steps_per_checkpoint: int = 1000, eval_max_batches: int = 50,
-                 loss_impl: str = "fused", mel_dtype=None) -> TrainState:
+                 loss_impl: str = "fused", mel_dtype=None,
+                 ckpt_backend: str = "auto", mesh=None) -> TrainState:
     """The outer loop; returns the state after the last step (updated in
     place).  train_batches_fn(epoch) or train_batches_fn() gives an epoch's
-    numpy batches."""
-    train_step = make_train_step(cfg, loss_impl=loss_impl)
+    numpy batches (this rank's, in lockstep with the others, under a
+    data-parallel `mesh`).  ckpt_backend: 'auto' (dcp across processes,
+    else npz), 'npz' or 'dcp'."""
+    backend = ckpt_mod.resolve_backend(ckpt_backend, mesh)
+    train_step = make_train_step(cfg, loss_impl=loss_impl, mesh=mesh)
     eval_step = make_eval_step(cfg, loss_impl=loss_impl) \
         if eval_batches_fn else None
     dev = next(state.model.parameters()).device
-    gen = torch.Generator(device=dev).manual_seed(state.step + 17)
-    writer = observe.MetricsWriter(output_dir, "tb")
-    writer.hparams(cfg)
+    rank = mesh.rank if mesh is not None else 0
+    # rank 0 keeps the one-process seed; the others draw their own
+    gen = torch.Generator(device=dev).manual_seed(state.step + 17
+                                                  + (rank << 40))
+    lead = rank == 0
+    writer = observe.MetricsWriter(output_dir, "tb") if lead else None
+    if lead:
+        writer.hparams(cfg)
     saver = ckpt_mod.AsyncSaver()
     last_saved = [-1]
 
@@ -140,12 +168,13 @@ def run_training(cfg: RNNTConfig, state: TrainState,
             metrics = run_evaluate(cfg, state.model, eval_batches_fn(),
                                    tokenizer=tokenizer, eval_step=eval_step,
                                    max_batches=eval_max_batches,
-                                   mel_dtype=mel_dtype)
+                                   mel_dtype=mel_dtype, mesh=mesh)
             metrics["eval_seconds"] = time.time() - t0
-            writer.scalars(state.step, metrics)
-            log(f"step {state.step}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in metrics.items()))
-        saver.save(output_dir, state, cfg)
+            if lead:
+                writer.scalars(state.step, metrics)
+                log(f"step {state.step}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items()))
+        saver.save(output_dir, state, cfg, backend=backend, mesh=mesh)
 
     takes_epoch = len(inspect.signature(train_batches_fn).parameters) >= 1
     # SIGTERM (preemption) asks for a checkpoint at the next step boundary
@@ -166,7 +195,7 @@ def run_training(cfg: RNNTConfig, state: TrainState,
                        else train_batches_fn())
             for batch in batches:
                 m = train_step(state, to_device(batch, dev, mel_dtype), gen)
-                if state.step % steps_per_log == 0:
+                if state.step % steps_per_log == 0 and lead:
                     loss = float(m["loss"])  # the step's host sync
                     now = time.time()
                     sec = (now - t_last) / max(state.step - steps_last, 1)
@@ -180,9 +209,11 @@ def run_training(cfg: RNNTConfig, state: TrainState,
                         f"({sec:.3f}s/step)")
                 if preempted.is_set():
                     if state.step != last_saved[0]:
-                        path = saver.save(output_dir, state, cfg)
+                        path = saver.save(output_dir, state, cfg,
+                                          backend=backend, mesh=mesh)
                         saver.wait()
-                        log(f"preemption checkpoint written: {path}")
+                        if lead:
+                            log(f"preemption checkpoint written: {path}")
                     else:
                         saver.wait()
                     return state
@@ -194,5 +225,6 @@ def run_training(cfg: RNNTConfig, state: TrainState,
         saver.wait()
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

@@ -12,6 +12,14 @@ the plain lattice or kernel K7.  A training batch given a generator gets
 the configured input noise, then SpecAugment (`ops.specaug`), on its own
 device, before any loss path.  The train step threads the BatchNorm running
 statistics back into the parameters after the update.
+
+Across the ranks of a data-parallel `parallel.mesh.Mesh` the loss is the
+one weighted mean over the global batch: each rank backpropagates its
+local numerator over the all-reduced denominator, the gradients (with the
+loss) are summed across ranks in one bucket, and the BatchNorm statistics
+are the global batch's (`models.lstm.BatchNorm.forward_train`).  So the
+norms, the clipping and the update read the same reduced gradients on
+every rank, and every rank takes the identical step.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models.encoder import encoded_length
+from rnnt_tpu_torch.parallel import mesh as mesh_mod
 from rnnt_tpu_torch.train import state as state_mod
 
 LOSS_IMPLS = ("fused", "banded", "auto", "ref", "pallas")
@@ -29,11 +38,14 @@ LOSS_IMPLS = ("fused", "banded", "auto", "ref", "pallas")
 
 def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
                training: bool, generator: Optional[torch.Generator] = None,
-               loss_impl: str = "fused"):
+               loss_impl: str = "fused", mesh=None):
     """Forward and RNN-T loss of one batch (tensors on the model's device:
     mel_specs [B, T, F], pred_inp [B, U+1], labels [B, U], spec_lengths and
     label_lengths [B], optionally loss_weight [B]).  Returns
-    (loss, (per-example nll, BatchNorm (mean, var)))."""
+    (loss, (per-example nll, BatchNorm (mean, var))).  With a `mesh` that
+    reduces, the batch is this rank's rows of the global batch and `loss`
+    is this rank's share of the global loss: its numerator over the
+    global denominator (the shares sum to the global loss)."""
     if loss_impl not in LOSS_IMPLS:
         raise NotImplementedError(
             f"loss_impl={loss_impl!r} is not yet ported (the PyTorch port "
@@ -60,7 +72,8 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
             time_width=cfg.specaug_time_width)
     if loss_impl in ("fused", "banded"):
         encoded, pred_out, bn_stats = model.encode_predict(
-            mel, batch["pred_inp"], training=training, generator=generator)
+            mel, batch["pred_inp"], training=training, generator=generator,
+            mesh=mesh)
         args = (model.joint, encoded, pred_out, batch["labels"], enc_lengths,
                 batch["label_lengths"])
         if loss_impl == "banded":
@@ -77,10 +90,21 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
         from rnnt_tpu_torch.ops.rnnt_loss import rnnt_loss
 
         logits, bn_stats = model.apply(mel, batch["pred_inp"],
-                                       training=training, generator=generator)
+                                       training=training, generator=generator,
+                                       mesh=mesh)
         nll = rnnt_loss(logits, batch["labels"], enc_lengths,
                         batch["label_lengths"], impl=loss_impl)
-    if "loss_weight" in batch:
+    if mesh is not None and mesh.reduces:
+        if "loss_weight" in batch:
+            w = batch["loss_weight"].to(nll.dtype)
+            num, den = (nll * w).sum(), w.sum().detach().reshape(1)
+        else:
+            num = nll.sum()
+            den = torch.full((1,), float(nll.shape[0]), device=nll.device)
+        den = den.float()
+        mesh_mod.all_reduce_sum_([den], mesh)
+        loss = num / torch.clamp(den[0], min=1.0).to(num.dtype)
+    elif "loss_weight" in batch:
         w = batch["loss_weight"].to(nll.dtype)
         loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
     else:
@@ -91,11 +115,14 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
 SUBTREES = ("encoder", "prediction", "joint")
 
 
-def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused"):
+def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
+                    mesh=None):
     """Returns step(state, batch, generator) -> metrics: one update of
     state.model and state.opt_state in place, state.step + 1.  Metrics are
     0-d device tensors (loss, grad_norm and the three subtree norms) and the
-    learning rate of the step (the schedule at the pre-update step)."""
+    learning rate of the step (the schedule at the pre-update step).  With
+    a data-parallel `mesh` the batch is this rank's rows, and the loss and
+    the gradients are the global batch's."""
     opt = state_mod.Optimizer(cfg)
 
     def step(state: state_mod.TrainState, batch, generator=None):
@@ -106,11 +133,16 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused"):
             params[n].grad = None
         loss, (_, (mean, var)) = batch_loss(
             model, cfg, batch, training=True, generator=generator,
-            loss_impl=loss_impl)
+            loss_impl=loss_impl, mesh=mesh)
         loss.backward()
         grads = {n: (params[n].grad if params[n].grad is not None
                      else torch.zeros_like(params[n])) for n in names}
-        metrics = {"loss": loss.detach(),
+        loss = loss.detach()
+        if mesh is not None and mesh.reduces:
+            loss = loss.float().reshape(1)
+            mesh_mod.all_reduce_sum_([*grads.values(), loss], mesh)
+            loss = loss[0]
+        metrics = {"loss": loss,
                    "grad_norm": state_mod.global_norm(grads.values())}
         for sub in SUBTREES:
             metrics[f"grad_norm_{sub}"] = state_mod.global_norm(

@@ -76,6 +76,43 @@ def test_shape_mismatch_and_orbax_refused(run_dir, tmp_path):
         t_ckpt.restore_params(str(tmp_path), TConfig(**CFG.__dict__))
 
 
+def test_dcp_round_trip_at_world_one(run_dir, tmp_path):
+    """A .dcp checkpoint needs no process group at world 1: every leaf
+    comes back bitwise in its own dtype, and the run dir's listing, latest
+    step, pinned-step sidecars and pruning know .dcp steps."""
+    from rnnt_tpu_torch.train.state import Optimizer
+
+    d, _ = run_dir
+    cfg = t_ckpt.load_config(d)
+    state = t_ckpt.restore_checkpoint(d, cfg, torch.bfloat16, "cpu")
+    out = str(tmp_path / "run")
+    for step in (7, 8, 9):
+        state.step = step
+        path = t_ckpt.save_checkpoint(out, state, cfg, keep=2,
+                                      backend="dcp")
+    assert path.endswith("checkpoint_00000009.dcp")
+    assert t_ckpt.list_checkpoint_steps(out) == [8, 9]
+    assert t_ckpt.latest_checkpoint(out) == path
+    assert t_ckpt.sidecar_dir(path) == out
+    back = t_ckpt.restore_checkpoint(out, cfg, torch.bfloat16, "cpu")
+    assert back.step == 9
+    for k, v in state.model.state_dict().items():
+        assert back.model.state_dict()[k].dtype == v.dtype
+        assert torch.equal(back.model.state_dict()[k], v), k
+    for (c, k), (bc, bk) in zip(Optimizer.slots(state.opt_state),
+                                Optimizer.slots(back.opt_state)):
+        if isinstance(c[k], torch.Tensor):
+            assert torch.equal(bc[bk], c[k]), k
+        else:
+            assert bc[bk] == c[k], k
+    step, sd = t_ckpt.restore_params(path, cfg)
+    assert step == 9 and torch.equal(
+        sd["joint.w2"], state.model.joint.w2.float())
+    assert t_ckpt.resolve_backend("auto") == "npz"
+    with pytest.raises(ValueError, match="use dcp"):
+        t_ckpt.resolve_backend("orbax")
+
+
 def test_params_from_numpy_names():
     tree = {"joint": {"w1": np.ones((2, 3))},
             "encoder": {"layers": [{"ln": {"scale": np.zeros(4)}}]}}

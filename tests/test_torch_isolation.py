@@ -49,6 +49,8 @@ import rnnt_tpu_torch.cli.convert_common_voice
 import rnnt_tpu_torch.export, rnnt_tpu_torch.ops.library
 import rnnt_tpu_torch.ops.joint_loss_banded
 import rnnt_tpu_torch.cli.export_model
+import rnnt_tpu_torch.parallel, rnnt_tpu_torch.parallel.mesh
+import rnnt_tpu_torch.cli.bench_scaling
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))

@@ -2,7 +2,7 @@
 config trains a few steps from shards written by the JAX package's writer,
 logs and checkpoints, resumes, and evaluates with --mode test, also on an
 int8 artifact (dequantized and int8-executed); the flags it has not ported
-yet are refused, never ignored."""
+yet, or takes only with others, are refused, never ignored."""
 
 import json
 import os
@@ -84,9 +84,15 @@ def test_train_then_resume_then_test(data_dir, tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--model_parallel", "2"], ["--multihost"], ["--ckpt_backend", "orbax"]])
 def test_unported_flags_are_refused(flags, capsys):
+    """Vocab tensor parallelism is not yet ported; --multihost without
+    --pad_frames/--pad_tokens is refused, as by the JAX CLI; orbax is the
+    JAX package's backend, and the message names the port's dcp."""
     with pytest.raises(SystemExit):
         run_rnnt.parse_args(["--data_dir", "d", *flags])
-    assert "not yet ported" in capsys.readouterr().err
+    want = {"--model_parallel": "not yet ported",
+            "--multihost": "--multihost requires --pad_frames/--pad_tokens",
+            "--ckpt_backend": "use dcp"}[flags[0]]
+    assert want in capsys.readouterr().err
 
 
 @pytest.fixture
