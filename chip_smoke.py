@@ -6,7 +6,7 @@
 --phases takes a comma list of the phases below (PHASES: serving, k1_k2,
 encoder_greedy, beam, stream_kernels, export, training,
 bench_entry_points, data_prep, int8_flac_oracle, k4_k7, bench_step,
-data_parallel); a phase brings the phases it reads from (PHASE_NEEDS),
+data_parallel, tensor_parallel); a phase brings the phases it reads from (PHASE_NEEDS),
 and the default runs every phase and every gate.  Each phase logs its
 time.  A plain version's comparison run is timed as it runs (`once_ms`)
 and not run again to be timed.
@@ -107,6 +107,21 @@ worst case.
    then holds its update alone, <= 1e-4), per rank 10 K4, 10 K5, one K6 and
    one K7 (warp); `bench_scaling`, cli.bench_scaling --devices 1 at B=32
    for 3 steps (its JSON line, efficiency_vs_1dev 1.0);
+   and vocab tensor parallelism (`tensor_parallel`): `tp_two_ranks`, two
+   processes sharing the card over gloo as a 1x2 (data, model) mesh
+   (`--tp_worker`), fp32, one step at B=16 on rows both hold with W2 and
+   b2 sharded (V_local 2048) and grad_clip_norm 1e-3 (clipping engages),
+   against one process's step on the same rows within the dp_two_ranks
+   bounds (W2, b2 and their gradients gathered), per rank 10 K4, 10 K5,
+   one K6 at V=2048 and one K7 (warp); `tp_cli`, two processes
+   (`--tp_cli_worker`) running cli.run_rnnt --multihost --model_parallel 2
+   (bf16, B=32, 2 steps, an eval batch decoded greedily with W2 gathered,
+   an npz checkpoint; per rank and step 10 K4 (MMA), 10 K5, one K6 (WGMMA,
+   V=2048), one K7 (warp)), then one process's `--mode eval` of that
+   checkpoint: eval loss within 1e-4 relative and the same decoded tokens;
+   `bench_tp`, cli.bench_tp at its defaults (its lines; every K6 launch
+   WGMMA); the dry run, rnnt_tpu_torch.dryrun over 4 processes sharing
+   the card (a 2x2 mesh, the tiny config), its line;
 4. holds each kernel against its plain PyTorch version on the card at the
    request shapes: the frontend (K1) in fp32, max |d log-mel| <= 2e-4 at
    each request's audio, at every chunk length of the TCP stream, at 8 kHz
@@ -151,7 +166,11 @@ worst case.
    ragged B=3, T'=7, U+1=5, J=40, V=300 (WGMMA; fp32 FMA) and at J=1024
    (outside the WGMMA plan: WMMA), inputs untouched, its W2 pack kernel
    equal to `pack_w2`, and after an in-place change of W2 the next call
-   held to the new W2's plain planes, which reject the old call's; K7
+   held to the new W2's plain planes, which reject the old call's; K6 on
+   vocabulary shards, V_local 2048 and 1024 (shards 0 and 1 of V=4096,
+   the labels shifted, so ids fall below 0 and at or above V_local), in
+   bf16 WGMMA (J=640), bf16 WMMA (J=768) and fp32 FMA, at the bounds
+   above, emit exactly NEG wherever the id is outside the shard; K7
    (alpha and beta over the valid cells, ll) from those planes at B=32 and
    B=96 (the planes three times over) with ragged lengths, on its warp
    design, and from random planes at U+1 = 1 (warp), 257, 1025 and 1537 (the
@@ -197,7 +216,8 @@ worst case.
    export paths' record, for K4 and
    K5 also the time at B=96; for K6 the time, bound and cuBLAS product
    at B=96, the W2 packing's own time, the time and bound at the banded
-   rows, the fused and banded train steps and the launches by design; for K3
+   rows, the fused and banded train steps, the time at each V_local and
+   the launches by design; for K3
    also the
    weight traffic of re-reading the weights at every product, and its time
    split over the phases of a search from the timed build: block 0's, the
@@ -3691,30 +3711,10 @@ def dp_worker(rank, port, data, seed, device="cuda") -> int:
         state.model.load_state_dict(init)
         state.opt_state, state.step = Optimizer(cfg).init(state.model), 0
         loss_ref, grads_ref = step_with_grads(cfg, state, both, None)
-        want = state.model.state_dict()
-        grad_err = {n: rel_err(g, grads_ref[n]) for n, g in grads.items()}
-        # a tensor that was zero before the step holds its update alone
-        # (-lr x the clipped gradient), so its error is a gradient's
-        bn = ("encoder.bn.mean", "encoder.bn.var")
-        fresh = {n for n, v in init.items()
-                 if not bool(v.any()) and n not in bn}
-        err = {n: rel_err(after[n], want[n]) for n in want}
-        param_err = {n: e for n, e in err.items()
-                     if n not in fresh and n not in bn}
-        update_err = {n: err[n] for n in fresh}
-        worst_g = max(grad_err, key=grad_err.get)
-        worst_p = max(param_err, key=param_err.get)
-        worst_u = max(update_err, key=update_err.get)
-        rec = {"rank": rank, "loss": loss, "loss_ref": loss_ref,
-               "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
-               "worst_grad": worst_g, "grad_rel": grad_err[worst_g],
-               "worst_param": worst_p, "param_rel": param_err[worst_p],
-               "zero_before": sorted(fresh), "worst_zero_before": worst_u,
-               "zero_before_rel": update_err[worst_u],
-               "bn_rel": max(err[n] for n in bn),
-               "dp_step_s": dp_s, "launches": launches,
-               "backend": dist.get_backend(mesh.group),
-               "device": str(dev)}
+        rec = {"rank": rank, **step_errors(
+            init, after, state.model.state_dict(), grads, grads_ref, loss,
+            loss_ref), "dp_step_s": dp_s, "launches": launches,
+               "backend": dist.get_backend(mesh.group), "device": str(dev)}
         with open(os.path.join(data, f"dp_rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -3722,29 +3722,64 @@ def dp_worker(rank, port, data, seed, device="cuda") -> int:
     return 0
 
 
-def run_dp_two_ranks(cfg, seed, device="cuda"):
-    """Two processes on the one card over gloo (NCCL puts one rank on a
-    device), each a rank of `dp_worker`: the data-parallel step must equal
-    one process's step on the concatenated rows: loss within 1e-5
-    relative, every gradient within 1e-4 (to its largest element), the
-    BatchNorm running statistics and every updated parameter within 1e-5,
-    except a parameter that was all zero before the step (the biases whose
-    value after it is the update, -lr x the gradient): it is held to the
-    gradient bound 1e-4; each rank launches per step 10 K4, 10 K5 (fp32:
-    FMA), one K6 and one K7.  Returns (the record, the path's launches
-    summed over ranks)."""
+def step_errors(init, after, want, grads, grads_ref, loss, loss_ref):
+    """The errors of a parallel step against one process's step from the
+    same state `init` (full tensors on both sides): the loss, the worst
+    gradient, the worst updated parameter, the BatchNorm statistics, and
+    apart the parameters that were zero before the step (their value after
+    it is the update alone, -lr x the clipped gradient, so their error is
+    a gradient's)."""
+    grad_err = {n: rel_err(g, grads_ref[n]) for n, g in grads.items()}
+    bn = ("encoder.bn.mean", "encoder.bn.var")
+    fresh = {n for n, v in init.items() if not bool(v.any()) and n not in bn}
+    err = {n: rel_err(after[n], want[n]) for n in want}
+    param_err = {n: e for n, e in err.items()
+                 if n not in fresh and n not in bn}
+    update_err = {n: err[n] for n in fresh}
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_p = max(param_err, key=param_err.get)
+    worst_u = max(update_err, key=update_err.get)
+    return {"loss": loss, "loss_ref": loss_ref,
+            "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "worst_grad": worst_g, "grad_rel": grad_err[worst_g],
+            "worst_param": worst_p, "param_rel": param_err[worst_p],
+            "zero_before": sorted(fresh), "worst_zero_before": worst_u,
+            "zero_before_rel": update_err[worst_u],
+            "bn_rel": max(err[n] for n in bn)}
+
+
+def require_step_errors(name, rec) -> None:
+    """A parallel step's bounds against one process (`step_errors`): loss
+    1e-5, every gradient 1e-4 of its largest element, the BatchNorm
+    statistics and every updated parameter 1e-5, a parameter zero before
+    the step 1e-4."""
+    who = f"{name} rank {rec['rank']}"
+    require(rec["loss_rel"] <= 1e-5, f"{who}: loss {rec['loss']} vs one "
+            f"process {rec['loss_ref']}")
+    require(rec["grad_rel"] <= 1e-4, f"{who}: gradient {rec['worst_grad']} "
+            f"rel err {rec['grad_rel']}")
+    require(rec["bn_rel"] <= 1e-5 and rec["param_rel"] <= 1e-5,
+            f"{who}: BatchNorm statistics {rec['bn_rel']}, parameter "
+            f"{rec['worst_param']} {rec['param_rel']}")
+    require(rec["zero_before_rel"] <= 1e-4, f"{who}: parameter "
+            f"{rec['worst_zero_before']} (zero before the step) "
+            f"{rec['zero_before_rel']}")
+
+
+def spawn_ranks(flag, name, data, seed, device, n=2):
+    """Run `chip_smoke.py FLAG RANK` as n processes sharing the card (each
+    writes data/{name}_rank{RANK}.json); log each one's last lines; every
+    one must exit 0 within DP_WORKER_TIMEOUT_S.  Returns their records."""
     import subprocess
 
     from rnnt_tpu_torch.parallel.mesh import free_port
 
-    data = os.path.join(TRAIN_DIR, "dp2_data")
-    write_train_data(cfg, data, 2 * DP_RANK_BATCH, DP_RANK_BATCH, seed)
     port = str(free_port())
     procs, logs = [], []
-    for r in range(2):
-        logs.append(open(os.path.join(data, f"dp_rank{r}.log"), "w+"))
+    for r in range(n):
+        logs.append(open(os.path.join(data, f"{name}_rank{r}.log"), "w+"))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp_worker",
+            [sys.executable, os.path.abspath(__file__), flag,
              str(r), "--dp_port", port, "--dp_dir", data, "--seed",
              str(seed), "--dp_device", device], stdout=logs[-1],
             stderr=subprocess.STDOUT,
@@ -3763,44 +3798,53 @@ def run_dp_two_ranks(cfg, seed, device="cuda"):
         for r, f in enumerate(logs):
             f.seek(0)
             for line in f.read().splitlines()[-40:]:
-                log(f"dp_two_ranks rank {r}: {line}")
+                log(f"{name} rank {r}: {line}")
             f.close()
     codes = [p.returncode for p in procs]
-    require(codes == [0, 0], f"dp_two_ranks workers exited {codes}")
+    require(codes == [0] * n, f"{name} workers exited {codes}")
     recs = []
-    for r in range(2):
-        with open(os.path.join(data, f"dp_rank{r}.json")) as f:
+    for r in range(n):
+        with open(os.path.join(data, f"{name}_rank{r}.json")) as f:
             recs.append(json.load(f))
-    log("dp_two_ranks: " + json.dumps(
-        [{k: v for k, v in r.items() if k != "launches"} for r in recs]))
+    return recs
+
+
+def sum_launches(recs) -> dict:
+    """The launch counts (and counts by design) of several ranks, summed;
+    each record's `launches` is taken out of it."""
     launches = {}
     for rec in recs:
-        n = rec["launches"]
-        require(rec["loss_rel"] <= 1e-5, f"dp_two_ranks rank {rec['rank']}: "
-                f"loss {rec['loss']} vs one process {rec['loss_ref']}")
-        require(rec["grad_rel"] <= 1e-4, f"dp_two_ranks rank {rec['rank']}: "
-                f"gradient {rec['worst_grad']} rel err {rec['grad_rel']}")
-        require(rec["bn_rel"] <= 1e-5 and rec["param_rel"] <= 1e-5,
-                f"dp_two_ranks rank {rec['rank']}: BatchNorm statistics "
-                f"{rec['bn_rel']}, parameter {rec['worst_param']} "
-                f"{rec['param_rel']}")
-        require(rec["zero_before_rel"] <= 1e-4, f"dp_two_ranks rank "
-                f"{rec['rank']}: parameter {rec['worst_zero_before']} (zero "
-                f"before the step) {rec['zero_before_rel']}")
-        for k, want in (("lstm_fwd", 10), ("lstm_bwd", 10),
-                        ("joint_planes", 1), ("lattice_scan", 1)):
-            require(n[k] == want, f"dp_two_ranks rank {rec['rank']}: {k} "
-                    f"launched {n[k]} times, want {want}")
-        require_warp_k7("dp_two_ranks", n["lattice_scan_by_design"], 1)
-        for k, v in n.items():
+        for k, v in rec.pop("launches").items():
             if isinstance(v, dict):
                 launches.setdefault(k, dict.fromkeys(v, 0))
                 for d, c in v.items():
                     launches[k][d] += c
             else:
                 launches[k] = launches.get(k, 0) + v
-        rec.pop("launches")
-    return recs, launches
+    return launches
+
+
+def run_dp_two_ranks(cfg, seed, device="cuda"):
+    """Two processes on the one card over gloo (NCCL puts one rank on a
+    device), each a rank of `dp_worker`: the data-parallel step must equal
+    one process's step on the concatenated rows within
+    `require_step_errors`' bounds; each rank launches per step 10 K4, 10
+    K5 (fp32: FMA), one K6 and one K7.  Returns (the record, the path's
+    launches summed over ranks)."""
+    data = os.path.join(TRAIN_DIR, "dp2_data")
+    write_train_data(cfg, data, 2 * DP_RANK_BATCH, DP_RANK_BATCH, seed)
+    recs = spawn_ranks("--dp_worker", "dp", data, seed, device)
+    log("dp_two_ranks: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "launches"} for r in recs]))
+    for rec in recs:
+        n = rec["launches"]
+        require_step_errors("dp_two_ranks", rec)
+        for k, want in (("lstm_fwd", 10), ("lstm_bwd", 10),
+                        ("joint_planes", 1), ("lattice_scan", 1)):
+            require(n[k] == want, f"dp_two_ranks rank {rec['rank']}: {k} "
+                    f"launched {n[k]} times, want {want}")
+        require_warp_k7("dp_two_ranks", n["lattice_scan_by_design"], 1)
+    return recs, sum_launches(recs)
 
 
 def drive_data_parallel(paths, cfg, seed, smi, device="cuda"):
@@ -3838,9 +3882,386 @@ def drive_data_parallel(paths, cfg, seed, smi, device="cuda"):
     return rec
 
 
+# --------------------------------------------- vocab tensor parallelism ----
+
+TP_SHARDS = (2048, 1024)  # K6's V_local at model axes 2 and 4 (V=4096)
+TP_RANK_BATCH = 16        # tp_two_ranks: the rows both ranks hold
+TP_CLIP = 1e-3            # tp_two_ranks' grad_clip_norm: clipping engages
+TP_STEPS = 2              # tp_cli: bf16 steps at B=32
+
+
+def check_planes_shards(cfg, B=32, T=128, U1=65, device="cuda"):
+    """K6 on vocabulary shards: V_local 2048 and 1024 (the columns of
+    shards 0 and 1 of a V=4096 W2, labels in [1, V) shifted as for each,
+    so ids fall below 0 and at or above V_local) in its three designs
+    (bf16 `wgmma` at the parity J=640, bf16 `wmma` at J=768, above the
+    WGMMA plan, fp32 `fma`), each against the plain version (1e-4 fp32,
+    PLANES_BF16_TOL bf16), inputs untouched, on the design it must run,
+    and emit exactly NEG wherever the id is outside the shard.  Returns
+    ({case: max rel err}, {V_local: the wgmma call's ms, CUDA events})."""
+    import torch
+
+    from rnnt_tpu_torch.ops import planes_cuda
+    from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG
+
+    errs, ms = {}, {}
+    designs = (("wgmma", torch.bfloat16, cfg.joint_size, PLANES_BF16_TOL),
+               ("wmma", torch.bfloat16, 768, PLANES_BF16_TOL),
+               ("fma", torch.float32, cfg.joint_size, 1e-4))
+    for vl in TP_SHARDS:
+        for design, dt, J, tol in designs:
+            f, g, y, b1, w2, b2 = planes_inputs(cfg, B, T, U1, device, 12,
+                                                J=J)
+            for shard in (0, 1):
+                lo = shard * vl
+                args = tuple(a.to(dt) if a.is_floating_point() else a
+                             for a in (f, g, y - lo, b1,
+                                       w2[:, lo: lo + vl].contiguous(),
+                                       b2[lo: lo + vl].contiguous()))
+                what = f"V_local={vl} shard {shard} J={J} {design}"
+                before = [a.clone() for a in args]
+                counts = dict(planes_cuda.joint_planes.launches_by_design)
+                got = planes_cuda.joint_planes(*args)
+                ran = [d for d, n in
+                       planes_cuda.joint_planes.launches_by_design.items()
+                       if n != counts[d]]
+                want, _ = once_ms(
+                    lambda: planes_cuda.joint_planes_plain(*args))
+                require(all(torch.equal(a, b) for a, b in zip(args, before)),
+                        f"K6 {what} wrote into its inputs")
+                rel = [rel_err(a, b) for a, b in zip(got, want)]
+                outside = (args[2] < 0) | (args[2] >= vl)
+                require(bool(outside.any()) and bool((~outside).any()),
+                        f"K6 {what}: labels all inside or all outside")
+                mask = outside[:, None, :].expand(got[2].shape)
+                neg = bool((got[2][mask] == NEG).all())
+                log(f"K6 joint_planes {what} on {ran}: rel err denom "
+                    f"{rel[0]:.3e} blank {rel[1]:.3e} emit {rel[2]:.3e}; "
+                    f"{int(outside.sum())} of {outside.numel()} ids outside "
+                    f"the shard, their emit all NEG: {neg}")
+                require(max(rel) <= tol, f"K6 {what} disagrees: {rel}")
+                require(ran == [design], f"K6 {what} ran {ran}")
+                require(neg, f"K6 {what}: an out-of-shard id's emit is not "
+                        "NEG")
+                errs[what] = max(rel)
+                if design == "wgmma" and shard == 0:
+                    ms[vl] = cuda_ms(lambda: planes_cuda.joint_planes(*args),
+                                     reps=5)
+    log(f"K6 on shards: wgmma ms by V_local {json.dumps(ms)}")
+    return errs, ms
+
+
+class KernelV:
+    """Records the V of every K6 launch (`planes_cuda.launch`'s W2 columns)
+    while in place: what a vocabulary shard hands the kernel."""
+
+    def __enter__(self):
+        from rnnt_tpu_torch.ops import planes_cuda
+
+        self.seen, self.real = [], planes_cuda.launch
+
+        def spy(lib, f, g, labels_pad, b1, w2, b2):
+            self.seen.append(int(w2.shape[1]))
+            return self.real(lib, f, g, labels_pad, b1, w2, b2)
+
+        planes_cuda.launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        from rnnt_tpu_torch.ops import planes_cuda
+
+        planes_cuda.launch = self.real
+
+
+class DecodedTokens:
+    """Records the tokens of every eval decode (`train.loop._decode`) while
+    in place."""
+
+    def __enter__(self):
+        from rnnt_tpu_torch.train import loop
+
+        self.tokens, self.real = [], loop._decode
+
+        def spy(*a, **kw):
+            tokens, lengths = self.real(*a, **kw)
+            self.tokens.append([t[:n].tolist() for t, n in
+                                zip(tokens.cpu(), lengths.cpu())])
+            return tokens, lengths
+
+        loop._decode = spy
+        return self
+
+    def __exit__(self, *exc):
+        from rnnt_tpu_torch.train import loop
+
+        loop._decode = self.real
+
+
+def tp_worker(rank, port, data, seed, device="cuda") -> int:
+    """One rank of tp_two_ranks (a process of its own; two share the card
+    over gloo as a 1x2 mesh): one fp32 fused step at the parity width on
+    the TP_RANK_BATCH rows both ranks hold, W2 and b2 sharded (V_local
+    2048), with grad_clip_norm TP_CLIP; then, from the same initial state,
+    one process's step on the same rows; writes the launches (and each
+    K6 launch's V), the gradient norm and the errors between the two, W2,
+    b2 and their gradients gathered, to data/tp_rank{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from rnnt_tpu_torch.config import RNNTConfig
+    from rnnt_tpu_torch.data.pipeline import batches_from_shards
+    from rnnt_tpu_torch.parallel import mesh as mesh_mod
+    from rnnt_tpu_torch.train.loop import to_device
+    from rnnt_tpu_torch.train.state import create_train_state, global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_mod.init_distributed(f"localhost:{port}", 2, rank, device,
+                                    timeout_s=DP_WORKER_TIMEOUT_S,
+                                    backend="gloo")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        mesh = mesh_mod.make_mesh(model=2, device=dev)
+        cfg = RNNTConfig.load(data).replace(grad_clip_norm=TP_CLIP)
+        tp = mesh.vocab_shard(cfg.vocab_size)
+        require(tp is not None and mesh.shape == {"data": 1, "model": 2},
+                f"tp_two_ranks mesh {mesh}")
+        batch = to_device(next(batches_from_shards(
+            os.path.join(data, "train-*.rnr"), TP_RANK_BATCH,
+            t_buckets=[256], u_buckets=[64])), dev)
+        state = create_train_state(cfg, torch.float32, dev, seed)
+        mesh_mod.broadcast_module_(state.model, mesh)
+        init = {k: v.clone() for k, v in state.model.state_dict().items()}
+        mesh_mod.shard_state_(state, tp)
+        sync()
+        zero_launches()
+        t0 = time.perf_counter()
+        with KernelV() as kv:
+            loss, grads = step_with_grads(cfg, state, batch, mesh)
+        sync()
+        tp_s = time.perf_counter() - t0
+        launches = read_launches()
+        launches.update({f"{k}_by_design": v
+                         for k, v in read_designs().items()})
+        grad_norm = float(global_norm(grads, tp))
+        grads = {n: (mesh_mod.gather_columns(g, mesh_mod.VOCAB_SHARDED[n], tp)
+                     if n in mesh_mod.VOCAB_SHARDED else g)
+                 for n, g in grads.items()}
+        after, _ = mesh_mod.full_state(state, tp)
+        after = {k: v.clone() for k, v in after.items()}
+        ref = create_train_state(cfg, torch.float32, dev, seed)
+        ref.model.load_state_dict(init)
+        loss_ref, grads_ref = step_with_grads(cfg, ref, batch, None)
+        rec = {"rank": rank, **step_errors(
+            init, after, ref.model.state_dict(), grads, grads_ref, loss,
+            loss_ref), "grad_norm": grad_norm, "tp_step_s": tp_s,
+               "k6_v": kv.seen, "local_w2": list(state.model.joint.w2.shape),
+               "launches": launches, "backend": dist.get_backend(mesh.group),
+               "device": str(dev)}
+        with open(os.path.join(data, f"tp_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp_two_ranks(cfg, seed, device="cuda"):
+    """Two `tp_worker` processes on the card (gloo, a 1x2 mesh): the
+    tensor-parallel step equals one process's within `require_step_errors`'
+    bounds, with clipping engaged (the global norm above TP_CLIP); each
+    rank holds W2 [640, 2048] and launches per step 10 K4, 10 K5 (fp32:
+    FMA), one K6 at V=2048 and one K7 (warp).  Returns (the records, the
+    path's launches summed over ranks)."""
+    data = os.path.join(TRAIN_DIR, "tp2_data")
+    write_train_data(cfg, data, TP_RANK_BATCH, TP_RANK_BATCH, seed + 4)
+    recs = spawn_ranks("--tp_worker", "tp", data, seed, device)
+    log("tp_two_ranks: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "launches"} for r in recs]))
+    for rec in recs:
+        n = rec["launches"]
+        who = f"tp_two_ranks rank {rec['rank']}"
+        require_step_errors("tp_two_ranks", rec)
+        require(rec["grad_norm"] > TP_CLIP, f"{who}: gradient norm "
+                f"{rec['grad_norm']} does not engage clipping at {TP_CLIP}")
+        require(rec["local_w2"] == [cfg.joint_size, cfg.vocab_size // 2],
+                f"{who}: W2 {rec['local_w2']}")
+        require(rec["k6_v"] == [cfg.vocab_size // 2], f"{who}: K6 at V "
+                f"{rec['k6_v']}")
+        for k, want in (("lstm_fwd", 10), ("lstm_bwd", 10),
+                        ("joint_planes", 1), ("lattice_scan", 1)):
+            require(n[k] == want, f"{who}: {k} launched {n[k]} times, want "
+                    f"{want}")
+        require_warp_k7("tp_two_ranks", n["lattice_scan_by_design"], 1)
+    return recs, sum_launches(recs)
+
+
+def tp_cli_argv(data, out, rank, port, device):
+    return ["--mode", "train", "--data_dir", data, "--output_dir", out,
+            "--multihost", "--coordinator_address", f"localhost:{port}",
+            "--num_processes", "2", "--process_id", str(rank),
+            "--model_parallel", "2", "--batch_size", str(TRAIN_BATCH),
+            "--n_epochs", "1", "--steps_per_log", "1", "--eval_size", "1",
+            "--pad_frames", "256", "--pad_tokens", "64", "--ckpt_backend",
+            "npz", "--device", device,
+            # a step this small leaves the random joint emitting, so the
+            # eval decodes tokens to compare (trained 2 steps at the default
+            # rate, it decodes blanks only)
+            "--config_override", "learning_rate=1e-7"]
+
+
+def tp_cli_worker(rank, port, data, seed, device="cuda") -> int:
+    """One rank of tp_cli: `run_rnnt --multihost --model_parallel 2` (bf16,
+    B=32, TP_STEPS steps, one eval batch with greedy decode, an npz
+    checkpoint) on a gloo group this process joins first (two ranks share
+    the card); writes its launches, each K6 launch's V, the eval's decoded
+    tokens and its W2 shape to data/tp_cli_rank{rank}.json."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from rnnt_tpu_torch.cli import run_rnnt
+    from rnnt_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.init_distributed(f"localhost:{port}", 2, rank, device,
+                              timeout_s=DP_WORKER_TIMEOUT_S, backend="gloo")
+    try:
+        zero_launches()
+        with KernelV() as kv, DecodedTokens() as dec:
+            state = run_rnnt.main(tp_cli_argv(
+                data, os.path.join(data, "run"), rank, port, device))
+        launches = read_launches()
+        launches.update({f"{k}_by_design": v
+                         for k, v in read_designs().items()})
+        rec = {"rank": rank, "step": state.step, "k6_v": kv.seen,
+               "tokens": dec.tokens,
+               "local_w2": list(state.model.joint.w2.shape),
+               "launches": launches}
+        with open(os.path.join(data, f"tp_cli_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp_cli(cfg, seed, device="cuda"):
+    """Two `tp_cli_worker` processes, then one process's `run_rnnt --mode
+    eval` on their npz checkpoint: the eval loss within 1e-4 relative of
+    the tensor-parallel eval's and the same decoded tokens.  Each rank
+    trains TP_STEPS steps and evaluates one batch: per rank 10 K4 (MMA) and
+    10 K5 a step, one K6 (WGMMA, V=2048) and one K7 (warp) a step and an
+    eval batch.  Returns (the record, the ranks' launches summed, the
+    one-process eval's launches)."""
+    from rnnt_tpu_torch.cli import run_rnnt
+    from rnnt_tpu_torch.train import checkpoint as ckpt_mod
+
+    data = os.path.join(TRAIN_DIR, "tp_cli_data")
+    write_train_data(cfg, data, TP_STEPS * TRAIN_BATCH, TRAIN_BATCH, seed + 5)
+    out = os.path.join(data, "run")
+    recs = spawn_ranks("--tp_cli_worker", "tp_cli", data, seed, device)
+    with open(os.path.join(out, "tb", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in logged if "train_loss" in r]
+    evals = [r for r in logged if "eval_loss" in r]
+    latest = ckpt_mod.latest_checkpoint(out)
+    require(len(losses) == TP_STEPS and all(np.isfinite(losses)),
+            f"tp_cli train losses {losses}")
+    require(len(evals) == 1 and np.isfinite(evals[0]["eval_loss"]),
+            f"tp_cli eval lines {evals}")
+    require(latest is not None and latest.endswith(
+        f"checkpoint_{TP_STEPS:08d}") and os.path.exists(
+        os.path.join(latest, "state.npz")), f"tp_cli checkpoint {latest}")
+    for rec in recs:
+        n, who = rec["launches"], f"tp_cli rank {rec['rank']}"
+        require(rec["step"] == TP_STEPS, f"{who}: step {rec['step']}")
+        require(rec["local_w2"] == [cfg.joint_size, cfg.vocab_size // 2],
+                f"{who}: W2 {rec['local_w2']}")
+        require(rec["k6_v"] == [cfg.vocab_size // 2] * (TP_STEPS + 1),
+                f"{who}: K6 at V {rec['k6_v']}")
+        require(rec["tokens"] == recs[0]["tokens"], f"{who}: decoded tokens "
+                "differ from rank 0's")
+        require_train_launches(who, n, TP_STEPS, 1, pallas=False)
+    zero_launches()
+    with DecodedTokens() as dec:
+        one = run_rnnt.main(["--mode", "eval", "--data_dir", data,
+                             "--checkpoint", out, "--output_dir", out,
+                             "--batch_size", str(TRAIN_BATCH),
+                             "--pad_frames", "256", "--pad_tokens", "64",
+                             "--device", device])
+    one_launches = read_launches()
+    one_launches.update({f"{k}_by_design": v
+                         for k, v in read_designs().items()})
+    tp_eval = evals[0]["eval_loss"]
+    rel = abs(one["eval_loss"] - tp_eval) / abs(tp_eval)
+    rec = {"train_losses": losses, "tp_eval": evals[0], "one_process_eval":
+           one, "eval_loss_rel": rel,
+           "tokens_equal": dec.tokens == recs[0]["tokens"],
+           "decoded": sum(len(t) for b in dec.tokens for t in b),
+           "step_seconds": [r["step_seconds"] for r in logged
+                            if "step_seconds" in r],
+           "checkpoint": os.path.basename(latest)}
+    log(f"tp_cli: {json.dumps(rec)}")
+    require(rel <= 1e-4, f"tp_cli: one process's eval loss {one['eval_loss']}"
+            f" vs the tensor-parallel eval's {tp_eval}")
+    require(rec["tokens_equal"] and rec["decoded"] > 0, "tp_cli: one "
+            "process decodes other tokens than the tensor-parallel eval, or "
+            "none were decoded")
+    return rec, sum_launches(recs), one_launches
+
+
+def drive_tensor_parallel(paths, cfg, seed, smi, device="cuda"):
+    """The tensor-parallel phase: K6 on shards, tp_two_ranks, tp_cli (and
+    its one-process eval), bench_tp at its defaults and the dry run at
+    n=4, each path's launches recorded (a multi-process path's are its
+    ranks')."""
+    from rnnt_tpu_torch import dryrun
+    from rnnt_tpu_torch.cli import bench_tp
+
+    rec = {"card": smi}
+    t0 = time.perf_counter()
+    rec["k6_shards_rel"], rec["k6_shard_ms"] = check_planes_shards(cfg)
+    log(f"K6 shard gates: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["tp_two_ranks"], paths["tp_two_ranks"] = run_tp_two_ranks(cfg, seed,
+                                                                  device)
+    log(f"path tp_two_ranks with its data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["tp_cli"], paths["tp_cli"], paths["tp_cli_one_process_eval"] = \
+        run_tp_cli(cfg, seed, device)
+    require_train_launches("tp_cli one-process eval",
+                           paths["tp_cli_one_process_eval"], 0, 1,
+                           pallas=False)
+    log(f"path tp_cli with its data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (out, _), paths["bench_tp"] = drive_path(
+        "bench_tp", lambda: run_main("bench_tp", bench_tp.main,
+                                     ["--device", device]),
+        ("joint_planes", "lattice_scan"))
+    line = json.loads(out[-1])
+    require(all(np.isfinite(line[k]) and line[k] > 0 for k in (
+        "full_ms", "half_ms", "tp_group_of_one_ms", "estimate_2rank_ms")),
+        f"bench_tp {line}")
+    require_wgmma_k6("bench_tp", paths["bench_tp"]["joint_planes_by_design"],
+                     paths["bench_tp"]["joint_planes"])
+    rec["bench_tp"] = line
+    log(f"path bench_tp: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["dryrun"] = dryrun.dryrun_multichip(4, device)
+    log(rec["dryrun"])
+    require(rec["dryrun"].startswith("dryrun_multichip(4): mesh={'data': 2, "
+                                     "'model': 2} processes=4 loss="),
+            f"dry run {rec['dryrun']}")
+    log(f"dry run: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 PHASES = ("serving", "k1_k2", "encoder_greedy", "beam", "stream_kernels",
           "export", "training", "bench_entry_points", "data_prep",
-          "int8_flac_oracle", "k4_k7", "bench_step", "data_parallel")
+          "int8_flac_oracle", "k4_k7", "bench_step", "data_parallel",
+          "tensor_parallel")
 # what a phase reads from an earlier one: the run directory and the server
 # (serving), the train_cli run and its shards (training), the bench's
 # timed steps (bench_entry_points)
@@ -3880,6 +4301,10 @@ def main(argv=None) -> int:
     p.add_argument("--dp_port", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp_dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp_device", default="cuda", help=argparse.SUPPRESS)
+    p.add_argument("--tp_worker", type=int, default=None,
+                   help=argparse.SUPPRESS)  # a rank of tp_two_ranks
+    p.add_argument("--tp_cli_worker", type=int, default=None,
+                   help=argparse.SUPPRESS)  # a rank of tp_cli
     p.add_argument("--plain_step", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
@@ -3888,6 +4313,12 @@ def main(argv=None) -> int:
     if args.dp_worker is not None:
         return dp_worker(args.dp_worker, args.dp_port, args.dp_dir, args.seed,
                          args.dp_device)
+    if args.tp_worker is not None:
+        return tp_worker(args.tp_worker, args.dp_port, args.dp_dir, args.seed,
+                         args.dp_device)
+    if args.tp_cli_worker is not None:
+        return tp_cli_worker(args.tp_cli_worker, args.dp_port, args.dp_dir,
+                             args.seed, args.dp_device)
     if args.plain_step is not None:
         return plain_train_step(args.plain_step, args.seed)
     if not torch.cuda.is_available():
@@ -4129,6 +4560,13 @@ def main(argv=None) -> int:
             dp = drive_data_parallel(paths, cfg, args.seed, smi)
             end_phase("data_parallel")
 
+        if "tensor_parallel" in phases:
+            tp = drive_tensor_parallel(paths, cfg, args.seed, smi)
+            end_phase("tensor_parallel")
+            if "k6" in found:
+                found["k6"]["ms_by_v_local"] = tp["k6_shard_ms"]
+                found["k6"]["max_rel_err_by_shard_case"] = tp["k6_shards_rel"]
+
         if "k2" in found and export_rec is not None:
             found["k2"]["export_paths"] = export_rec
         if "k3" in found and k3_decode is not None:
@@ -4157,6 +4595,9 @@ def main(argv=None) -> int:
                 f"{k['library_ms']}), launches {k['launches_by_path']}")
         if "data_parallel" in phases:
             log("data_parallel " + json.dumps(dp))
+        if "tensor_parallel" in phases:
+            log("tensor_parallel " + json.dumps(
+                {k: v for k, v in tp.items() if k != "k6_shards_rel"}))
     finally:
         if srv is not None:
             srv.shutdown()

@@ -1,10 +1,11 @@
-"""Data-parallel scaling of the train step across ranks (the port of
+"""Scaling of the train step across ranks (the port of
 `rnnt_tpu.cli.bench_scaling`).
 
-Measures the same train step at a fixed PER-RANK batch over growing data
-meshes (the first n ranks of the process group, one process a device) and
-prints one JSON line per size: throughput and efficiency against the
-one-rank run.
+Measures the same train step at a fixed batch per data row over growing
+(n / M data, M model) meshes (the first n ranks of the process group, one
+process a device, M = --model_parallel: vocab tensor parallelism within a
+row) and prints one JSON line per size: throughput and efficiency against
+the first size's run, and the mesh as "DATAxMODEL".
 
   torchrun --nproc_per_node 4 -m rnnt_tpu_torch.cli.bench_scaling \\
       --devices 1 2 4 --per_device_batch 32
@@ -13,9 +14,10 @@ one-rank run.
 
 Without torchrun a single process measures a group of one (NCCL on the
 card).  --simulate N spawns N gloo processes on the CPU: like the JAX
-package's, its numbers check the data-parallel path, not speed.  The batch
-of rank r is `bench.make_batch(..., seed=r)`; one warm-up step, then
---steps steps, synchronised once.  Each line names the device it ran on.
+package's, its numbers check the parallel path, not speed.  The batch of
+data row r is `bench.make_batch(..., seed=r)`; one warm-up step, then
+--steps steps, synchronised once.  A size that M does not divide is
+skipped.  Each line names the device it ran on.
 """
 
 from __future__ import annotations
@@ -32,11 +34,13 @@ def parse_args(argv=None):
     p.add_argument("--devices", type=int, nargs="+", default=None,
                    help="mesh sizes to measure (default: 1, 2, 4, ... up to "
                         "the world size)")
-    p.add_argument("--per_device_batch", type=int, default=8)
+    p.add_argument("--per_device_batch", type=int, default=8,
+                   help="each data row's batch")
     p.add_argument("--frames", type=int, default=256)
     p.add_argument("--labels", type=int, default=64)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="only 1 in the PyTorch port")
+                   help="model-axis size of every mesh (vocab tensor "
+                        "parallelism)")
     p.add_argument("--loss_impl", default="fused",
                    choices=["fused", "banded", "auto", "ref", "pallas"])
     p.add_argument("--steps", type=int, default=10)
@@ -47,9 +51,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
     args = p.parse_args(argv)
-    if args.model_parallel != 1:
-        p.error("not yet ported to the PyTorch port: --model_parallel > 1 "
-                "(vocab tensor parallelism)")
     if args.simulate and args.device != "cpu":
         p.error("--simulate runs gloo processes on the CPU: pass --device cpu")
     return args
@@ -83,17 +84,20 @@ def measure(args, device) -> list:
     T, U = args.frames, args.labels
     sec_per_frame = cfg.frame_step * cfg.downsample_factor
     base, out = None, []
+    mp = args.model_parallel
     for n in sizes:
-        if n > world:
+        if n > world or n % mp:
             continue
-        mesh = mesh_mod.make_mesh(ranks=range(n), device=device)
+        mesh = mesh_mod.make_mesh(model=mp, ranks=range(n), device=device)
         if mesh.rank >= 0:
             state = create_train_state(cfg, dtype, device, seed=0)
             mesh_mod.broadcast_module_(state.model, mesh)
+            mesh_mod.shard_state_(state, mesh.vocab_shard(cfg.vocab_size))
+            row = mesh.data_index
             batch = to_device(make_batch(cfg, args.per_device_batch, T, U,
-                                         seed=mesh.rank), device, dtype)
+                                         seed=row), device, dtype)
             step = make_train_step(cfg, loss_impl=args.loss_impl, mesh=mesh)
-            gen = torch.Generator(device=device).manual_seed(1 + mesh.rank)
+            gen = torch.Generator(device=device).manual_seed(1 + row)
             loss = float(step(state, batch, gen)["loss"])  # warm-up
             mesh_mod.barrier(mesh)
             t0 = time.perf_counter()
@@ -103,12 +107,13 @@ def measure(args, device) -> list:
             dt = (time.perf_counter() - t0) / args.steps
             if not loss == loss or abs(loss) == float("inf"):
                 raise RuntimeError(f"{n} ranks: loss {loss} is not finite")
-            audio_s = args.per_device_batch * n * T * sec_per_frame / dt
+            rows = n // mp
+            audio_s = args.per_device_batch * rows * T * sec_per_frame / dt
             per_dev = audio_s / n
             base = base or per_dev
             out.append({
-                "devices": n, "mesh": f"{n}x1",
-                "global_batch": args.per_device_batch * n,
+                "devices": n, "mesh": f"{rows}x{mp}",
+                "global_batch": args.per_device_batch * rows,
                 "step_ms": dt * 1e3, "audio_s_per_s": audio_s,
                 "per_device": per_dev,
                 "efficiency_vs_1dev": per_dev / base,

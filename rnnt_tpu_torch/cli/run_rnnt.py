@@ -29,8 +29,16 @@ in lockstep (the fewest batches any rank keeps), the BatchNorm statistics
 and the loss are the global batch's, eval sums its statistics across
 ranks and process 0 reports, and checkpoints are collective
 (checkpoint_NNNNNNNN.dcp; --ckpt_backend auto picks dcp across processes).
-Not yet ported, and refused with an error: --model_parallel > 1;
---ckpt_backend orbax is the JAX package's (the port writes npz or dcp).
+--model_parallel M (with --multihost; M divides the process count) lays
+the processes out as a (N/M data, M model) grid, row-major: the M ranks of
+a data row read the same batches (--batch_size is then each data row's),
+the joint's W2 and b2 are column-sharded over the vocabulary across them
+when M divides V (else replicated), the fused and banded losses run on the
+shards and combine the planes over the model group, the encoder and the
+prediction net are replicated, eval decodes with W2 gathered over the
+model group, and checkpoints hold the whole W2 (npz, written by rank 0,
+when the grid is one data row; dcp otherwise).  --ckpt_backend orbax is
+the JAX package's and refused (the port writes npz or dcp).
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ def parse_args(argv=None):
                         "optimizer and step (ignored when a resume "
                         "checkpoint applies)")
     p.add_argument("--batch_size", type=int, default=32,
-                   help="examples a step; under --multihost each process's")
+                   help="examples a step; under --multihost each data "
+                        "row's (each process's at --model_parallel 1)")
     p.add_argument("--n_epochs", type=int, default=1000)
     p.add_argument("--steps_per_log", type=int, default=10)
     p.add_argument("--steps_per_checkpoint", type=int, default=1000)
@@ -77,7 +86,8 @@ def parse_args(argv=None):
                    choices=["float32", "bfloat16"],
                    help="dtype of the mel features sent to the device")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="model-axis size (only 1 in the PyTorch port)")
+                   help="model-axis size: vocab tensor parallelism over "
+                        "that many processes (needs --multihost)")
     p.add_argument("--loss_impl", default="fused",
                    choices=["fused", "banded", "auto", "ref", "pallas"],
                    help="fused = joint + loss kernels, never materialising "
@@ -128,9 +138,12 @@ def parse_args(argv=None):
     if args.reader_threads > 1 and args.shuffle_buffer <= 1:
         p.error("--reader_threads > 1 requires --shuffle_buffer > 1 "
                 "(parallel reads interleave nondeterministically)")
-    if args.model_parallel > 1:
-        p.error("not yet ported to the PyTorch port: --model_parallel > 1 "
-                "(vocab tensor parallelism)")
+    if args.model_parallel > 1 and not args.multihost:
+        p.error("--model_parallel > 1 runs one process a device: start "
+                "every process with --multihost (or torchrun)")
+    if args.model_parallel > 1 and args.quantized:
+        p.error("--quantized loads replicated inference weights: evaluate "
+                "an int8 artifact without --model_parallel")
     if args.ckpt_backend == "orbax":
         p.error("--ckpt_backend orbax: the PyTorch port cannot write orbax "
                 "checkpoints; use dcp (collective) or npz")
@@ -193,6 +206,10 @@ def _run(args):
         dev = mesh_mod.init_distributed(
             args.coordinator_address, args.num_processes, args.process_id,
             args.device)
+        if mesh_mod.dist.get_world_size() % args.model_parallel:
+            sys.exit(f"--model_parallel {args.model_parallel} does not "
+                     f"divide the {mesh_mod.dist.get_world_size()} "
+                     "processes")
         mesh = mesh_mod.make_mesh(data=-1, model=args.model_parallel,
                                   device=dev)
         if args.mode == "train" and args.batch_size % mesh.shape["data"]:
@@ -239,8 +256,10 @@ def _run(args):
                                               mesh)
     else:
         state = create_train_state(cfg, dtype, dev)
-    # every rank starts from rank 0's parameters
+    # every rank starts from rank 0's parameters, then keeps its shard
     mesh_mod.broadcast_module_(state.model, mesh)
+    if mesh is not None:
+        mesh_mod.shard_state_(state, mesh.vocab_shard(cfg.vocab_size))
     int8_exec = bool(args.quantized) and args.int8_exec
     if args.quantized:
         from rnnt_tpu_torch.ops.quantize import load_quantized_into_

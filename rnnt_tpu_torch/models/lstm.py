@@ -178,14 +178,15 @@ class BatchNorm(nn.Module):
         new = 0.99 * running + 0.01 * batch (Keras' momentum); the running
         statistics are not changed here (the train step writes them).
 
-        With a `parallel.mesh.Mesh` of more than one rank the batch is the
-        global one: the frame sum and count are summed across ranks first,
+        With a `parallel.mesh.Mesh` of more than one data row the batch is
+        the global one: the frame sum and count are summed across the data
+        group first (each row once, whatever the model axis),
         then the squared deviations from the global mean (two passes, as
         `jnp.var`), both through a differentiable all-reduce, so the
         gradient flows through the statistics as in one process."""
         momentum = 0.99
         xf = x.float()
-        if mesh is not None and mesh.size > 1:
+        if mesh is not None and mesh.shape["data"] > 1:
             mean, var = self._global_stats(xf, mesh)
         else:
             mean = xf.mean(dim=(0, 1))

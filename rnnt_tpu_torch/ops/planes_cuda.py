@@ -84,10 +84,13 @@ def pack_w2(w2: torch.Tensor) -> torch.Tensor:
 def joint_planes_plain(f, g, labels_pad, b1, w2, b2):
     """Plain version: the logits of 4 batch rows at a time, with the
     kernel's rounding points (h in fp32, rounded to W2's dtype before the
-    product; fp32 logits)."""
+    product; fp32 logits).  A label outside [0, V) (another vocabulary
+    shard's, shifted into this shard's coordinates) matches no column: its
+    emit is NEG, as in the kernel."""
     rows = 4
     B, T, _ = f.shape
     U1 = g.shape[1]
+    V = w2.shape[1]
     out = [torch.empty((B, T, U1), dtype=torch.float32, device=f.device)
            for _ in range(3)]
     for r0 in range(0, B, rows):
@@ -97,8 +100,10 @@ def joint_planes_plain(f, g, labels_pad, b1, w2, b2):
         logits = matmul_f32(h.to(w2.dtype), w2) + b2.float()
         out[0][sl] = torch.logsumexp(logits, -1)
         out[1][sl] = logits[..., 0]
-        idx = labels_pad[sl].long()[:, None, :, None].expand(-1, T, U1, 1)
-        out[2][sl] = torch.gather(logits, -1, idx)[..., 0]
+        y = labels_pad[sl].long()
+        idx = y.clamp(0, V - 1)[:, None, :, None].expand(-1, T, U1, 1)
+        out[2][sl] = torch.where(((y >= 0) & (y < V))[:, None, :],
+                                 torch.gather(logits, -1, idx)[..., 0], NEG)
     return tuple(out)
 
 
@@ -145,8 +150,9 @@ def _lib():
 
 
 def joint_planes(f, g, labels_pad, b1, w2, b2):
-    """f [B, T, J], g [B, U+1, J] (the weight dtype), labels_pad [B, U+1],
-    b1 [J], w2 [J, V], b2 [V] -> (denom, blank, emit) [B, T, U+1] fp32."""
+    """f [B, T, J], g [B, U+1, J] (the weight dtype), labels_pad [B, U+1]
+    (ids outside [0, V) emit NEG), b1 [J], w2 [J, V], b2 [V] -> (denom,
+    blank, emit) [B, T, U+1] fp32."""
     B, T, J = f.shape
     U1 = g.shape[1]
     V = w2.shape[1]

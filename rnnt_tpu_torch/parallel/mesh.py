@@ -1,5 +1,5 @@
-"""Data parallelism over `torch.distributed`: the port of
-`rnnt_tpu.parallel.mesh` on the data axis.
+"""Data and vocab tensor parallelism over `torch.distributed`: the port of
+`rnnt_tpu.parallel.mesh`.
 
 The JAX package runs one SPMD program over a ('data', 'model') device mesh
 and lets GSPMD insert the collectives.  The port runs one process per
@@ -7,12 +7,21 @@ device, in PyTorch's idiom, and issues the collectives itself:
 
 - `init_distributed` joins the process group (NCCL for the card, gloo for
   the CPU), from flags or from the torchrun environment.
-- `make_mesh` lays the ranks out as a (data, model) grid; a model axis
-  larger than 1 (vocab tensor parallelism) is not yet ported.
+- `make_mesh` lays the ranks out as a (data, model) grid.  A rank's data
+  group is its model column (the ranks holding the same vocabulary shard
+  and other batch rows), its model group its data row (the ranks holding
+  the same batch rows and the other shards).
+- On a model axis of mp > 1 the joint's vocabulary projection W2 and b2
+  (`VOCAB_SHARDED`) are column-sharded when mp divides V: shard k holds
+  columns [k V/mp, (k+1) V/mp), as the JAX rules lay them out
+  (`Mesh.vocab_shard`, `shard_state_`); every other parameter is
+  replicated.  `gather_vocab` rebuilds the full columns over the model
+  group (checkpoints, decoding).
 - `data_read_group` and `read_group_process_count` split the input stream
   by data-row ownership, as the JAX functions do, with their three refusals.
-- `all_reduce_sum_` sums a list of tensors across ranks in one flat bucket,
-  `all_reduce_sum` is the differentiable sum the global BatchNorm needs,
+- `all_reduce_sum_` sums a list of tensors across the data group in one
+  flat bucket, `all_reduce_sum` is the differentiable sum the global
+  BatchNorm needs, `all_reduce_` any reduction over any group,
   `all_gather_ints` gathers small counts, `broadcast_module_` copies rank
   0's parameters and buffers to every rank (`shard_params` on the data
   axis).
@@ -25,6 +34,7 @@ every kernel still runs on the card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -42,20 +52,31 @@ class Device:
 
 
 class Mesh:
-    """A (data, model) grid of ranks.  `group` is the process group of the
-    data axis (None without `torch.distributed`), `rank` this process's
-    index in it, `size` its size and `device` this process's device."""
+    """A (data, model) grid of ranks.  `group` is the process group of all
+    its ranks (None without `torch.distributed`), `rank` this process's
+    index in it, `size` its size and `device` this process's device.
+    `data_group` sums over this rank's model column (the whole mesh when
+    the model axis is 1; None when the data axis is 1: nothing to sum) and
+    `model_group` over its data row (None when the model axis is 1);
+    `data_index` and `shard_index` are this rank's row and column,
+    `shard_count` the model axis."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, devices: np.ndarray, group=None, device=None):
+    def __init__(self, devices: np.ndarray, group=None, device=None,
+                 data_group=None, model_group=None):
         self.devices = devices
         self.group = group
+        self.data_group = data_group
+        self.model_group = model_group
         self.device = torch.device(device) if device is not None else None
         ranks = [d.process_index for d in devices.ravel()]
         me = dist.get_rank() if dist.is_initialized() else 0
         self.rank = ranks.index(me) if me in ranks else -1
         self.size = len(ranks)
+        self.shard_count = devices.shape[1]
+        self.data_index, self.shard_index = (
+            divmod(self.rank, self.shard_count) if self.rank >= 0 else (0, 0))
 
     @property
     def shape(self):
@@ -66,8 +87,33 @@ class Mesh:
         """Whether this mesh's steps run collectives (a process group)."""
         return self.group is not None
 
+    def vocab_shard(self, vocab_size: int) -> Optional["VocabShard"]:
+        """This rank's vocabulary shard, or None where W2 stays replicated:
+        a model axis of 1, or one that does not divide `vocab_size` (the
+        JAX rules' divisibility guard, e.g. 31 characters at mp=2)."""
+        if (self.model_group is None or self.shard_count == 1
+                or vocab_size % self.shard_count):
+            return None
+        return VocabShard(self.model_group, self.shard_index,
+                          self.shard_count)
+
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """Columns [index V/count, (index+1) V/count) of the vocabulary on this
+    rank; `group` is the model group that holds the other shards (a group
+    of one runs the same code path with no one to exchange with)."""
+    group: object
+    index: int
+    count: int
+
+
+# parameter name -> the dimension split over the model axis (the JAX rules'
+# `joint/w2` P(None, 'model') and `joint/b2` P('model'))
+VOCAB_SHARDED = {"joint.w2": 1, "joint.b2": 0}
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -134,13 +180,12 @@ def free_port() -> int:
 def make_mesh(data: int = -1, model: int = 1, *,
               ranks: Optional[Sequence[int]] = None, device=None) -> Mesh:
     """A ('data', 'model') grid over `ranks` (all ranks of the process
-    group by default; one rank, no group, without torch.distributed).
-    data=-1 means all remaining ranks.  A sub-list of ranks gets a new
-    group, which every rank of the world must create, members or not."""
-    if model != 1:
-        raise NotImplementedError(
-            f"model={model}: vocab tensor parallelism is not yet ported to "
-            "the PyTorch port (ROADMAP.md §A item 5)")
+    group by default; one rank, no group, without torch.distributed),
+    row-major: rank i of `ranks` sits at (i // model, i % model).  data=-1
+    means all remaining ranks.  A sub-list of ranks gets a new group, and a
+    model axis above 1 a group for each column with more than one row and
+    for each row; every rank of the world creates every one of them, in
+    the same order, members or not."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     ranks = list(range(world)) if ranks is None else list(ranks)
     n = len(ranks)
@@ -148,14 +193,28 @@ def make_mesh(data: int = -1, model: int = 1, *,
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} ranks")
-    group = None
+    group = data_group = model_group = None
+    grid = np.asarray(ranks, dtype=np.int64).reshape(data, model)
     if dist.is_initialized():
         group = (dist.group.WORLD if ranks == list(range(world))
                  else dist.new_group(ranks))
+        data_group = group
+        if model > 1:
+            me = dist.get_rank()
+            data_group = None
+            if data > 1:
+                for c in range(model):
+                    g = dist.new_group(grid[:, c].tolist())
+                    if me in grid[:, c]:
+                        data_group = g
+            for r in range(data):
+                g = dist.new_group(grid[r].tolist())
+                if me in grid[r]:
+                    model_group = g
     devices = np.empty((data, model), dtype=object)
     for i, r in enumerate(ranks):
         devices.flat[i] = Device(r)
-    return Mesh(devices, group, device)
+    return Mesh(devices, group, device, data_group, model_group)
 
 
 def _process_rows(mesh):
@@ -242,22 +301,27 @@ def _collective_(op, t: torch.Tensor, group) -> None:
         op(t)
 
 
-def _all_reduce_(t: torch.Tensor, group) -> None:
-    """In-place sum across the group."""
-    _collective_(lambda x: dist.all_reduce(x, group=group), t, group)
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """In-place reduction (a sum unless `op` says otherwise) across the
+    process group."""
+    _collective_(lambda x: dist.all_reduce(x, op=op, group=group), t, group)
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Sum each tensor across the mesh's ranks, in place, through one flat
-    bucket in the widest of their dtypes (at least fp32: bf16 gradients are
-    summed in fp32 and rounded once).  No-op without a group."""
-    if not tensors or mesh is None or mesh.group is None:
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                    group=None) -> None:
+    """Sum each tensor across the mesh's data group (or `group`), in place,
+    through one flat bucket in the widest of their dtypes (at least fp32:
+    bf16 gradients are summed in fp32 and rounded once).  No-op without a
+    group."""
+    if group is None and mesh is not None:
+        group = mesh.data_group
+    if not tensors or group is None:
         return
     dtype = torch.float32
     for t in tensors:
         dtype = torch.promote_types(dtype, t.dtype)
     bucket = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
-    _all_reduce_(bucket, mesh.group)
+    all_reduce_(bucket, group)
     off = 0
     with torch.no_grad():
         for t in tensors:
@@ -274,19 +338,20 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, t, group):
         ctx.group = group
         out = t.clone()
-        _all_reduce_(out, group)
+        all_reduce_(out, group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.clone()
-        _all_reduce_(g, ctx.group)
+        all_reduce_(g, ctx.group)
         return g, None
 
 
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """A differentiable sum of `t` across the mesh's ranks (a new tensor)."""
-    return _AllReduceSum.apply(t, mesh.group)
+    """A differentiable sum of `t` across the mesh's data group (a new
+    tensor)."""
+    return _AllReduceSum.apply(t, mesh.data_group)
 
 
 def all_gather_ints(value: int, mesh: Optional[Mesh]) -> List[int]:
@@ -312,8 +377,8 @@ def barrier(mesh: Optional[Mesh]) -> None:
 
 def broadcast_module_(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
     """Rank 0's parameters and buffers on every rank (after init, restore or
-    a warm start), in place: the data-axis counterpart of `shard_params`.
-    No-op without a group."""
+    a warm start, before `shard_state_`), in place.  No-op without a
+    group."""
     if mesh is None or mesh.group is None:
         return
     src = mesh.devices.flat[0].process_index
@@ -322,3 +387,102 @@ def broadcast_module_(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
             _collective_(
                 lambda x: dist.broadcast(x, src=src, group=mesh.group), t,
                 mesh.group)
+
+
+# ------------------------------------------------------ vocab sharding
+
+
+def shard_columns(t: torch.Tensor, dim: int, tp: VocabShard) -> torch.Tensor:
+    """This shard's slice of a full tensor along `dim` (a contiguous
+    copy)."""
+    n = t.shape[dim] // tp.count
+    return t.narrow(dim, tp.index * n, n).contiguous()
+
+
+def gather_columns(t: torch.Tensor, dim: int, tp: VocabShard) -> torch.Tensor:
+    """The full tensor from every shard's slice along `dim`, over the model
+    group (in shard order; gloo gathers host copies of card tensors)."""
+    if tp.count == 1:
+        return t.clone()
+    src = t.contiguous()
+    host = src.is_cuda and dist.get_backend(tp.group) == "gloo"
+    if host:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(tp.count)]
+    dist.all_gather(parts, src, group=tp.group)
+    return torch.cat(parts, dim).to(t.device)
+
+
+def _sharded_leaves(state):
+    """(container, key, dim) of every vocab-sharded tensor of a train
+    state: the parameters, then the optimizer state's per-parameter
+    leaves (momentum, Adam's mu and nu)."""
+    params = dict(state.model.named_parameters())
+    out = [(params[n], None, d) for n, d in VOCAB_SHARDED.items()]
+    for v in state.opt_state.values():
+        if isinstance(v, dict):
+            out += [(v, n, d) for n, d in VOCAB_SHARDED.items() if n in v]
+    return out
+
+
+@torch.no_grad()
+def shard_state_(state, tp: Optional[VocabShard]) -> None:
+    """Cut W2, b2 and their optimizer leaves of a full train state to this
+    rank's shard, in place (the same Parameter objects; the JAX
+    `shard_params`).  No-op for tp None."""
+    if tp is None:
+        return
+    for c, k, dim in _sharded_leaves(state):
+        if k is None:
+            c.data = shard_columns(c.data, dim, tp)
+        else:
+            c[k] = shard_columns(c[k], dim, tp)
+
+
+def gather_vocab(model, tp: Optional[VocabShard]) -> dict:
+    """{name: the full tensor} of the model's vocab-sharded parameters,
+    gathered over the model group ({} for tp None)."""
+    if tp is None:
+        return {}
+    params = dict(model.named_parameters())
+    return {n: gather_columns(params[n].detach(), d, tp)
+            for n, d in VOCAB_SHARDED.items()}
+
+
+def full_state(state, tp: Optional[VocabShard]):
+    """(state_dict, optimizer state) of a train state with every
+    vocab-sharded tensor gathered to its full columns (what a one-process
+    run holds; the state's own tensors where nothing is sharded).  Every
+    rank of the model group calls this."""
+    sd = state.model.state_dict()
+    opt = dict(state.opt_state)
+    if tp is None:
+        return sd, opt
+    sd = dict(sd)
+    sd.update(gather_vocab(state.model, tp))
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            opt[k] = dict(v)
+            for n, d in VOCAB_SHARDED.items():
+                if n in v:
+                    opt[k][n] = gather_columns(v[n], d, tp)
+    return sd, opt
+
+
+@contextlib.contextmanager
+def full_vocab(model, full: dict):
+    """The model with `full` (`gather_vocab`'s tensors) in place of its
+    vocab-sharded parameters for the block, e.g. to decode; the shards
+    return after it."""
+    if not full:
+        yield model
+        return
+    params = dict(model.named_parameters())
+    local = {n: params[n].data for n in full}
+    try:
+        for n, t in full.items():
+            params[n].data = t
+        yield model
+    finally:
+        for n, t in local.items():
+            params[n].data = t

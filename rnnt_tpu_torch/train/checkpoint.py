@@ -22,6 +22,12 @@ package's orbax backend, which the port cannot import) as
 `checkpoint_{step:08d}.dcp/`, each leaf in its own dtype; every rank takes
 part in the save and the restore.  Only the port reads these; npz stays
 the format both packages read.
+
+Where the mesh shards the vocabulary (`parallel.mesh.Mesh.vocab_shard`),
+W2, b2 and their optimizer leaves are gathered over the model group before
+either write, so a tensor-parallel run's checkpoint holds the same leaves
+and shapes as a one-process run's; a restore reads them whole, and the
+caller cuts them to its shard (`parallel.mesh.shard_state_`).
 """
 
 from __future__ import annotations
@@ -252,8 +258,11 @@ def _prune(ckpt_dir: str, keep: int) -> None:
 
 
 def resolve_backend(backend: str, mesh=None) -> str:
-    """'auto' is dcp across more than one process and npz otherwise; npz
-    across processes is refused (each rank would write the same file)."""
+    """'auto' is dcp across more than one process and npz otherwise.  npz
+    has one writer: one process, or the first rank of a mesh that is one
+    model group (data axis 1), after the vocab shards are gathered to it;
+    across data replicas it is refused (each would write the same
+    file)."""
     if backend not in BACKENDS:
         raise ValueError(
             f"checkpoint backend {backend!r}: the PyTorch port writes "
@@ -261,11 +270,19 @@ def resolve_backend(backend: str, mesh=None) -> str:
     multi = mesh is not None and mesh.size > 1
     if backend == "auto":
         return "dcp" if multi else "npz"
-    if backend == "npz" and multi:
+    if backend == "npz" and multi and mesh.shape["data"] > 1:
         raise ValueError(
-            "backend='npz' cannot save from several processes; use "
-            "backend='dcp' (ckpt_backend='auto' picks it)")
+            "backend='npz' cannot save from several data-parallel "
+            "processes; use backend='dcp' (ckpt_backend='auto' picks it)")
     return backend
+
+
+def _full_state(state, cfg: RNNTConfig, mesh):
+    """(step, state_dict, optimizer state) with the vocab-sharded tensors
+    gathered (collective over the model group where the mesh shards)."""
+    tp = mesh.vocab_shard(cfg.vocab_size) if mesh is not None else None
+    sd, opt = mesh_mod.full_state(state, tp)
+    return int(state.step), sd, opt
 
 
 def _write_dcp(ckpt_dir: str, tensors: Dict[str, torch.Tensor],
@@ -317,15 +334,18 @@ def _write_npz(ckpt_dir: str, arrays: Dict[str, np.ndarray], cfg: RNNTConfig,
 def save_checkpoint(ckpt_dir: str, state, cfg: RNNTConfig, *,
                     keep: int = 5, backend: str = "npz", mesh=None) -> str:
     """Write checkpoint_{step} (synchronously; backend 'dcp': the
-    collective checkpoint_{step}.dcp); prunes beyond `keep`."""
+    collective checkpoint_{step}.dcp); prunes beyond `keep`.  Every rank
+    of a mesh calls this; an npz is written by the mesh's first rank."""
     backend = resolve_backend(backend, mesh)
+    step, sd, opt = _full_state(state, cfg, mesh)
     if backend == "dcp":
-        return _write_dcp(ckpt_dir, state_tensors(
-            state.step, state.model.state_dict(), state.opt_state), cfg,
-            keep=keep, step=int(state.step), mesh=mesh)
-    arrays = state_arrays(state.step, state.model.state_dict(),
-                          state.opt_state)
-    return _write_npz(ckpt_dir, arrays, cfg, keep=keep, step=int(state.step))
+        return _write_dcp(ckpt_dir, state_tensors(step, sd, opt), cfg,
+                          keep=keep, step=step, mesh=mesh)
+    path = os.path.join(ckpt_dir, f"checkpoint_{step:08d}")
+    if mesh is None or mesh.rank == 0:
+        path = _write_npz(ckpt_dir, state_arrays(step, sd, opt), cfg,
+                          keep=keep, step=step)
+    return path
 
 
 class AsyncSaver:
@@ -334,7 +354,8 @@ class AsyncSaver:
     cannot change them), and a thread moves the copies to the host and runs
     the same atomic npz write as save_checkpoint.  One save is in flight at
     a time; wait() joins it and re-raises a writer error.  A 'dcp' save is
-    collective and runs on the calling thread."""
+    collective and runs on the calling thread; so does the gather of the
+    vocab shards, and then only the mesh's first rank writes the npz."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
@@ -357,11 +378,13 @@ class AsyncSaver:
             self._last_path = save_checkpoint(ckpt_dir, state, cfg, keep=keep,
                                               backend="dcp", mesh=mesh)
             return self._last_path
-        step = int(state.step)
-        sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        step, sd, opt = _full_state(state, cfg, mesh)
+        if mesh is not None and mesh.rank != 0:
+            return os.path.join(ckpt_dir, f"checkpoint_{step:08d}")
+        sd = {k: v.detach().clone() for k, v in sd.items()}
         opt = {k: ({n: t.detach().clone() for n, t in v.items()}
                    if isinstance(v, dict) else v)
-               for k, v in state.opt_state.items()}
+               for k, v in opt.items()}
 
         def work():
             try:
@@ -390,7 +413,8 @@ def restore_checkpoint(path_or_dir: str, cfg: RNNTConfig, dtype=None,
     """Full resume (parameters, optimizer state and step) from a step
     directory or a run directory's latest step (npz, written by either
     package, or the port's .dcp, read collectively: every rank of the mesh
-    calls this), onto `device` (the card unless 'cpu' is asked for).
+    calls this), onto `device` (the card unless 'cpu' is asked for), whole
+    (W2 and b2 unsharded: `parallel.mesh.shard_state_` cuts them).
     dtype: the parameter dtype (None: cfg.compute_dtype); leaf shapes and
     the leaf count are checked against `cfg`."""
     from rnnt_tpu_torch.train.state import Optimizer

@@ -8,13 +8,15 @@ the end, and on SIGTERM writes a checkpoint at the next step boundary and
 returns.  `run_evaluate` reports the eval loss and, from the port's greedy
 or beam decoder, token accuracy, WER and CER over the whole set.
 
-With a data-parallel `parallel.mesh.Mesh` every rank runs the loop on its
-own rows (the caller keeps the epochs in lockstep), the steps reduce across
+With a `parallel.mesh.Mesh` every rank runs the loop on its data row's
+rows (the caller keeps the epochs in lockstep), the steps reduce across
 ranks (`train.steps`), periodic eval runs on every rank and sums the
-statistics across ranks once, checkpoints are collective (`dcp`), and only
+statistics over the data group once, checkpoints are collective, and only
 the mesh's first rank writes metrics and logs.  Each rank's generator
-(input noise, SpecAugment, dropout) is seeded by (step, rank), so ranks
-draw independently.
+(input noise, SpecAugment, dropout) is seeded by (step, data row), so
+rows draw independently and the ranks of a row (the model axis) alike.
+Where the mesh shards the vocabulary, eval scores the loss on the shards
+and decodes with W2 and b2 gathered once over the model group.
 """
 
 from __future__ import annotations
@@ -82,10 +84,15 @@ def run_evaluate(cfg: RNNTConfig, model, eval_batches: Iterable[Dict], *,
     weights cannot feed the loss paths.  With a `mesh` each rank evaluates
     its own batches and the sufficient statistics are summed across ranks
     (once; every rank must call this), so every rank returns the metrics
-    of the whole set."""
+    of the whole set.  Where the mesh shards the vocabulary, the model
+    holds this rank's W2 and b2 columns; the decoder reads them gathered
+    (once a call)."""
     if loss_metrics:
-        eval_step = eval_step or make_eval_step(cfg, loss_impl=loss_impl)
+        eval_step = eval_step or make_eval_step(cfg, loss_impl=loss_impl,
+                                                mesh=mesh)
     dev = next(model.parameters()).device
+    full = mesh_mod.gather_vocab(
+        model, mesh.vocab_shard(cfg.vocab_size) if mesh is not None else None)
     losses, n = [], 0
     tok_err = n_utt = wer_sum = cer_sum = n_txt = 0.0
     for batch in eval_batches:
@@ -96,7 +103,7 @@ def run_evaluate(cfg: RNNTConfig, model, eval_batches: Iterable[Dict], *,
             m = eval_step(model, tb)
             losses.extend(m["nll"][:num_real].float().cpu().tolist())
         max_out = int(batch["labels"].shape[1] * 2 + 8)
-        with torch.no_grad():
+        with torch.no_grad(), mesh_mod.full_vocab(model, full):
             tokens, lengths = _decode(model, decode, tb["mel_specs"],
                                       tb["spec_lengths"], max_out)
         tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
@@ -145,14 +152,14 @@ def run_training(cfg: RNNTConfig, state: TrainState,
     else npz), 'npz' or 'dcp'."""
     backend = ckpt_mod.resolve_backend(ckpt_backend, mesh)
     train_step = make_train_step(cfg, loss_impl=loss_impl, mesh=mesh)
-    eval_step = make_eval_step(cfg, loss_impl=loss_impl) \
+    eval_step = make_eval_step(cfg, loss_impl=loss_impl, mesh=mesh) \
         if eval_batches_fn else None
     dev = next(state.model.parameters()).device
-    rank = mesh.rank if mesh is not None else 0
-    # rank 0 keeps the one-process seed; the others draw their own
+    row = mesh.data_index if mesh is not None else 0
+    # row 0 keeps the one-process seed; the other rows draw their own
     gen = torch.Generator(device=dev).manual_seed(state.step + 17
-                                                  + (rank << 40))
-    lead = rank == 0
+                                                  + (row << 40))
+    lead = mesh is None or mesh.rank == 0
     writer = observe.MetricsWriter(output_dir, "tb") if lead else None
     if lead:
         writer.hparams(cfg)

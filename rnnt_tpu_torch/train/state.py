@@ -14,7 +14,9 @@ dtypes:
 The optimizer state's leaves come in optax's flatten order (momentum per
 trainable parameter; or Adam's count, mu, nu; then the schedule's count),
 which `train.checkpoint` writes after the parameters.  Global norms are
-summed in fp32.
+summed in fp32; under vocab tensor parallelism the squares of the sharded
+W2 and b2 are summed over the model group (JAX's `optax.global_norm` of
+the sharded tree), the replicated leaves counted once.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.device import resolve_device
 from rnnt_tpu_torch.models.transducer import FP32_LEAVES, Transducer
+from rnnt_tpu_torch.parallel import mesh as mesh_mod
 from rnnt_tpu_torch.train.checkpoint import flatten_order
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-9
@@ -81,19 +84,33 @@ def has_schedule(cfg: RNNTConfig) -> bool:
     return cfg.warmup_steps > 0 or cfg.lr_schedule != "constant"
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of all elements, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(grads: Dict[str, torch.Tensor], tp=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of named tensors, in
+    fp32.  Under `tp` the vocab-sharded ones (`VOCAB_SHARDED`) are this
+    rank's columns: their squares are summed over the model group, the
+    replicated tensors' counted once."""
+    shd = mesh_mod.VOCAB_SHARDED if tp is not None else {}
+    sq = sum(g.float().square().sum() for n, g in grads.items()
+             if n not in shd)
+    part = [g.float().square().sum() for n, g in grads.items() if n in shd]
+    if part:
+        part = torch.stack(part).sum()
+        mesh_mod.all_reduce_(part, tp.group)
+        sq = sq + part
+    return torch.sqrt(sq)
 
 
 class Optimizer:
     """The optax chain above, applied in place to the model's parameters."""
 
-    def __init__(self, cfg: RNNTConfig):
+    def __init__(self, cfg: RNNTConfig, tp=None):
+        """tp: the model's W2 and b2 are vocab-sharded (clipping reads the
+        global norm over the model group)."""
         if cfg.optimizer not in ("sgd", "adam"):
             raise ValueError(f"optimizer={cfg.optimizer!r} "
                              "(want 'sgd' or 'adam')")
         self.cfg = cfg
+        self.tp = tp
         self.schedule = lr_schedule(cfg)
 
     def init(self, model: Transducer) -> Dict:
@@ -136,7 +153,7 @@ class Optimizer:
         names = list(grads)
         g = dict(grads)
         if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
-            norm = global_norm(g.values())
+            norm = global_norm(g, self.tp)
             keep = norm < cfg.grad_clip_norm  # on the device: no host sync
             g = {n: torch.where(keep, t, (t / norm.to(t.dtype))
                                 * cfg.grad_clip_norm)

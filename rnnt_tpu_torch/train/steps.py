@@ -13,13 +13,18 @@ the configured input noise, then SpecAugment (`ops.specaug`), on its own
 device, before any loss path.  The train step threads the BatchNorm running
 statistics back into the parameters after the update.
 
-Across the ranks of a data-parallel `parallel.mesh.Mesh` the loss is the
-one weighted mean over the global batch: each rank backpropagates its
-local numerator over the all-reduced denominator, the gradients (with the
-loss) are summed across ranks in one bucket, and the BatchNorm statistics
-are the global batch's (`models.lstm.BatchNorm.forward_train`).  So the
-norms, the clipping and the update read the same reduced gradients on
-every rank, and every rank takes the identical step.
+Across the ranks of a `parallel.mesh.Mesh` the loss is the one weighted
+mean over the global batch: each rank backpropagates its local numerator
+over the denominator all-reduced over the data group, the gradients (with
+the loss) are summed over the data group in one bucket, and the BatchNorm
+statistics are the global batch's (`models.lstm.BatchNorm.forward_train`).
+On a model axis above 1 (vocab tensor parallelism) the ranks of a data row
+hold the same rows and W2, b2 and their optimizer leaves are sharded: the
+loss runs on the shards (`ops.joint_loss_fused`, `ops.joint_loss_banded`),
+every replicated gradient is the same on the row's ranks, and the norms
+add the sharded gradients' squares over the model group.  So the norms,
+the clipping and the update read the same reduced gradients on every
+rank, and every rank takes the identical step on what it holds.
 """
 
 from __future__ import annotations
@@ -38,14 +43,16 @@ LOSS_IMPLS = ("fused", "banded", "auto", "ref", "pallas")
 
 def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
                training: bool, generator: Optional[torch.Generator] = None,
-               loss_impl: str = "fused", mesh=None):
+               loss_impl: str = "fused", mesh=None, tp=None):
     """Forward and RNN-T loss of one batch (tensors on the model's device:
     mel_specs [B, T, F], pred_inp [B, U+1], labels [B, U], spec_lengths and
     label_lengths [B], optionally loss_weight [B]).  Returns
     (loss, (per-example nll, BatchNorm (mean, var))).  With a `mesh` that
     reduces, the batch is this rank's rows of the global batch and `loss`
     is this rank's share of the global loss: its numerator over the
-    global denominator (the shares sum to the global loss)."""
+    global denominator (the shares sum to the global loss).  `tp`: the
+    model's W2 and b2 are this vocabulary shard's (fused and banded only;
+    the data group is reduced only with `mesh`)."""
     if loss_impl not in LOSS_IMPLS:
         raise NotImplementedError(
             f"loss_impl={loss_impl!r} is not yet ported (the PyTorch port "
@@ -80,12 +87,16 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
             from rnnt_tpu_torch.ops.joint_loss_banded import \
                 transducer_loss_banded
 
-            nll = transducer_loss_banded(*args, band=cfg.loss_band)
+            nll = transducer_loss_banded(*args, band=cfg.loss_band, tp=tp)
         else:
             from rnnt_tpu_torch.ops.joint_loss_fused import \
                 transducer_loss_fused
 
-            nll = transducer_loss_fused(*args)
+            nll = transducer_loss_fused(*args, tp=tp)
+    elif tp is not None:
+        raise ValueError(f"loss_impl={loss_impl!r} materialises the logits of "
+                         "the full vocabulary: with W2 vocab-sharded use "
+                         "'fused' or 'banded'")
     else:
         from rnnt_tpu_torch.ops.rnnt_loss import rnnt_loss
 
@@ -121,9 +132,12 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
     state.model and state.opt_state in place, state.step + 1.  Metrics are
     0-d device tensors (loss, grad_norm and the three subtree norms) and the
     learning rate of the step (the schedule at the pre-update step).  With
-    a data-parallel `mesh` the batch is this rank's rows, and the loss and
-    the gradients are the global batch's."""
-    opt = state_mod.Optimizer(cfg)
+    a `mesh` the batch is this rank's rows, the loss and the gradients are
+    the global batch's, and where the mesh shards the vocabulary
+    (`Mesh.vocab_shard`) state.model holds this rank's W2 and b2 columns
+    (`parallel.mesh.shard_state_`)."""
+    tp = mesh.vocab_shard(cfg.vocab_size) if mesh is not None else None
+    opt = state_mod.Optimizer(cfg, tp)
 
     def step(state: state_mod.TrainState, batch, generator=None):
         model = state.model
@@ -133,7 +147,7 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
             params[n].grad = None
         loss, (_, (mean, var)) = batch_loss(
             model, cfg, batch, training=True, generator=generator,
-            loss_impl=loss_impl, mesh=mesh)
+            loss_impl=loss_impl, mesh=mesh, tp=tp)
         loss.backward()
         grads = {n: (params[n].grad if params[n].grad is not None
                      else torch.zeros_like(params[n])) for n in names}
@@ -143,10 +157,11 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
             mesh_mod.all_reduce_sum_([*grads.values(), loss], mesh)
             loss = loss[0]
         metrics = {"loss": loss,
-                   "grad_norm": state_mod.global_norm(grads.values())}
+                   "grad_norm": state_mod.global_norm(grads, tp)}
         for sub in SUBTREES:
             metrics[f"grad_norm_{sub}"] = state_mod.global_norm(
-                g for n, g in grads.items() if n.startswith(sub + "."))
+                {n: g for n, g in grads.items() if n.startswith(sub + ".")},
+                tp)
         metrics["lr"] = opt.schedule(state.step)
         opt.apply_(model, grads, state.opt_state)
         with torch.no_grad():
@@ -160,14 +175,18 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
     return step
 
 
-def make_eval_step(cfg: RNNTConfig, *, loss_impl: str = "fused"):
+def make_eval_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
+                   mesh=None):
     """Returns step(model, batch) -> {"loss", "nll"} (no gradients; the
-    LSTMs run the inference kernel)."""
+    LSTMs run the inference kernel).  Each rank scores its own batch: a
+    `mesh` that shards the vocabulary only runs the loss on the shards,
+    over the model group (whose ranks read the same batches)."""
+    tp = mesh.vocab_shard(cfg.vocab_size) if mesh is not None else None
 
     def step(model, batch):
         with torch.no_grad():
             loss, (nll, _) = batch_loss(model, cfg, batch, training=False,
-                                        loss_impl=loss_impl)
+                                        loss_impl=loss_impl, tp=tp)
         return {"loss": loss, "nll": nll}
 
     return step

@@ -50,7 +50,8 @@ import rnnt_tpu_torch.export, rnnt_tpu_torch.ops.library
 import rnnt_tpu_torch.ops.joint_loss_banded
 import rnnt_tpu_torch.cli.export_model
 import rnnt_tpu_torch.parallel, rnnt_tpu_torch.parallel.mesh
-import rnnt_tpu_torch.cli.bench_scaling
+import rnnt_tpu_torch.cli.bench_scaling, rnnt_tpu_torch.cli.bench_tp
+import rnnt_tpu_torch.dryrun
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "rnnt_tpu" or m.startswith("rnnt_tpu."))
@@ -114,3 +115,10 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         restore_checkpoint(str(tmp_path), cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_from_checkpoint(str(tmp_path), cfg)
+    from rnnt_tpu_torch import dryrun
+    from rnnt_tpu_torch.cli import bench_tp
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_tp.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.main(["--n", "2"])

@@ -29,7 +29,7 @@ def test_make_mesh_shapes():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(model=2), NotImplementedError, r"ROADMAP.md §A item 5"),
+    (dict(model=2), ValueError, r"mesh 0x2 != 1 ranks"),
     (dict(data=2, ranks=range(4)), ValueError, r"mesh 2x1 != 4 ranks"),
     (dict(data=3), ValueError, r"mesh 3x1 != 1 ranks")])
 def test_make_mesh_refusals(kw, exc, match):

@@ -84,12 +84,13 @@ def test_train_then_resume_then_test(data_dir, tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--model_parallel", "2"], ["--multihost"], ["--ckpt_backend", "orbax"]])
 def test_unported_flags_are_refused(flags, capsys):
-    """Vocab tensor parallelism is not yet ported; --multihost without
-    --pad_frames/--pad_tokens is refused, as by the JAX CLI; orbax is the
-    JAX package's backend, and the message names the port's dcp."""
+    """--model_parallel > 1 runs one process a device, so without
+    --multihost it is refused with a message naming it; --multihost
+    without --pad_frames/--pad_tokens is refused, as by the JAX CLI; orbax
+    is the JAX package's backend, and the message names the port's dcp."""
     with pytest.raises(SystemExit):
         run_rnnt.parse_args(["--data_dir", "d", *flags])
-    want = {"--model_parallel": "not yet ported",
+    want = {"--model_parallel": "with --multihost",
             "--multihost": "--multihost requires --pad_frames/--pad_tokens",
             "--ckpt_backend": "use dcp"}[flags[0]]
     assert want in capsys.readouterr().err
