@@ -44,6 +44,7 @@ from rnnt_tpu_torch.ops.joint_loss_fused import (combine_planes, dlogits_,
 from rnnt_tpu_torch.ops.matmul import matmul_f32, mm_f32
 from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG, occupancies, pad_labels
 from rnnt_tpu_torch.parallel import mesh as mesh_mod
+from rnnt_tpu_torch.trace import spanned
 
 _T_TILE = 8     # frames a band window covers (a plane-kernel row's T)
 _BWD_CHUNK = 8  # batch rows whose [chunk, T, W, V] tensors coexist
@@ -180,6 +181,7 @@ class _BandedLoss(torch.autograd.Function):
         return -ll
 
     @staticmethod
+    @spanned("rnnt.loss.bwd")
     def backward(ctx, ct):
         (f, g, b1, w2, b2, denom, b, e, alpha, beta, ll, u0_full, labels,
          logit_lengths, label_lengths) = ctx.saved_tensors
@@ -237,6 +239,7 @@ def rnnt_loss_banded(f, g, b1, w2, b2, labels, logit_lengths, label_lengths,
                              label_lengths)
 
 
+@spanned("rnnt.loss")
 def transducer_loss_banded(joint, enc, pred, labels, enc_lengths,
                            label_lengths, *, band: int = 16, tp=None):
     """The banded loss from encoder [B, T, P] and prediction [B, U+1, P]

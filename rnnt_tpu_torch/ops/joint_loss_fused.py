@@ -41,6 +41,7 @@ from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda
 from rnnt_tpu_torch.ops.matmul import matmul_f32, mm_f32
 from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG, occupancies, pad_labels
 from rnnt_tpu_torch.parallel import mesh as mesh_mod
+from rnnt_tpu_torch.trace import spanned
 
 _BWD_CHUNK = 8  # batch rows whose [chunk, T, U+1, V] tensors coexist
 
@@ -128,6 +129,7 @@ class _FusedLoss(torch.autograd.Function):
         return -ll
 
     @staticmethod
+    @spanned("rnnt.loss.bwd")
     def backward(ctx, ct):
         (f, g, b1, w2, b2, denom, b, e, alpha, beta, ll, labels,
          logit_lengths, label_lengths) = ctx.saved_tensors
@@ -168,6 +170,7 @@ def rnnt_loss_fused(f, g, b1, w2, b2, labels, logit_lengths, label_lengths,
                             label_lengths)
 
 
+@spanned("rnnt.loss")
 def transducer_loss_fused(joint, enc, pred, labels, enc_lengths,
                           label_lengths, tp=None):
     """The fused loss from encoder [B, T, P] and prediction [B, U+1, P]

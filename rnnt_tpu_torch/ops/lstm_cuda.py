@@ -59,6 +59,7 @@ from typing import Tuple
 import torch
 
 from rnnt_tpu_torch.ops.matmul import matmul_f32, matmul_to
+from rnnt_tpu_torch.trace import spanned
 
 _DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -310,6 +311,7 @@ class _LSTMSeq(torch.autograd.Function):
     the backward (the JAX `lstm_seq` custom_vjp)."""
 
     @staticmethod
+    @spanned("rnnt.lstm")
     def forward(ctx, x, wx, wh, bias, wp, c0, h0):
         B, T, F = x.shape
         dt = wh.dtype
@@ -322,6 +324,7 @@ class _LSTMSeq(torch.autograd.Function):
         return h_seq, c_fin
 
     @staticmethod
+    @spanned("rnnt.lstm.bwd")
     def backward(ctx, d_hseq, d_cfin):
         # the final-c cotangent is ignored, as in the JAX package: training
         # discards the state and decoding never differentiates

@@ -44,6 +44,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rnnt_tpu_torch.trace import spanned
+
 
 @dataclasses.dataclass(frozen=True)
 class Device:
@@ -307,6 +309,7 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
     _collective_(lambda x: dist.all_reduce(x, op=op, group=group), t, group)
 
 
+@spanned("rnnt.parallel.all_reduce")
 def all_reduce_sum_(tensors: Sequence[torch.Tensor], mesh: Mesh,
                     group=None) -> None:
     """Sum each tensor across the mesh's data group (or `group`), in place,

@@ -33,6 +33,7 @@ import torch
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.metrics import error_rate
 from rnnt_tpu_torch.parallel import mesh as mesh_mod
+from rnnt_tpu_torch.trace import span
 from rnnt_tpu_torch.train import checkpoint as ckpt_mod
 from rnnt_tpu_torch.train import observe
 from rnnt_tpu_torch.train.state import TrainState
@@ -53,6 +54,18 @@ def to_device(batch: Dict, device, mel_dtype=None) -> Dict[str, torch.Tensor]:
             t = t.long()
         out[k] = t.to(device, non_blocking=True)
     return out
+
+
+def _fetched(batches: Iterable[Dict], device, mel_dtype=None):
+    """Each batch on `device`, fetched and copied in `rnnt.train.data`."""
+    it = iter(batches)
+    while True:
+        with span("rnnt.train.data"):
+            batch = next(it, None)
+            if batch is None:
+                return
+            batch = to_device(batch, device, mel_dtype)
+        yield batch
 
 
 def log(msg: str) -> None:
@@ -200,8 +213,8 @@ def run_training(cfg: RNNTConfig, state: TrainState,
         for epoch in range(n_epochs):
             batches = (train_batches_fn(epoch) if takes_epoch
                        else train_batches_fn())
-            for batch in batches:
-                m = train_step(state, to_device(batch, dev, mel_dtype), gen)
+            for batch in _fetched(batches, dev, mel_dtype):
+                m = train_step(state, batch, gen)
                 if state.step % steps_per_log == 0 and lead:
                     loss = float(m["loss"])  # the step's host sync
                     now = time.time()

@@ -36,6 +36,7 @@ import torch
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models.encoder import encoded_length
 from rnnt_tpu_torch.parallel import mesh as mesh_mod
+from rnnt_tpu_torch.trace import span, spanned
 from rnnt_tpu_torch.train import state as state_mod
 
 LOSS_IMPLS = ("fused", "banded", "auto", "ref", "pallas")
@@ -139,16 +140,19 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
     tp = mesh.vocab_shard(cfg.vocab_size) if mesh is not None else None
     opt = state_mod.Optimizer(cfg, tp)
 
+    @spanned("rnnt.train.step")
     def step(state: state_mod.TrainState, batch, generator=None):
         model = state.model
         names = state_mod.trainable_names(model)
         params = dict(model.named_parameters())
         for n in names:
             params[n].grad = None
-        loss, (_, (mean, var)) = batch_loss(
-            model, cfg, batch, training=True, generator=generator,
-            loss_impl=loss_impl, mesh=mesh, tp=tp)
-        loss.backward()
+        with span("rnnt.train.forward"):
+            loss, (_, (mean, var)) = batch_loss(
+                model, cfg, batch, training=True, generator=generator,
+                loss_impl=loss_impl, mesh=mesh, tp=tp)
+        with span("rnnt.train.backward"):
+            loss.backward()
         grads = {n: (params[n].grad if params[n].grad is not None
                      else torch.zeros_like(params[n])) for n in names}
         loss = loss.detach()
@@ -156,19 +160,21 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
             loss = loss.float().reshape(1)
             mesh_mod.all_reduce_sum_([*grads.values(), loss], mesh)
             loss = loss[0]
-        metrics = {"loss": loss,
-                   "grad_norm": state_mod.global_norm(grads, tp)}
-        for sub in SUBTREES:
-            metrics[f"grad_norm_{sub}"] = state_mod.global_norm(
-                {n: g for n, g in grads.items() if n.startswith(sub + ".")},
-                tp)
+        with span("rnnt.train.norms"):
+            metrics = {"loss": loss,
+                       "grad_norm": state_mod.global_norm(grads, tp)}
+            for sub in SUBTREES:
+                metrics[f"grad_norm_{sub}"] = state_mod.global_norm(
+                    {n: g for n, g in grads.items()
+                     if n.startswith(sub + ".")}, tp)
         metrics["lr"] = opt.schedule(state.step)
-        opt.apply_(model, grads, state.opt_state)
-        with torch.no_grad():
-            model.encoder.bn.mean.copy_(mean)
-            model.encoder.bn.var.copy_(var)
-        for n in names:
-            params[n].grad = None
+        with span("rnnt.train.update"):
+            opt.apply_(model, grads, state.opt_state)
+            with torch.no_grad():
+                model.encoder.bn.mean.copy_(mean)
+                model.encoder.bn.var.copy_(var)
+            for n in names:
+                params[n].grad = None
         state.step += 1
         return metrics
 
