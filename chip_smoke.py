@@ -39,7 +39,9 @@ worst case.
    port's restore reads back at its step, and launch per train step the
    LSTM forward (K4, every launch its MMA design) and backward (K5) 10
    times each, the lattice (K7, every launch its warp design) once
-   and, fused, the plane kernel (K6, every launch its WGMMA design) once;
+   and, fused, the plane kernel (K6, every launch its WGMMA design) once,
+   every chunk of the fused loss's backward on K8 and K9 (train_cli,
+   bench_train and the bench step);
    it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
    stream chunk's reply latency (p50, p99, max); then the measurement
@@ -189,7 +191,14 @@ worst case.
    1e-4 for every utterance and loss and gradients within 1e-4 and 1e-3 of
    the same function on the host CPU, a fully pruned utterance at 1e9 with
    exactly zero gradient rows; and a bf16 train step fused against banded
-   at B=32 timed in turns;
+   at B=32 timed in turns; the fused loss's backward in bf16 on K8 and K9
+   with its two products against the plain chain (df, dg, db1, dW2, db2
+   each within LOSS_BWD_TOL of its largest magnitude, inputs untouched) at
+   both cells' shapes (B=96, T'=128, J=640: U+1=65, V=4096 and U+1=116,
+   V=31), a ragged B=3, T'=7, U+1=5, J=40, V=300 and shard 1 of two at
+   V_local 2048 (no blank, ids outside), the wp4096 case twice equal bit
+   for bit, K9 against its plain version, and fp32 and J=1024 backward
+   chunks on the plain chain;
 5. profiles each request's encoder, greedy decode and beam decode with
    torch.profiler: wall time and device busy time on the profiler's one
    clock (the wall between two marker kernels launched just before and
@@ -204,7 +213,7 @@ worst case.
    bench_train path's audio-s/s, step ms and peak memory: its idle share
    and device time by kernel, every K6 launch of it on the WGMMA design and
    every K7 launch on the warp design;
-6. prints a `kernels` JSON line for K1-K7 (launches on the driven paths,
+6. prints a `kernels` JSON line for K1-K9 (launches on the driven paths,
    median kernel time, plain and library times, the roofline bound, max
    error; for K1 and K7 the device time with a spin kernel queued ahead,
    since their launches are shorter than their host calls, for K1 also at a
@@ -217,7 +226,8 @@ worst case.
    K5 also the time at B=96; for K6 the time, bound and cuBLAS product
    at B=96, the W2 packing's own time, the time and bound at the banded
    rows, the fused and banded train steps, the time at each V_local and
-   the launches by design; for K3
+   the launches by design; for K8 the whole backward's time at B=96 in
+   both cells beside its bound and the plain chain's; for K3
    also the
    weight traffic of re-reading the weights at every product, and its time
    split over the phases of a search from the timed build: block 0's, the
@@ -348,7 +358,7 @@ def plain_frontend():
 def kernel_wrappers():
     """Each kernel's wrapper by its name in the kernels line."""
     from rnnt_tpu_torch.ops import (beam_cuda, features_cuda, lattice_cuda,
-                                    lstm_cuda, planes_cuda)
+                                    loss_bwd_cuda, lstm_cuda, planes_cuda)
 
     return {"log_mel_frontend": features_cuda.log_mel_frontend,
             "lstm_seq_infer": lstm_cuda.lstm_seq_infer,
@@ -356,14 +366,20 @@ def kernel_wrappers():
             "lstm_fwd": lstm_cuda.lstm_fwd,
             "lstm_bwd": lstm_cuda.lstm_bwd,
             "joint_planes": planes_cuda.joint_planes,
-            "lattice_scan": lattice_cuda.lattice_scan}
+            "lattice_scan": lattice_cuda.lattice_scan,
+            "joint_dlogits": loss_bwd_cuda.joint_dlogits,
+            "tanh_grads": loss_bwd_cuda.tanh_grads}
 
 
 def zero_launches() -> None:
+    from rnnt_tpu_torch.ops import joint_loss_fused
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
         if hasattr(fn, "launches_by_design"):
             fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+    joint_loss_fused.backward_launches_by_design.update(
+        dict.fromkeys(joint_loss_fused.BACKWARD_DESIGNS, 0))
 
 
 def read_launches() -> dict:
@@ -373,11 +389,16 @@ def read_launches() -> dict:
 def read_designs() -> dict:
     """Launches by design: the LSTM kernels' ("lat", "mma", "fma"), the
     beam kernel's ("stream", "fma"), the plane kernel's ("wgmma", "wmma",
-    "fma") and the lattice kernel's ("warp", "block")."""
+    "fma"), the lattice kernel's ("warp", "block") and the fused loss's
+    backward chunks (`loss_bwd`: "kernel", K8 and K9; "plain", the chain)."""
+    from rnnt_tpu_torch.ops import joint_loss_fused
+
     w = kernel_wrappers()
-    return {name: dict(w[name].launches_by_design)
-            for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd",
-                         "beam_search", "joint_planes", "lattice_scan")}
+    designs = {name: dict(w[name].launches_by_design)
+               for name in ("lstm_seq_infer", "lstm_fwd", "lstm_bwd",
+                            "beam_search", "joint_planes", "lattice_scan")}
+    designs["loss_bwd"] = dict(joint_loss_fused.backward_launches_by_design)
+    return designs
 
 
 def require_resident_k2(name, launches) -> None:
@@ -1537,6 +1558,17 @@ def require_wgmma_k6(name, by_design, n) -> None:
             f"wgmma")
 
 
+def require_kernel_bwd(name, launches, steps) -> None:
+    """Every fused-loss backward chunk of a bf16 path at the parity width
+    ran K8 and K9 (at least one chunk a step), none the plain chain."""
+    d = launches["loss_bwd_by_design"]
+    require(d["plain"] == 0 and d["kernel"] >= steps
+            and launches["joint_dlogits"] == launches["tanh_grads"]
+            == d["kernel"], f"path {name}: loss backward chunks by design "
+            f"{d}, K8 {launches['joint_dlogits']}, K9 "
+            f"{launches['tanh_grads']}, want {steps}+ kernel chunks")
+
+
 def lstm_cost(T, B, H, P, esize, backward):
     """(bytes, operations) of one LSTM sequence call: each input read once,
     each output written once; the recurrent products' operations."""
@@ -1951,6 +1983,224 @@ def lattice_design(U1) -> str:
     return "warp" if U1 <= lattice_cuda.WARP_MAX_U1 else "block"
 
 
+LOSS_BWD_TOL = 5e-4  # K8 + K9 vs the plain chain: ~10x the readings
+
+
+def loss_bwd_problem(B, T, U, J, V, device, seed, shards=1):
+    """bf16 joint inputs (J, and V * shards columns), ragged lengths, and
+    the fused forward's denominator and occupancies on the card (K6, K7):
+    (f, g, b1, w2, b2, padded labels, den, occ, g_blank, g_emit)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import joint_loss_fused as TF, lattice_cuda
+    from rnnt_tpu_torch.ops.rnnt_loss_ref import occupancies, pad_labels
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Vt = V * shards
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    f, g = rand((B, T, J), 0.5), rand((B, U + 1, J), 0.5)
+    b1, w2, b2 = rand((J,), 0.1), rand((J, Vt), (6.0 / (J + Vt)) ** 0.5), \
+        rand((Vt,), 0.1)
+    labels = torch.randint(1, Vt, (B, U), generator=gen, device=device)
+    fl = torch.randint(max(1, T // 2), T + 1, (B,), generator=gen,
+                       device=device)
+    yl = torch.randint(0, U + 1, (B,), generator=gen, device=device)
+    fl[0], yl[0] = T, U
+    den, b, e = TF.planes(f, g, b1, w2, b2, labels, yl)
+    alpha, beta, ll = lattice_cuda.lattice_scan(b, e, fl, yl)
+    occ, gbl, gem = occupancies(alpha, beta, b, e, ll, fl, yl,
+                                torch.ones(B, device=device))
+    return f, g, b1, w2, b2, pad_labels(labels), den, occ, gbl, gem
+
+
+def loss_bwd_case(prob, what, index=None, plain_times=None):
+    """K8 + K9 + the two products (`_kernel_grads`) against the plain chain
+    (`_plain_grads`) on one problem, on this rank's columns when `index`
+    is a shard of two (no blank on shard 1): each of df, dg, db1, dW2, db2
+    within LOSS_BWD_TOL of its largest magnitude, the inputs untouched, one
+    K8 and one K9 launch a chunk.  Returns (errors, the kernel's grads)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import joint_loss_fused as TF, loss_bwd_cuda
+    from rnnt_tpu_torch.ops import planes_cuda
+
+    f, g, b1, w2, b2, y, den, occ, gbl, gem = prob
+    if index is not None:
+        Vl = w2.shape[1] // 2
+        cols = slice(index * Vl, (index + 1) * Vl)
+        w2, b2, y = w2[:, cols].contiguous(), b2[cols].contiguous(), \
+            y - index * Vl
+    own = index in (None, 0)
+    args = (f, g, b1, w2, b2)
+    before = [a.clone() for a in (*args, den, occ, gbl, gem)]
+    k8 = loss_bwd_cuda.joint_dlogits.launches
+    got = TF._kernel_grads(*args, planes_cuda.pack_w2_cuda(w2), occ, gbl,
+                           gem, den, y, own,
+                           loss_bwd_cuda.ctas(f.device))
+    B, T, J = f.shape
+    chunks = B // loss_bwd_cuda.chunk_rows(
+        B, T, g.shape[1], planes_cuda.padded_j(J),
+        planes_cuda.padded_v(w2.shape[1]))
+    require(loss_bwd_cuda.joint_dlogits.launches - k8 == chunks,
+            f"loss backward {what}: K8 launches, want {chunks}")
+    want, plain_ms = once_ms(lambda: TF._plain_grads(
+        *args, occ, gbl, gem, den, y, own))
+    if plain_times is not None:
+        plain_times[what] = plain_ms
+    require(all(torch.equal(a, b) for a, b in zip(
+        (*args, den, occ, gbl, gem), before)),
+        f"loss backward {what} wrote into its inputs")
+    errs = {n: rel_err(a, b) for n, a, b in zip(
+        ("df", "dg", "db1", "dw2", "db2"), got, want)}
+    log(f"loss backward {what}: K8 + K9 against the plain chain, relative "
+        f"error " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    require(max(errs.values()) <= LOSS_BWD_TOL,
+            f"loss backward {what} disagrees: {errs}")
+    return errs, got
+
+
+def loss_bwd_route(what, dtype, J, V, want, device="cuda"):
+    """The fused loss's forward and backward at a small shape (B=2, T'=16,
+    U+1=9) in `dtype` at joint width J: every backward chunk takes `want`
+    ("kernel": K8 and K9; "plain": the chain)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import joint_loss_fused as TF
+
+    prob = loss_bwd_problem(2, 16, 8, J, V, device, 40)
+    params = [a.to(dtype).requires_grad_() for a in prob[:5]]
+    labels = prob[5][:, :-1].long()
+    lengths = (torch.full((2,), 16, device=device),
+               torch.full((2,), 8, device=device))
+    before = dict(TF.backward_launches_by_design)
+    TF.rnnt_loss_fused(*params, labels, *lengths).sum().backward()
+    ran = {d: n - before[d] for d, n in TF.backward_launches_by_design.items()}
+    log(f"loss backward route {what}: chunks by design {ran}")
+    require(ran[want] > 0 and sum(ran.values()) == ran[want],
+            f"loss backward {what}: chunks by design {ran}, want {want}")
+    require(all(torch.isfinite(p.grad).all() for p in params),
+            f"loss backward {what}: gradients not finite")
+
+
+def check_loss_backward(cfg, device="cuda"):
+    """The fused loss's backward on K8 and K9 against the plain chain on
+    the card, bf16 (`loss_bwd_case`): the cells' shapes, wp4096 (B=96,
+    T'=128, U+1=65, J=640, V=4096) and char31 (U+1=116, V=31), a ragged
+    B=3, T'=7, U+1=5, J=40, V=300, and shard 1 of two at V_local 2048
+    (B=32, U+1=65: no blank, ids of shard 0 outside); the wp4096 case run
+    twice gives the same bits.  Routing: bf16 at J=640 takes `kernel`,
+    fp32 and bf16 at J=1024 `plain`.  Returns the K8 and K9 entries of the
+    kernels line (K8's carries the whole backward's time at B=96 beside
+    its bound, the three products at the tensor cores' rate)."""
+    import torch
+
+    from rnnt_tpu_torch.ops import joint_loss_fused as TF, loss_bwd_cuda
+    from rnnt_tpu_torch.ops import planes_cuda
+    from rnnt_tpu_torch.ops.matmul import mm_f32
+
+    J, V = cfg.joint_size, cfg.vocab_size
+    errs, plain_t, times = {}, {}, {}
+    wp = loss_bwd_problem(96, 128, 64, J, V, device, 30)
+    errs["wp4096 B=96"], got = loss_bwd_case(wp, "wp4096 B=96", None,
+                                             plain_t)
+    _, again = loss_bwd_case(wp, "wp4096 B=96 again")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "loss backward: two runs of K8 + K9 differ")
+    log("loss backward wp4096 B=96: two runs equal bit for bit")
+    f, g, b1, w2, b2, y, den, occ, gbl, gem = wp
+    w2p = planes_cuda.pack_w2_cuda(w2)
+    ctas = loss_bwd_cuda.ctas(f.device)
+    times["wp4096 B=96"] = cuda_ms(lambda: TF._kernel_grads(
+        f, g, b1, w2, b2, w2p, occ, gbl, gem, den, y, True, ctas), reps=5)
+    del wp, got, again
+    ch = loss_bwd_problem(96, 128, 115, J, 31, device, 31)
+    errs["char31 B=96"], _ = loss_bwd_case(ch, "char31 B=96", None, plain_t)
+    f, g, b1, w2, b2, y, den, occ, gbl, gem = ch
+    w2p = planes_cuda.pack_w2_cuda(w2)
+    times["char31 B=96"] = cuda_ms(lambda: TF._kernel_grads(
+        f, g, b1, w2, b2, w2p, occ, gbl, gem, den, y, True, ctas), reps=5)
+    del ch
+    errs["ragged"], _ = loss_bwd_case(
+        loss_bwd_problem(3, 7, 4, 40, 300, device, 32),
+        "ragged B=3 T=7 U+1=5 J=40 V=300")
+    errs["shard 1 V_local=2048"], _ = loss_bwd_case(
+        loss_bwd_problem(32, 128, 64, J, V // 2, device, 33, shards=2),
+        "shard 1 of 2, V_local=2048", index=1)
+    loss_bwd_route("bf16 J=640", torch.bfloat16, J, 512, "kernel")
+    loss_bwd_route("fp32 J=640", torch.float32, J, 512, "plain")
+    loss_bwd_route("bf16 J=1024", torch.bfloat16, 1024, 512, "plain")
+    # the kernels alone at the train shape (B=32, T'=128, U+1=65), one
+    # launch each over the 32 rows
+    f, g, b1, w2, b2, y, den, occ, gbl, gem = loss_bwd_problem(
+        32, 128, 64, J, V, device, 34)
+    fp, gp, yp, b1p, _, b2p = planes_cuda.pad_operands(f, g, y, b1, w2, b2,
+                                                       wgmma=True)
+    Jp = fp.shape[2]
+    w2j = torch.nn.functional.pad(w2, (0, 0, 0, Jp - J))
+    db2p = torch.zeros((ctas * loss_bwd_cuda.WARPS, b2p.shape[0]),
+                       device=device)
+    k8_args = (fp, gp, yp, b1p, w2j, planes_cuda.pack_w2_cuda(w2), b2p, den,
+               occ, gbl, gem, db2p, V, True, ctas)
+    dl, hb = loss_bwd_cuda.joint_dlogits(*k8_args)
+    dh = mm_f32(dl[:, :V], w2j.t())
+    (Bk, T, _), C, U1 = f.shape, dh.shape[0], g.shape[1]
+    out = (torch.empty((Bk, T, Jp), device=device),
+           torch.empty((Bk, U1, Jp), device=device),
+           torch.empty((Bk, -(-U1 // loss_bwd_cuda.UG), Jp), device=device))
+    want = [torch.empty_like(o) for o in out]
+    loss_bwd_cuda.tanh_grads(dh, fp, gp, b1p, *out)
+    _, k9_plain_ms = once_ms(lambda: loss_bwd_cuda.tanh_grads_plain(
+        dh.reshape(Bk, T, U1, Jp), fp, gp, b1p, *want))
+    k9_err = max(rel_err(a, b) for a, b in zip(out, want))
+    log(f"K9 tanh_grads B=32 against its plain version: rel err "
+        f"{k9_err:.3e}")
+    require(k9_err <= 1e-5, f"K9 disagrees with its plain version: {k9_err}")
+    h2d = torch.randn((C, J), device=device).to(torch.bfloat16)
+    k8_flops, bwd_flops = 2.0 * C * J * V, 3 * 2.0 * 96 / Bk * C * J * V
+    k8_bytes = 2 * (f.numel() + g.numel() + J * V + C * V + C * J) + 16 * C
+    k9_bytes = 4 * C * J * (1 + 2 / loss_bwd_cuda.TG) + 2 * (
+        f.numel() + g.numel()) + 4 * (f.numel() + g.numel())
+    k8 = {"name": "joint_dlogits", "route": "cuda",
+          "source": "rnnt_tpu_torch/csrc/joint_loss_bwd.cu",
+          "replaces": "none: joint_loss_fused._chunk_grads' plain chain "
+                      "around its products (the JAX _bwd leaves it to XLA)",
+          "max_abs_err": None, "max_rel_err_by_case": errs,
+          "ms": cuda_ms(lambda: loss_bwd_cuda.joint_dlogits(*k8_args),
+                        reps=5),
+          "plain_ms": plain_t["wp4096 B=96"],
+          "plain_ms_note": "the plain chain (_plain_grads, the whole "
+                           "backward at B=96 with its products), "
+                           + PLAIN_ONCE,
+          **bound_of(k8_bytes, k8_flops, PEAK_BF16_FLOPS),
+          "library_ms": cuda_ms(lambda: torch.mm(h2d, w2), reps=5),
+          "library": "cuBLAS bf16 [C,J]x[J,V] product alone (torch.mm)",
+          "shape": f"B=32 T'=128 U+1=65 J={J} V={V} bf16 ({C} cells), "
+                   "dlogits and hb written, db2 partial rows",
+          "bwd_ms_b96": times["wp4096 B=96"],
+          "bwd_bound_ms_b96": bwd_flops / PEAK_BF16_FLOPS * 1e3,
+          "bwd_bound_note": "the backward's three products (logits "
+                            "recomputed, dh, dW2) at 989 TFLOP/s",
+          "bwd_plain_ms_b96": plain_t["wp4096 B=96"],
+          "bwd_ms_b96_char31": times["char31 B=96"],
+          "bwd_plain_ms_b96_char31": plain_t["char31 B=96"]}
+    k9 = {"name": "tanh_grads", "route": "cuda",
+          "source": "rnnt_tpu_torch/csrc/joint_loss_bwd.cu",
+          "replaces": "none: the chain's dh (1 - h^2) and its sums",
+          "max_abs_err": max(float((a - b).abs().max())
+                             for a, b in zip(out, want)),
+          "ms": cuda_ms(lambda: loss_bwd_cuda.tanh_grads(dh, fp, gp, b1p,
+                                                         *out), reps=5),
+          "plain_ms": k9_plain_ms, "plain_ms_note": PLAIN_ONCE,
+          **bound_of(k9_bytes, 0.0, PEAK_BF16_FLOPS),
+          "library_ms": None,
+          "shape": f"dh [{C}, {Jp}] fp32 (B=32 T'=128 U+1=65)"}
+    return k8, k9
+
+
 def check_lattice(planes32, device="cuda", seed=5):
     """K7 vs its plain version (`lattice_case`) from the fp32 planes of
     check_planes (b = blank - denom, e = emit - denom masked from u = U_b
@@ -2157,6 +2407,8 @@ def step_split(events):
               ("K5 lstm_bwd", "lstm_bwd_kernel"),
               ("K6 joint_planes", ("plane_kernel", "pack_w2_kernel")),
               ("K7 lattice", ("lattice_warp_kernel", "lattice_kernel")),
+              ("K8 joint_dlogits", "joint_dlogits_kernel"),
+              ("K9 tanh_grads", ("dtanh_rows_kernel", "dtanh_cols_kernel")),
               ("cuBLAS products", ("gemm", "Gemm", "nvjet", "xmma",
                                    "cutlass", "cublas")))
     split = {}
@@ -2179,12 +2431,15 @@ def bench_train_step(smi, timed, seed, device="cuda"):
     path's run of `rnnt_tpu_torch.bench` (`timed`: its audio-s/s, step ms
     and peak memory)."""
     from rnnt_tpu_torch import bench
-    from rnnt_tpu_torch.ops import lattice_cuda, lstm_cuda, planes_cuda
+    from rnnt_tpu_torch.ops import (joint_loss_fused, lattice_cuda,
+                                    lstm_cuda, planes_cuda)
 
     state, batch, step, gen = bench.setup(device, seed=seed)
     k6, k7 = planes_cuda.joint_planes, lattice_cuda.lattice_scan
     k6_before = (k6.launches, dict(k6.launches_by_design))
     k7_before = (k7.launches, dict(k7.launches_by_design))
+    bwd = joint_loss_fused.backward_launches_by_design
+    bwd_before = dict(bwd)
     losses = [float(step(state, batch, gen)["loss"])]
     events = []
     plain_wall, wall, busy, event_wall, ops, launches, runs = device_profile(
@@ -2199,6 +2454,9 @@ def bench_train_step(smi, timed, seed, device="cuda"):
     k7_by_design = {d: n - k7_before[1][d]
                     for d, n in k7.launches_by_design.items()}
     require_warp_k7("bench step", k7_by_design, k7.launches - k7_before[0])
+    bwd_by_design = {d: n - bwd_before[d] for d, n in bwd.items()}
+    require(bwd_by_design["plain"] == 0 and bwd_by_design["kernel"] > 0,
+            f"bench step: loss backward chunks by design {bwd_by_design}")
     result = {"B": bench.B, "T": bench.T, "U": bench.U, "dtype": "bfloat16",
               "loss": "fused", "step_ms": timed["step_ms"],
               "audio_s_per_s": timed["value"],
@@ -2210,7 +2468,8 @@ def bench_train_step(smi, timed, seed, device="cuda"):
               "idle_share": 1 - busy / wall, "profiled_runs": runs,
               "split_ms": step_split(events), "losses": losses,
               "k6_launches_by_design": k6_by_design,
-              "k7_launches_by_design": k7_by_design, "card": smi}
+              "k7_launches_by_design": k7_by_design,
+              "loss_bwd_chunks_by_design": bwd_by_design, "card": smi}
     log("bench-geometry train step " + json.dumps(result))
     return result
 
@@ -2631,6 +2890,7 @@ def drive_bench_entry_points(paths, cfg, seed):
                      launches["joint_planes"])
     require_warp_k7("bench_train", launches["lattice_scan_by_design"],
                     launches["lattice_scan"])
+    require_kernel_bwd("bench_train", launches, steps)
 
     (out, _), paths["bench_loss"] = drive_path(
         "bench_loss", lambda: run_main("bench_loss", bench_loss.main,
@@ -3960,9 +4220,9 @@ class KernelV:
 
         self.seen, self.real = [], planes_cuda.launch
 
-        def spy(lib, f, g, labels_pad, b1, w2, b2):
+        def spy(lib, f, g, labels_pad, b1, w2, b2, packed=None):
             self.seen.append(int(w2.shape[1]))
-            return self.real(lib, f, g, labels_pad, b1, w2, b2)
+            return self.real(lib, f, g, labels_pad, b1, w2, b2, packed)
 
         planes_cuda.launch = spy
         return self
@@ -4476,6 +4736,7 @@ def main(argv=None) -> int:
                 train_kernels + ("joint_planes", "lstm_seq_infer"))
             require_train_launches("train_cli", paths["train_cli"],
                                    TRAIN_STEPS, 1, pallas=False)
+            require_kernel_bwd("train_cli", paths["train_cli"], TRAIN_STEPS)
             for name in ("greedy_http", "beam_http", "stream_tcp",
                          "train_cli"):
                 if name in paths:
@@ -4540,6 +4801,7 @@ def main(argv=None) -> int:
                                         if k["name"] in d}
             found["k4"], found["k5"] = k45
             k6, planes32 = check_planes(cfg)
+            found["k8"], found["k9"] = check_loss_backward(cfg)
             t_banded = time.perf_counter()
             k6.update(check_banded(cfg))
             k6["train_step_ms_fused_vs_banded"] = time_banded_step(cfg,
@@ -4575,7 +4837,7 @@ def main(argv=None) -> int:
             k3["max_abs_err"] = max([k3["max_abs_err"]] + [
                 r["max_abs_err"] for r in k3_decode.values()])
         kernels = [found[k] for k in ("k1", "k2", "k3", "k4", "k5", "k6",
-                                      "k7") if k in found]
+                                      "k7", "k8", "k9") if k in found]
         for k in kernels:
             name = k["name"]
             k["launches"] = sum(p[name] for p in paths.values())

@@ -55,7 +55,9 @@
 // L2 eviction hint: the 5.24 MB that every CTA re-reads should stay in L2.
 // On the H100 it runs at ~55% of the bound at B=32 (PERF.md): the h build
 // (tanhf, not overlapped) and the fold's exponentials are what remain; the
-// W2 stream costs ~5%.
+// W2 stream costs ~5%.  The tile machinery is in wgmma.cuh, which the loss
+// backward's K8 (joint_loss_bwd.cu) shares with an epilogue of its own; a
+// caller may keep the packed W2 (the fused loss does, for K8).
 //
 // WMMA (bf16 outside that plan: a wide joint).  A block owns CT consecutive
 // cells.  It builds their tanh tile once in shared memory (rounded to W, as
@@ -72,6 +74,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -412,111 +415,6 @@ int launch(const void* f, const void* g, const int* y, const void* b1,
 // ---------------------------------------------------------------- WGMMA
 
 namespace wg {
-constexpr int CELLS = 128;   // cells a tile: two m64 halves
-constexpr int KB = 64;       // k of a W2 tile and of an h k-block (128 bytes)
-constexpr int NV = 128;      // V columns a chunk: the wgmma's n
-constexpr int STAGE_BYTES = NV * KB * 2;  // one ring stage, 16 KB
-constexpr int HBLK_BYTES = CELLS * KB * 2;  // one k-block of the h tile
-constexpr int MAX_STAGES = 4;
-constexpr int CONSUMERS = 2;  // warpgroups
-// + the producer's warpgroup: ptxas sizes registers by whole warpgroups, so
-// a lone producer warp would cap every thread at 168; instead the producer
-// warpgroup gives its registers to the consumers (setmaxnreg)
-constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int ALIGN = 1024;  // a 128-byte swizzle atom: 8 rows of 128 bytes
-constexpr int BAR_BYTES = 2 * MAX_STAGES * 8;  // full[] and empty[]
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared memory a CTA takes for a padded J (a multiple of KB) and a ring of
-// `stages` W2 tiles; the wrapper's plan (`planes_cuda.wgmma_stages`) is the
-// same sum.
-inline size_t smem_bytes(int J, int stages) {
-  return (size_t)ALIGN + (size_t)(J / KB) * HBLK_BYTES +
-         (size_t)stages * STAGE_BYTES + BAR_BYTES;
-}
-
-// wgmma shared-memory descriptor of a K-major operand in the 128-byte
-// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (the
-// stride byte offset), the leading byte offset unused by this layout.  The
-// operand starts at a 1024-byte boundary; the k16 steps inside its 128-byte
-// rows add 32 bytes (2 in the address field) to the start.
-__device__ __forceinline__ unsigned long long desc128(unsigned addr) {
-  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
-         (1ull << 16) |                       // leading byte offset
-         ((unsigned long long)(1024 >> 4) << 32) |  // stride byte offset
-         (1ull << 62);                        // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// d (+)= A[64 x 16] B[16 x 128] for the warpgroup, bf16 in, fp32 out; a and
-// b are descriptors; accumulate != 0 adds to d, else overwrites it.  Thread
-// t of the warpgroup holds d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8
-// (e / 2), column 8 j + 2 (t % 4) + e % 2.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 unsigned long long a,
-                                                 unsigned long long b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// The warpgroup's 64 rows of the tile's h, times one W2 tile (ring stage at
-// `b_addr`): k-block kb of h, four k16 steps.
-__device__ __forceinline__ void kblock_product(float (&d)[64], unsigned a_addr,
-                                               unsigned b_addr, int kb) {
-  wgmma_fence();
-  const unsigned long long a = desc128(a_addr), b = desc128(b_addr);
-#pragma unroll
-  for (int k = 0; k < KB / 16; ++k)
-    wgmma_m64n128k16(d, a + 2 * k, b + 2 * k, kb > 0 || k > 0);
-  wgmma_commit();
-}
-
-// 2^x on the special function unit; results below 2^-126 flush to zero,
-// which no sum of exponentials here can notice (its largest term is 1).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One thread's rows of the online logsumexp (its two rows of the tile, 32
 // columns of each chunk), and the blank and emit logits it picked.
@@ -526,10 +424,8 @@ struct RowFold {
 };
 
 // Folds chunk v's accumulators (columns v0 = 128 v ...) plus b2 into the
-// running (max, sum of exp) of the thread's two rows.  It only reads the
-// accumulators: a write would be a non-wgmma definition of registers that
-// the other set's wgmmas, in flight meanwhile, could share a pipeline stage
-// with, and ptxas then serialises every wgmma.
+// running (max, sum of exp) of the thread's two rows; it only reads the
+// accumulators (`tile_products`).
 __device__ __forceinline__ void fold_chunk(const float (&d)[64], RowFold& r,
                                            const float* __restrict__ b2,
                                            int v0, int q) {
@@ -580,46 +476,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                        float* __restrict__ emit, int B, int T, int U1, int J,
                        int Vp, int stages) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<size_t>(smem_raw) + ALIGN - 1) &
-      ~(size_t)(ALIGN - 1));
-  const int nkb = J / KB, nvc = Vp / NV, nsteps = nkb * nvc;
-  unsigned char* hs = base;                          // [nkb][CELLS][KB]
-  unsigned char* ring = hs + (size_t)nkb * HBLK_BYTES;  // [stages][NV][KB]
-  unsigned long long* full = reinterpret_cast<unsigned long long*>(
-      ring + (size_t)stages * STAGE_BYTES);
-  unsigned long long* empty = full + MAX_STAGES;
+  const Smem sm = carve(smem_raw, J, stages);
+  const int nkb = J / KB, nvc = Vp / NV;
   const long long N = (long long)B * T * U1;
   const int ntiles = (int)((N + CELLS - 1) / CELLS);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < stages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
+  init_ring(sm, stages);
   if (warp >= CONSUMERS * 4) {
-    // the producer: W2's tiles in the consumers' order, tile after tile
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (warp != CONSUMERS * 4 || lane != 0) return;
-    int s = 0;
-    unsigned ph = 0;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      for (int i = 0; i < nsteps; ++i) {
-        mbar_wait(&empty[s], ph ^ 1);
-        // no L2 hint: every CTA re-reads these 5.24 MB, which should stay
-        bulk_load(ring + (size_t)s * STAGE_BYTES,
-                  w2p + (size_t)i * (NV * KB), STAGE_BYTES, &full[s], false);
-        if (++s == stages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-    }
+    produce_w2(sm, w2p, ntiles, nkb * nvc, stages);
     return;
   }
 
@@ -627,60 +491,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wgi = warp / 4, t = threadIdx.x % 128, q = lane % 4;
   const int row0 = wgi * 64 + 16 * (warp % 4) + lane / 4;  // and row0 + 8
-  const unsigned a_base = smem_u32(hs) + wgi * 64 * 128;
-  const unsigned ring_base = smem_u32(ring);
-  const int nch = J / 8;  // 16-byte chunks of an h row
   PlaneTimer tm;
   tm.start();
-  int s = 0, rel = 0;  // ring stage of the next step, of the next release
-  unsigned ph = 0;
+  Ring rg;
   // two accumulator sets, chunks alternating; the first wgmma of a chunk
   // overwrites its set
   float acc0[64], acc1[64];
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long n0 = (long long)tile * CELLS;
-    // h of the warpgroup's 64 cells, rounded to bf16, into the swizzled
-    // K-major layout: row m's chunk c (k 8c .. 8c + 7) of k-block c / 8 at
-    // 16-byte position (c % 8) ^ (m % 8) of the row.  Thread t takes rows
-    // t / 16 + 8 i and their chunks t % 16 + 16 k: 16 threads read 256
-    // contiguous bytes of f and g, and 8 of them fill one 128-byte row of a
-    // k-block, conflict-free.
-    for (int m = wgi * 64 + t / 16; m < wgi * 64 + 64; m += 8) {
-      const int n = (int)(n0 + m);
-      const bool live = n < N;
-      const int bt = n / U1, u = n - bt * U1, b = bt / T;
-      const __nv_bfloat16* fr = f + (size_t)bt * J;
-      const __nv_bfloat16* gr = g + ((size_t)b * U1 + u) * J;
-      unsigned char* hrow = hs + m * 128;
-#pragma unroll 4
-      for (int c = t % 16; c < nch; c += 16) {
-        uint4 out = make_uint4(0, 0, 0, 0);
-        if (live) {
-          const uint4 fv = __ldg(reinterpret_cast<const uint4*>(fr + 8 * c));
-          const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gr + 8 * c));
-          const uint4 bv = __ldg(reinterpret_cast<const uint4*>(b1 + 8 * c));
-          const __nv_bfloat162* fp =
-              reinterpret_cast<const __nv_bfloat162*>(&fv);
-          const __nv_bfloat162* gp =
-              reinterpret_cast<const __nv_bfloat162*>(&gv);
-          const __nv_bfloat162* bp =
-              reinterpret_cast<const __nv_bfloat162*>(&bv);
-          __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(fp[e]);
-            const float2 bb = __bfloat1622float2(gp[e]);
-            const float2 cc = __bfloat1622float2(bp[e]);
-            op[e] = __floats2bfloat162_rn(tanhf(a.x + bb.x + cc.x),
-                                          tanhf(a.y + bb.y + cc.y));
-          }
-        }
-        *reinterpret_cast<uint4*>(hrow + (size_t)(c / 8) * HBLK_BYTES +
-                                  ((c % 8) ^ (m % 8)) * 16) = out;
-      }
-    }
-    // the generic-proxy stores, visible to wgmma's reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    build_h<false>(f, g, b1, sm.hs, nullptr, n0, N, T, U1, J, wgi, t);
     tm.at(PP_BUILD);
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
     tm.at(PP_BARRIER);
@@ -699,49 +518,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         r.y[h] = y[b * U1 + u];
       }
     }
-    // step i = (chunk v, k-block kb): wait for its stage, issue its four
-    // wgmmas into chunk v's accumulator set (`cur`), then with at most two
-    // groups in flight release the stage of step i - 2; at kb = 1 chunk
-    // v - 1 is complete and its set (`prev`) is folded while chunk v's first
-    // two k-blocks run.  Chunks go in pairs, so each set is a fixed set of
-    // registers in each of the two loop bodies.
-    int i = 0;
-    auto chunk = [&](float(&cur)[64], const float(&prev)[64], int v) {
-      for (int kb = 0; kb < nkb; ++kb, ++i) {
-        mbar_wait(&full[s], ph);
-        tm.at(PP_W2_WAIT);
-        kblock_product(cur, a_base + kb * HBLK_BYTES,
-                       ring_base + s * STAGE_BYTES, kb);
-        if (++s == stages) {
-          s = 0;
-          ph ^= 1;
-        }
-        wgmma_wait<2>();
-        tm.at(PP_PRODUCTS);
-        if (i >= 2) {
-          if (t == 0) mbar_arrive(&empty[rel]);
-          if (++rel == stages) rel = 0;
-        }
-        if (kb == 1 && v > 0) {
-          fold_chunk(prev, r, b2, (v - 1) * NV, q);
-          tm.at(PP_FOLD);
-        }
-      }
-    };
-    for (int v = 0; v < nvc; v += 2) {
-      chunk(acc0, acc1, v);
-      if (v + 1 < nvc) chunk(acc1, acc0, v + 1);
-    }
-    wgmma_wait<0>();
-    tm.at(PP_PRODUCTS);
-    for (int k = nsteps < 2 ? nsteps : 2; k > 0; --k) {
-      if (t == 0) mbar_arrive(&empty[rel]);
-      if (++rel == stages) rel = 0;
-    }
-    if ((nvc - 1) & 1)
-      fold_chunk(acc1, r, b2, (nvc - 1) * NV, q);
-    else
-      fold_chunk(acc0, r, b2, (nvc - 1) * NV, q);
+    tile_products(
+        sm, rg, acc0, acc1, nkb, nvc, stages, wgi, t,
+        [&](const float(&d)[64], int v) { fold_chunk(d, r, b2, v * NV, q); },
+        [&](int m) {
+          tm.at(m == TM_W2_WAIT ? PP_W2_WAIT
+                : m == TM_PRODUCTS ? PP_PRODUCTS : PP_FOLD);
+        });
     // merge the quad's running sums; the emit logit from the lane holding
     // y's column
 #pragma unroll
@@ -819,19 +602,8 @@ int launch(const void* f, const void* g, const int* y, const void* b1,
   if (J % KB != 0 || J < 2 * KB || Jw > J || Vp % NV != 0 || V > Vp ||
       stages < 3 || stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, nsm = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_bytes(J, stages);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(plane_kernel_wgmma,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  int nsm = 0;
+  const cudaError_t e = plan(plane_kernel_wgmma, J, stages, &nsm);
   if (e != cudaSuccess) return (int)e;
   const long long N = (long long)B * T * U1;
   if (N > 0x7fffffff) return (int)cudaErrorInvalidValue;  // int cell index
@@ -841,7 +613,8 @@ int launch(const void* f, const void* g, const int* y, const void* b1,
   g_last_design = D_WGMMA;
   const int pe = pack(w2, w2p, J, Jw, V, Vp, stream);
   if (pe != 0) return pe;
-  plane_kernel_wgmma<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  plane_kernel_wgmma<<<grid, THREADS, smem_bytes(J, stages),
+                       (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)f, (const __nv_bfloat16*)g, y,
       (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2p, b2, denom, blank,
       emit, B, T, U1, J, Vp, stages);

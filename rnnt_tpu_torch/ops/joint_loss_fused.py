@@ -9,10 +9,14 @@ The forward never writes the [B, T, U+1, V] logits: kernel K6
 (`ops.planes_cuda`) reduces each cell's logits to the three planes, and the
 lattice runs in kernel K7 (`ops.lattice_cuda`; the JAX package runs its XLA
 scans there, which compute the same function).  The backward follows the
-JAX `_bwd`: occupancies from alpha and beta, then per chunk of at most
-_BWD_CHUNK batch rows a recompute of the tanh tile and the logits and the
-dh, dW2, df, dg, db1, db2 products, as plain PyTorch (the JAX package leaves
-them to XLA outside any kernel).
+JAX `_bwd`: occupancies from alpha and beta, then per batch chunk a
+recompute of the tanh tile and the logits and the dh, dW2, df, dg, db1, db2
+products.  Where `loss_bwd_cuda.fits` (bf16 on the card, J within K6's
+WGMMA plan) it runs on kernels K8 and K9 around two cuBLAS products
+(`_kernel_grads`), from the packed W2 that the forward's K6 launch left;
+elsewhere (fp32, a wider joint, the CPU) as the plain chain `_chunk_grads`,
+chunks of at most _BWD_CHUNK rows (the JAX package leaves it to XLA outside
+any kernel).  `backward_launches_by_design` counts each chunk's path.
 
 Rounding points kept: f and g are (x @ W1) rounded to the activation dtype;
 h is fp32 and rounded to W2's dtype before each product; logits, softmax
@@ -36,14 +40,17 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as Fn
 
-from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda
-from rnnt_tpu_torch.ops.matmul import matmul_f32, mm_f32
+from rnnt_tpu_torch.ops import lattice_cuda, loss_bwd_cuda, planes_cuda
+from rnnt_tpu_torch.ops.matmul import addmm_f32_, matmul_f32, mm_f32
 from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG, occupancies, pad_labels
 from rnnt_tpu_torch.parallel import mesh as mesh_mod
 from rnnt_tpu_torch.trace import spanned
 
 _BWD_CHUNK = 8  # batch rows whose [chunk, T, U+1, V] tensors coexist
+BACKWARD_DESIGNS = ("kernel", "plain")
+backward_launches_by_design = dict.fromkeys(BACKWARD_DESIGNS, 0)
 
 
 def shift_labels(labels_pad, w2, tp):
@@ -66,12 +73,12 @@ def combine_planes(denom, blank, emit, tp):
     return m + torch.log(s), top[1], top[2]
 
 
-def planes(f, g, b1, w2, b2, labels, label_lengths, tp=None):
+def planes(f, g, b1, w2, b2, labels, label_lengths, tp=None, packed=None):
     """(denom, blank coefficient b, emit coefficient e) [B, T, U+1]: the
     log-softmax planes of the lattice, emit masked from u = U_b on (over
-    the full vocabulary under `tp`)."""
+    the full vocabulary under `tp`).  `packed`: K6 packs W2 into it."""
     denom, blank, emit = planes_cuda.joint_planes(
-        f, g, shift_labels(pad_labels(labels), w2, tp), b1, w2, b2)
+        f, g, shift_labels(pad_labels(labels), w2, tp), b1, w2, b2, packed)
     if tp is not None:
         denom, blank, emit = combine_planes(denom, blank, emit, tp)
     U1 = g.shape[1]
@@ -116,14 +123,82 @@ def _chunk_grads(fc, gc, b1, w2, b2, occ, gbl, gem, den, yc, blank_own):
     return dpre.sum(2), dpre.sum(1), dpre.sum((0, 1, 2)), dw2, db2
 
 
+def _plain_grads(f, g, b1, w2, b2, occ, gbl, gem, den, y, blank_own):
+    """(df, dg, db1, dW2, db2) in fp32 from the plain chain `_chunk_grads`,
+    in chunks of at most _BWD_CHUNK batch rows."""
+    B = f.shape[0]
+    chunk = next(c for c in range(min(B, _BWD_CHUNK), 0, -1) if B % c == 0)
+    df = torch.empty(f.shape, dtype=torch.float32, device=f.device)
+    dg = torch.empty(g.shape, dtype=torch.float32, device=f.device)
+    db1 = torch.zeros(b1.shape, dtype=torch.float32, device=f.device)
+    dw2 = torch.zeros(w2.shape, dtype=torch.float32, device=f.device)
+    db2 = torch.zeros(b2.shape, dtype=torch.float32, device=f.device)
+    for r0 in range(0, B, chunk):
+        sl = slice(r0, r0 + chunk)
+        dfc, dgc, db1c, dw2c, db2c = _chunk_grads(
+            f[sl], g[sl], b1, w2, b2, occ[sl], gbl[sl], gem[sl], den[sl],
+            y[sl], blank_own)
+        df[sl], dg[sl] = dfc, dgc
+        db1 += db1c
+        dw2 += dw2c
+        db2 += db2c
+        backward_launches_by_design["plain"] += 1
+    return df, dg, db1, dw2, db2
+
+
+def _kernel_grads(f, g, b1, w2, b2, w2p, occ, gbl, gem, den, y, blank_own,
+                  ctas):
+    """(df, dg, db1, dW2, db2) in fp32 on kernels K8 and K9
+    (`loss_bwd_cuda`), batch chunk by batch chunk: K8's dlogits [cells, V]
+    and hb in bf16, dh = dlogits W2^T and dW2 += hb^T dlogits as bf16
+    products into fp32, then K9's sums.  w2p: W2 packed by the forward's
+    K6 launch; `ctas`: K8's grid at most (the card's SMs).  On CPU tensors
+    the kernels' plain versions run the same schedule."""
+    B, T, J = f.shape
+    U1, V = g.shape[1], w2.shape[1]
+    f, g, y, b1, _, b2 = planes_cuda.pad_operands(f, g, y, b1, w2, b2,
+                                                  wgmma=True)
+    Jp, Vp = f.shape[2], b2.shape[0]
+    if Jp != J:
+        w2 = Fn.pad(w2, (0, 0, 0, Jp - J))
+    dev, f32 = f.device, torch.float32
+    df = torch.empty((B, T, Jp), dtype=f32, device=dev)
+    dg = torch.empty((B, U1, Jp), dtype=f32, device=dev)
+    db1p = torch.empty((B, -(-U1 // loss_bwd_cuda.UG), Jp), dtype=f32,
+                       device=dev)
+    dw2 = torch.zeros((Jp, V), dtype=f32, device=dev)
+    db2p = torch.zeros((ctas * loss_bwd_cuda.WARPS, Vp), dtype=f32,
+                       device=dev)
+    chunk = loss_bwd_cuda.chunk_rows(B, T, U1, Jp, Vp)
+    for r0 in range(0, B, chunk):
+        sl = slice(r0, r0 + chunk)
+        dl, hb = loss_bwd_cuda.joint_dlogits(
+            f[sl], g[sl], y[sl], b1, w2, w2p, b2, den[sl], occ[sl], gbl[sl],
+            gem[sl], db2p, V, blank_own, ctas)
+        dl = dl[:, :V]
+        dh = mm_f32(dl, w2.t())
+        addmm_f32_(dw2, hb.t(), dl)
+        loss_bwd_cuda.tanh_grads(dh, f[sl], g[sl], b1, df[sl], dg[sl],
+                                 db1p[sl])
+        backward_launches_by_design["kernel"] += 1
+    return (df[..., :J].contiguous(), dg[..., :J].contiguous(),
+            db1p.sum((0, 1))[:J], dw2[:J], db2p.sum(0)[:V])
+
+
 class _FusedLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tp, f, g, b1, w2, b2, labels, logit_lengths,
                 label_lengths):
-        denom, b, e = planes(f, g, b1, w2, b2, labels, label_lengths, tp)
+        w2p = None  # the packed W2 K8 streams, from K6's launch
+        if loss_bwd_cuda.fits(f, g, b1, w2):
+            w2p = torch.empty(planes_cuda.padded_j(w2.shape[0])
+                              * planes_cuda.padded_v(w2.shape[1]),
+                              dtype=w2.dtype, device=w2.device)
+        denom, b, e = planes(f, g, b1, w2, b2, labels, label_lengths, tp,
+                             w2p)
         alpha, beta, ll = lattice_cuda.lattice_scan(b, e, logit_lengths,
                                                     label_lengths)
-        ctx.tp = tp
+        ctx.tp, ctx.w2p = tp, w2p
         ctx.save_for_backward(f, g, b1, w2, b2, denom, b, e, alpha, beta, ll,
                               labels, logit_lengths, label_lengths)
         return -ll
@@ -136,23 +211,15 @@ class _FusedLoss(torch.autograd.Function):
         tp = ctx.tp
         occ, g_blank, g_emit = occupancies(alpha, beta, b, e, ll,
                                            logit_lengths, label_lengths, ct)
-        B = f.shape[0]
-        chunk = next(c for c in range(min(B, _BWD_CHUNK), 0, -1) if B % c == 0)
         y = shift_labels(pad_labels(labels), w2, tp)
-        df = torch.empty(f.shape, dtype=torch.float32, device=f.device)
-        dg = torch.empty(g.shape, dtype=torch.float32, device=f.device)
-        db1 = torch.zeros(b1.shape, dtype=torch.float32, device=f.device)
-        dw2 = torch.zeros(w2.shape, dtype=torch.float32, device=f.device)
-        db2 = torch.zeros(b2.shape, dtype=torch.float32, device=f.device)
-        for r0 in range(0, B, chunk):
-            sl = slice(r0, r0 + chunk)
-            dfc, dgc, db1c, dw2c, db2c = _chunk_grads(
-                f[sl], g[sl], b1, w2, b2, occ[sl], g_blank[sl], g_emit[sl],
-                denom[sl], y[sl], tp is None or tp.index == 0)
-            df[sl], dg[sl] = dfc, dgc
-            db1 += db1c
-            dw2 += dw2c
-            db2 += db2c
+        blank_own = tp is None or tp.index == 0
+        if ctx.w2p is not None:
+            df, dg, db1, dw2, db2 = _kernel_grads(
+                f, g, b1, w2, b2, ctx.w2p, occ, g_blank, g_emit, denom, y,
+                blank_own, loss_bwd_cuda.ctas(f.device))
+        else:
+            df, dg, db1, dw2, db2 = _plain_grads(
+                f, g, b1, w2, b2, occ, g_blank, g_emit, denom, y, blank_own)
         if tp is not None:  # partial sums over this shard's columns
             mesh_mod.all_reduce_sum_((df, dg, db1), None, tp.group)
         return (None, df.to(f.dtype), dg.to(g.dtype), db1.to(b1.dtype),

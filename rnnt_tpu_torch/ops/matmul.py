@@ -22,6 +22,15 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+def addmm_f32_(acc: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """acc += a @ b in place for an fp32 acc (2-D, without autograd); on
+    the card two bf16 operands accumulate straight into acc (cuBLAS)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.addmm(acc, a, b, out_dtype=torch.float32, out=acc)
+    return acc.add_(mm_f32(a, b))
+
+
 class _MatmulF32(torch.autograd.Function):
     """x [..., K] @ w [K, N] -> fp32 [..., N]; the gradients are fp32
     products too, returned in the operands' dtypes."""

@@ -71,7 +71,8 @@ def pack_w2(w2: torch.Tensor) -> torch.Tensor:
     the 16-byte group c of row n sits at position c ^ (n % 8).  One flat
     tensor.  The launch packs on every call: in training W2 changes every
     step, so a cached copy would never be reused there, and none can go
-    stale."""
+    stale; the fused loss keeps the forward's copy for its backward (K8).
+    """
     (J, V), Jp, Vp = w2.shape, padded_j(w2.shape[0]), padded_v(w2.shape[1])
     w2p = Fn.pad(w2, (0, Vp - V, 0, Jp - J))
     tiles = w2p.t().reshape(Vp // _VT, _VT, Jp // KB, 8, 8).permute(
@@ -149,10 +150,12 @@ def _lib():
     return bind(build.load("joint_planes"))
 
 
-def joint_planes(f, g, labels_pad, b1, w2, b2):
+def joint_planes(f, g, labels_pad, b1, w2, b2, packed=None):
     """f [B, T, J], g [B, U+1, J] (the weight dtype), labels_pad [B, U+1]
     (ids outside [0, V) emit NEG), b1 [J], w2 [J, V], b2 [V] -> (denom,
-    blank, emit) [B, T, U+1] fp32."""
+    blank, emit) [B, T, U+1] fp32.  `packed` (CUDA, WGMMA design only): a
+    flat tensor of padded_j(J) * padded_v(V) values of W2's dtype that the
+    launch packs W2 into (`pack_w2`) and the caller keeps."""
     B, T, J = f.shape
     U1 = g.shape[1]
     V = w2.shape[1]
@@ -164,15 +167,15 @@ def joint_planes(f, g, labels_pad, b1, w2, b2):
     if not f.is_cuda:
         return joint_planes_plain(f, g, labels_pad, b1, w2, b2)
     lib = _lib()
-    planes = launch(lib, f, g, labels_pad, b1, w2, b2)
+    planes = launch(lib, f, g, labels_pad, b1, w2, b2, packed)
     joint_planes.launches += 1
     joint_planes.launches_by_design[DESIGNS[lib.planes_last_design()]] += 1
     return planes
 
 
-def launch(lib, f, g, labels_pad, b1, w2, b2):
+def launch(lib, f, g, labels_pad, b1, w2, b2, packed=None):
     """One launch of library `lib`'s kernel on CUDA tensors (shapes as
-    `joint_planes` checks them)."""
+    `joint_planes` checks them; `packed` as there)."""
     from rnnt_tpu_torch.kernels import build
 
     B, T, J = f.shape
@@ -191,13 +194,19 @@ def launch(lib, f, g, labels_pad, b1, w2, b2):
     f, g, y, b1, w2, b2 = pad_operands(f, g, labels_pad, b1, w2, b2,
                                        wgmma=stages > 0)
     Jp, Vp = f.shape[2], b2.shape[0]
+    if packed is not None and not (
+            stages and packed.shape == (Jp * Vp,) and packed.dtype == dt
+            and packed.device == dev):
+        raise ValueError(f"a packed W2 takes the WGMMA design and "
+                         f"{Jp * Vp} values of {dt} on {dev}")
     planes = [torch.empty((B, T, U1), dtype=torch.float32, device=dev)
               for _ in range(3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if stages:  # the launch packs W2 into `packed` first
             entry = _WGMMA
-            packed = torch.empty((Jp * Vp,), dtype=dt, device=dev)
+            if packed is None:
+                packed = torch.empty((Jp * Vp,), dtype=dt, device=dev)
             err = lib.joint_planes_bf16_wgmma(
                 f.data_ptr(), g.data_ptr(), y.data_ptr(), b1.data_ptr(),
                 w2.data_ptr(), b2.data_ptr(), packed.data_ptr(),
