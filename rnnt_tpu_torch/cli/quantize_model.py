@@ -31,6 +31,7 @@ def main(argv=None) -> int:
     import torch
 
     from rnnt_tpu_torch.device import resolve_device
+    from rnnt_tpu_torch.models.encoder import require_lstm_encoder
     from rnnt_tpu_torch.models.transducer import Transducer
     from rnnt_tpu_torch.ops.quantize import (quantize_params,
                                              quantized_size_bytes,
@@ -39,6 +40,7 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     cfg = ckpt_mod.load_config(args.checkpoint)
+    require_lstm_encoder(cfg, "int8 weights")
     _, state_dict = ckpt_mod.restore_params(args.checkpoint, cfg)
     # the parameters at the training dtype, as the JAX CLI restores them
     model = Transducer(cfg)

@@ -5,6 +5,11 @@ the port's own copy so that the port never imports the JAX package.  Field
 names and defaults are identical, so a `config.json` written by either
 package loads in the other.  The defaults are the parity configuration:
 8x2048/640 encoder, 2x2048 prediction net, joint 640, V=4096, 80 mels x 3.
+
+The port adds one choice the JAX package lacks: `encoder_type` "conformer"
+(`models.conformer`, Gulati et al. 2020) in place of the projected LSTMs,
+with its `conformer_*` widths and `encoder_layers` blocks; the JAX package
+ignores those fields when it loads such a file.
 """
 
 from __future__ import annotations
@@ -12,6 +17,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+
+# the fields only a Conformer reads: an LSTM model's config.json leaves
+# them out, so that it is the JAX package's byte for byte
+CONFORMER_FIELDS = ("encoder_type", "conformer_dim", "conformer_heads",
+                    "conformer_ffn_size", "conformer_kernel_size")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +51,14 @@ class RNNTConfig:
     joint_size: int = 640
     dropout: float = 0.0
     init_blank_bias: float = 0.0
+    # "lstm" (the fields above) or "conformer": 4x convolutional
+    # subsampling, then encoder_layers Conformer blocks of conformer_dim
+    # (time_reduction_index -1, no input BatchNorm)
+    encoder_type: str = "lstm"
+    conformer_dim: int = 512
+    conformer_heads: int = 8
+    conformer_ffn_size: int = 2048
+    conformer_kernel_size: int = 32
 
     # Optimization (read and written for config.json compatibility; the
     # port's training slice has not landed)
@@ -71,6 +89,19 @@ class RNNTConfig:
     model_parallel_size: int = 1
 
     def __post_init__(self):
+        if self.encoder_type not in ("lstm", "conformer"):
+            raise ValueError(f"encoder_type={self.encoder_type!r} (want "
+                             "'lstm' or 'conformer')")
+        if self.encoder_type == "conformer":
+            if self.time_reduction_index >= 0:
+                raise ValueError(
+                    "encoder_type='conformer' subsamples by 4 itself: set "
+                    "time_reduction_index=-1")
+            if self.conformer_dim % self.conformer_heads:
+                raise ValueError(
+                    f"conformer_dim={self.conformer_dim} is not a multiple "
+                    f"of conformer_heads={self.conformer_heads}")
+            return
         # TimeReduction widens its output, and the additive joint needs the
         # encoder's last layer to emit projection_size: it cannot be last.
         if self.time_reduction_index >= self.encoder_layers - 1 and \
@@ -85,6 +116,12 @@ class RNNTConfig:
         return self.mel_bins * self.downsample_factor
 
     @property
+    def encoder_output_size(self) -> int:
+        """Width of the encoder's output (the joint's encoder side)."""
+        return (self.conformer_dim if self.encoder_type == "conformer"
+                else self.projection_size)
+
+    @property
     def frame_length_samples(self) -> int:
         return int(round(self.sample_rate * self.frame_length))
 
@@ -95,11 +132,20 @@ class RNNTConfig:
     def replace(self, **kw) -> "RNNTConfig":
         return dataclasses.replace(self, **kw)
 
+    def to_dict(self) -> dict:
+        """The fields as `config.json` holds them (`CONFORMER_FIELDS` only
+        for a Conformer)."""
+        d = dataclasses.asdict(self)
+        if self.encoder_type == "lstm":
+            for k in CONFORMER_FIELDS:
+                del d[k]
+        return d
+
     def save(self, directory: str, filename: str = "config.json") -> str:
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, filename)
         with open(path, "w") as f:
-            json.dump(dataclasses.asdict(self), f, indent=2, sort_keys=True)
+            json.dump(self.to_dict(), f, indent=2, sort_keys=True)
         return path
 
     @classmethod

@@ -50,6 +50,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from rnnt_tpu_torch.models.encoder import require_lstm_encoder
 from rnnt_tpu_torch.models.transducer import Transducer
 
 NEG = -1e30
@@ -328,6 +329,7 @@ def _search(model, w, encoded, enc_lengths, *, beam_width,
             stats, follow=None):
     """The search over encoder output with the steps `w` (joint_fj,
     joint_logp, advance); with `follow`, along another trace's picks."""
+    require_lstm_encoder(model.cfg, "beam search")
     B, T, P = encoded.shape
     K, L, E = beam_width, max_output_length, expansions_per_frame
     V = model.cfg.vocab_size
@@ -450,6 +452,7 @@ def beam_search_decode(model: Transducer, mel: torch.Tensor,
     (`search_by_kind`).  expansions_per_frame defaults to
     `default_expansions(cfg)`, merge_duplicates to True, as in the JAX
     package."""
+    require_lstm_encoder(model.cfg, "beam search")
     B, T, _ = mel.shape
     if spec_lengths is None:
         spec_lengths = torch.full((B,), T, dtype=torch.int32)

@@ -171,7 +171,7 @@ def greedy_decode(model: Transducer, mel: torch.Tensor,
     B, T, _ = mel.shape
     if spec_lengths is None:
         spec_lengths = torch.full((B,), T, dtype=torch.int32)
-    encoded, _ = model.encode(mel)
+    encoded, _ = model.encode(mel, lengths=spec_lengths.to(mel.device))
     enc_lengths = model.encoded_length(spec_lengths.to(mel.device))
     tokens, lengths, _ = greedy_decode_encoded(
         model, encoded, enc_lengths, max_output_length=max_output_length)

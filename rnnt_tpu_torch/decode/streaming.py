@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded
+from rnnt_tpu_torch.models.encoder import require_lstm_encoder
 from rnnt_tpu_torch.models.transducer import Transducer
 from rnnt_tpu_torch.ops import features as F
 
@@ -65,6 +66,7 @@ class StreamingTranscriber:
         device_lock: a lock serializing device work with other users of the
         same card (the server shares one across HTTP requests and every
         stream); None means the caller owns the device."""
+        require_lstm_encoder(model.cfg, "streaming transcription")
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer

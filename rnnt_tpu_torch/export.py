@@ -41,6 +41,7 @@ from torch import nn
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.decode.greedy import greedy_decode_encoded_graph
 from rnnt_tpu_torch.device import resolve_device
+from rnnt_tpu_torch.models.encoder import require_lstm_encoder
 from rnnt_tpu_torch.models.transducer import Transducer
 from rnnt_tpu_torch.ops import library  # noqa: F401  (registers K2's op)
 
@@ -151,6 +152,7 @@ def export_streaming_step(model: Transducer, cfg: RNNTConfig, *,
                           freeze_params: bool = True
                           ) -> Tuple[torch.export.ExportedProgram, dict]:
     """Export the streaming decode step; returns (program, meta)."""
+    require_lstm_encoder(model.cfg, "export")
     device = resolve_device(device)
     model = _fp32_model(model, device)
     enc_state, pred_state = streaming_init_state(cfg, device=device)
@@ -180,6 +182,7 @@ def export_transcribe(model: Transducer, cfg: RNNTConfig, *, batch: int = 1,
                       ) -> Tuple[torch.export.ExportedProgram, dict]:
     """Export whole-utterance batched greedy decoding; returns (program,
     meta)."""
+    require_lstm_encoder(model.cfg, "export")
     device = resolve_device(device)
     model = _fp32_model(model, device)
     mel = torch.zeros((batch, frames, cfg.input_feat_size), device=device)

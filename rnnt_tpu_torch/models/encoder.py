@@ -89,9 +89,25 @@ class Encoder(nn.Module):
         return x, new_state
 
 
+def require_lstm_encoder(cfg: RNNTConfig, what: str) -> None:
+    """Raise NotImplementedError, before any work, where `what` needs the
+    LSTM encoder (its carried state, or the shared W1 of its joint)."""
+    if cfg.encoder_type != "lstm":
+        raise NotImplementedError(
+            f"{what} is not available for encoder_type="
+            f"{cfg.encoder_type!r}: it needs encoder_type='lstm' (a "
+            "streaming encoder state or the joint's shared W1); the "
+            "Conformer is a full-context encoder")
+
+
 def encoded_length(cfg: RNNTConfig, spec_lengths: torch.Tensor) -> torch.Tensor:
     """Valid encoder frames for given input frame counts; a negative
-    time_reduction_index disables the reduction."""
+    time_reduction_index disables the reduction; a Conformer subsamples
+    by 4."""
+    if cfg.encoder_type == "conformer":
+        from rnnt_tpu_torch.models.conformer import subsampled_length
+
+        return subsampled_length(spec_lengths)
     if cfg.time_reduction_index < 0:
         return spec_lengths
     return L.reduced_length(spec_lengths, cfg.time_reduction_factor)

@@ -148,13 +148,14 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Feature-wise BatchNorm over [B, T, F], eps 1e-3.  In inference it
-    reads the running statistics; `forward_train` normalises with the
-    batch's.  The running mean and variance stay fp32 whatever the
+    """Feature-wise BatchNorm over [B, T, F], eps 1e-3 unless given.  In
+    inference it reads the running statistics; `forward_train` normalises
+    with the batch's.  The running mean and variance stay fp32 whatever the
     parameter dtype."""
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, eps: float = 1e-3):
         super().__init__()
+        self.eps = eps
         self.scale = frozen_param((size,))
         self.bias = frozen_param((size,))
         self.mean = frozen_param((size,))
@@ -169,12 +170,13 @@ class BatchNorm(nn.Module):
         return self._normalize(x, self.mean.float(), self.var.float())
 
     def _normalize(self, x, mean, var):
-        y = (x.float() - mean) * torch.rsqrt(var + 1e-3)
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale.float() + self.bias.float()).to(x.dtype)
 
-    def forward_train(self, x: torch.Tensor, mesh=None):
+    def forward_train(self, x: torch.Tensor, mesh=None, mask=None):
         """Normalise with the batch statistics over (B, T), padded frames
-        included, biased variance.  Returns (y, (new_mean, new_var)) with
+        included, biased variance; across a `mesh` a `mask` [B, T] (1 at
+        valid frames) leaves the padded frames out.  Returns (y, (new_mean, new_var)) with
         new = 0.99 * running + 0.01 * batch (Keras' momentum); the running
         statistics are not changed here (the train step writes them).
 
@@ -187,7 +189,7 @@ class BatchNorm(nn.Module):
         momentum = 0.99
         xf = x.float()
         if mesh is not None and mesh.shape["data"] > 1:
-            mean, var = self._global_stats(xf, mesh)
+            mean, var = self._global_stats(xf, mesh, mask)
         else:
             mean = xf.mean(dim=(0, 1))
             var = xf.var(dim=(0, 1), unbiased=False)
@@ -197,15 +199,22 @@ class BatchNorm(nn.Module):
         return self._normalize(x, mean, var), new
 
     @staticmethod
-    def _global_stats(xf: torch.Tensor, mesh):
+    def _global_stats(xf: torch.Tensor, mesh, mask=None):
         F = xf.shape[-1]
-        count = torch.full((1,), float(xf.shape[0] * xf.shape[1]),
-                           device=xf.device)
+        if mask is None:
+            count = torch.full((1,), float(xf.shape[0] * xf.shape[1]),
+                               device=xf.device)
+        else:
+            m = mask.to(xf.dtype)[..., None]
+            count = m.sum().reshape(1)
+            xf = xf * m
         sums = mesh_mod.all_reduce_sum(
             torch.cat([xf.sum(dim=(0, 1)), count]), mesh)
         mean = sums[:F] / sums[F]
-        sq = mesh_mod.all_reduce_sum((xf - mean).square().sum(dim=(0, 1)),
-                                     mesh)
+        dev = xf - mean
+        if mask is not None:
+            dev = dev * m
+        sq = mesh_mod.all_reduce_sum(dev.square().sum(dim=(0, 1)), mesh)
         return mean, sq / sums[F]
 
 

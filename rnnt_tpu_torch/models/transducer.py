@@ -6,6 +6,11 @@ parameter tree ("encoder.layers.0.lstm.wx" is params["encoder"]["layers"][0]
 other by name.  `load_params_` also takes the mixed trees of int8 execution
 (`ops.quantize.int8_exec_params`), whose int8 weights replace the
 parameters of their names as `ops.int8_exec.QuantWeight` modules.
+
+`cfg.encoder_type` "conformer" puts `models.conformer.ConformerEncoder` in
+the LSTM encoder's place (names `encoder.subsample.*`, `encoder.blocks.*`)
+and gives the joint a prediction-side `w1p`; it takes each utterance's
+length, holds a BatchNorm in every block, and carries no streaming state.
 """
 
 from __future__ import annotations
@@ -18,20 +23,26 @@ from torch import nn
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models import joint as joint_mod
-from rnnt_tpu_torch.models.encoder import Encoder, State, encoded_length
+from rnnt_tpu_torch.models.conformer import ConformerEncoder
+from rnnt_tpu_torch.models.encoder import (Encoder, State, encoded_length,
+                                           require_lstm_encoder)
 from rnnt_tpu_torch.models.prediction import Prediction
 from rnnt_tpu_torch.ops.int8_exec import is_quant
 
-# Leaves that stay fp32 whatever the parameter dtype (BatchNorm running
-# statistics, as in the JAX tree).
-FP32_LEAVES = ("encoder.bn.mean", "encoder.bn.var")
+
+def fp32_leaf(name: str) -> bool:
+    """Leaves that stay fp32 whatever the parameter dtype and take no
+    gradient: the BatchNorm running statistics (`encoder.bn.mean` and
+    `.var` in the JAX tree; each Conformer block's `conv.bn.mean`, `.var`)."""
+    return name.endswith((".bn.mean", ".bn.var"))
 
 
 class Transducer(nn.Module):
     def __init__(self, cfg: RNNTConfig):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg)
+        self.encoder = (ConformerEncoder(cfg)
+                        if cfg.encoder_type == "conformer" else Encoder(cfg))
         self.prediction = Prediction(cfg)
         self.joint = joint_mod.Joint(cfg)
 
@@ -58,7 +69,7 @@ class Transducer(nn.Module):
                 f"parameter names differ: missing "
                 f"{sorted(want - set(params))}, unknown "
                 f"{sorted(set(params) - want)}")
-        device = self.encoder.bn.scale.device
+        device = self.dtype_param.device
         for name, value in params.items():
             owner_name, _, attr = name.rpartition(".")
             owner = self.get_submodule(owner_name)
@@ -88,7 +99,7 @@ class Transducer(nn.Module):
         """Parameters to `dtype`, except the fp32 BatchNorm statistics; int8
         weights stay as they are."""
         for name, p in self.named_parameters():
-            if name not in FP32_LEAVES:
+            if not fp32_leaf(name):
                 p.data = p.data.to(dtype)
         return self
 
@@ -96,40 +107,73 @@ class Transducer(nn.Module):
         """Gradients on for every parameter but the BatchNorm running
         statistics (the JAX package's trainable mask)."""
         for name, p in self.named_parameters():
-            p.requires_grad_(name not in FP32_LEAVES)
+            p.requires_grad_(not fp32_leaf(name))
         return self
 
     @property
+    def dtype_param(self) -> torch.Tensor:
+        """An encoder weight (int8 weights live only in the prediction net
+        and the joint)."""
+        if self.cfg.encoder_type == "conformer":
+            return self.encoder.subsample.conv2_w
+        return self.encoder.layers[0].lstm.wh
+
+    @property
     def dtype(self) -> torch.dtype:
-        """The parameter dtype (the encoder's: int8 weights live only in
-        the prediction net and the joint)."""
-        return self.encoder.layers[0].lstm.wh.dtype
+        """The parameter dtype (the encoder's)."""
+        return self.dtype_param.dtype
+
+    def running_stats(self):
+        """The BatchNorm running statistics, by parameter name."""
+        if self.cfg.encoder_type == "conformer":
+            return self.encoder.running_stats()
+        return {"encoder.bn.mean": self.encoder.bn.mean,
+                "encoder.bn.var": self.encoder.bn.var}
 
     def encode_predict(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
-                       training: bool = False, generator=None, mesh=None):
+                       training: bool = False, generator=None, mesh=None,
+                       lengths: Optional[torch.Tensor] = None):
         """Encoder and prediction net over a batch: (encoded [B, T', P],
-        pred_out [B, U+1, P], (BatchNorm mean, var)).  In training the
-        BatchNorm statistics are the updated running ones (of the global
-        batch across a data-parallel `mesh`); otherwise the current ones."""
-        if training:
-            encoded, bn_stats = self.encoder.forward_train(mel, generator,
-                                                           mesh)
+        pred_out [B, U+1, P], BatchNorm statistics by parameter name).  In
+        training the statistics are the updated running ones (of the
+        global batch across a data-parallel `mesh`); otherwise the current
+        ones.  `lengths` [B]: the valid input frames (the Conformer masks
+        the rest; the LSTM encoder reads none)."""
+        if self.cfg.encoder_type == "conformer":
+            encoded, bn_stats = self.encoder(
+                mel, lengths, training=training, generator=generator,
+                mesh=mesh)
+            if not training:
+                bn_stats = self.running_stats()
+        elif training:
+            encoded, (mean, var) = self.encoder.forward_train(mel, generator,
+                                                              mesh)
+            bn_stats = {"encoder.bn.mean": mean, "encoder.bn.var": var}
         else:
             encoded, _ = self.encoder(mel)
-            bn_stats = (self.encoder.bn.mean, self.encoder.bn.var)
+            bn_stats = self.running_stats()
         pred_out, _ = self.prediction(pred_inp, training=training,
                                       generator=generator)
         return encoded, pred_out, bn_stats
 
     def apply(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
-              training: bool = False, generator=None, mesh=None):
+              training: bool = False, generator=None, mesh=None,
+              lengths: Optional[torch.Tensor] = None):
         """Full forward: (logits [B, T', U+1, V] fp32, BatchNorm stats)."""
         encoded, pred_out, bn_stats = self.encode_predict(
-            mel, pred_inp, training=training, generator=generator, mesh=mesh)
+            mel, pred_inp, training=training, generator=generator, mesh=mesh,
+            lengths=lengths)
         return joint_mod.joint_logits(self.joint, encoded, pred_out), bn_stats
 
-    def encode(self, mel: torch.Tensor, state: Optional[State] = None):
-        """mel [B, T, feat] -> (encoded [B, T', P], new_state)."""
+    def encode(self, mel: torch.Tensor, state: Optional[State] = None,
+               lengths: Optional[torch.Tensor] = None):
+        """mel [B, T, feat] -> (encoded [B, T', P], new_state); a Conformer
+        takes the valid frames' `lengths` (None: all) and no state, and
+        returns None for it."""
+        if self.cfg.encoder_type == "conformer":
+            if state is not None:
+                require_lstm_encoder(self.cfg, "encoding from a carried state")
+            return self.encoder(mel, lengths)
         return self.encoder(mel, state)
 
     def predict_step(self, tokens: torch.Tensor, state: State):
@@ -141,6 +185,7 @@ class Transducer(nn.Module):
         return self.prediction.zero_state(batch, dtype)
 
     def encoder_zero_state(self, batch: int, dtype=None) -> State:
+        require_lstm_encoder(self.cfg, "a streaming encoder state")
         return self.encoder.zero_state(batch, dtype)
 
     def joint_step(self, enc_t: torch.Tensor,

@@ -31,6 +31,7 @@ import weakref
 import torch
 
 from rnnt_tpu_torch.decode import beam as beam_mod
+from rnnt_tpu_torch.models.encoder import require_lstm_encoder
 
 _ENTRY = {torch.float32: "beam_search_f32", torch.bfloat16: "beam_search_bf16"}
 MAX_LAYERS = 4  # prediction-net layers the launcher takes
@@ -265,6 +266,7 @@ def beam_search(model, encoded: torch.Tensor, enc_lengths: torch.Tensor, *,
     launch in place of the package's (`kernels/beam_ab.py` times copies).
     int8 weights raise (`decode.beam.search_by_kind` sends them to the
     XLA beam's counterpart)."""
+    require_lstm_encoder(model.cfg, "beam search")
     beam_mod.refuse_int8(model, "the beam kernel K3")
     if not encoded.is_cuda:
         return beam_mod.beam_search_encoded_plain(

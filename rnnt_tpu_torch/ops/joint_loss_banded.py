@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
+from rnnt_tpu_torch.models.joint import pred_weight
 from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda
 from rnnt_tpu_torch.ops.joint_loss_fused import (combine_planes, dlogits_,
                                                  shift_labels)
@@ -243,9 +244,10 @@ def rnnt_loss_banded(f, g, b1, w2, b2, labels, logit_lengths, label_lengths,
 def transducer_loss_banded(joint, enc, pred, labels, enc_lengths,
                            label_lengths, *, band: int = 16, tp=None):
     """The banded loss from encoder [B, T, P] and prediction [B, U+1, P]
-    activations and the joint module (w1, b1, w2, b2), the banded twin of
+    activations and the joint module (w1, b1, w2, b2; w1p where it has
+    one), the banded twin of
     `joint_loss_fused.transducer_loss_fused`."""
     f = matmul_f32(enc, joint.w1).to(enc.dtype)
-    g = matmul_f32(pred, joint.w1).to(pred.dtype)
+    g = matmul_f32(pred, pred_weight(joint)).to(pred.dtype)
     return rnnt_loss_banded(f, g, joint.b1, joint.w2, joint.b2, labels,
                             enc_lengths, label_lengths, band=band, tp=tp)

@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as Fn
 
+from rnnt_tpu_torch.models.joint import pred_weight
 from rnnt_tpu_torch.ops import lattice_cuda, loss_bwd_cuda, planes_cuda
 from rnnt_tpu_torch.ops.matmul import addmm_f32_, matmul_f32, mm_f32
 from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG, occupancies, pad_labels
@@ -242,9 +243,10 @@ def transducer_loss_fused(joint, enc, pred, labels, enc_lengths,
                           label_lengths, tp=None):
     """The fused loss from encoder [B, T, P] and prediction [B, U+1, P]
     activations and the joint module (w1, b1, w2, b2): the first Dense is
-    applied to each side (W(a + b) = Wa + Wb), rounded to the activation
-    dtype.  `tp`: w2 and b2 are vocab-sharded (`rnnt_loss_fused`)."""
+    applied to each side (W(a + b) = Wa + Wb; w1p on the prediction side
+    where the joint has one), rounded to the activation dtype.  `tp`: w2
+    and b2 are vocab-sharded (`rnnt_loss_fused`)."""
     f = matmul_f32(enc, joint.w1).to(enc.dtype)
-    g = matmul_f32(pred, joint.w1).to(pred.dtype)
+    g = matmul_f32(pred, pred_weight(joint)).to(pred.dtype)
     return rnnt_loss_fused(f, g, joint.b1, joint.w2, joint.b2, labels,
                            enc_lengths, label_lengths, tp)

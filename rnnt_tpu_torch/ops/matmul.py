@@ -5,7 +5,8 @@ exactly and accumulates in fp32 without rounding the result; `torch.matmul`
 of two bf16 tensors returns a rounded bf16 tensor instead.  `matmul_f32`
 keeps JAX's contract: on the card two bf16 operands go through cuBLAS with
 an fp32 output (`torch.mm(..., out_dtype=torch.float32)`), elsewhere the
-operands are widened to fp32 first (the same exact products).
+operands are widened to fp32 first (the same exact products).  `dense`
+is a layer's product and bias in the activations' dtype.
 """
 
 from __future__ import annotations
@@ -67,3 +68,9 @@ def matmul_to(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     if x.dtype == w.dtype:
         return torch.matmul(x, w).to(dtype)
     return torch.matmul(x.float(), w.float()).to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """x [..., K] @ w [K, N] (+ b) in x's dtype, with autograd: one cuBLAS
+    product accumulating in fp32 on the card, the bias in its epilogue."""
+    return torch.nn.functional.linear(x, w.t(), b)

@@ -30,6 +30,7 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 
+from rnnt_tpu_torch.models.encoder import require_lstm_encoder
 from rnnt_tpu_torch.ops.int8_exec import QuantWeight
 from rnnt_tpu_torch.train.checkpoint import flatten_order
 
@@ -187,6 +188,7 @@ def apply_quantized_(model, qparams: Mapping[str, QLeaf],
     state_dict's names): dequantized to the model's own dtypes, or with
     int8_exec the prediction net's and the joint's matmul weights kept int8
     (`int8_exec_params`).  Returns the model."""
+    require_lstm_encoder(model.cfg, "int8 weights")
     convert = int8_exec_params if int8_exec else dequantize_params
     return model.load_params_(convert(qparams, model.dtype,
                                       template=model.state_dict()))

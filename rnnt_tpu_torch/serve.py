@@ -154,11 +154,11 @@ class TranscriptionService:
         """Encoder, then greedy decoding or a `beam`-wide search of the
         first t frames' output.  Returns (token ids, time the encoder was
         done)."""
-        encoded, _ = self.model.encode(mel_p)
+        lengths = torch.tensor([t], dtype=torch.int32, device=self.device)
+        encoded, _ = self.model.encode(mel_p, lengths=lengths)
         self._sync()
         t_enc = time.perf_counter()
-        enc_lengths = self.model.encoded_length(
-            torch.tensor([t], dtype=torch.int32, device=self.device))
+        enc_lengths = self.model.encoded_length(lengths)
         if beam > 0:  # as the JAX service, beam <= 0 is greedy
             tokens, lengths, _ = search_by_kind(self.model)(
                 self.model, encoded, enc_lengths, beam_width=beam,
@@ -291,8 +291,12 @@ def _stream_handler(service: TranscriptionService,
             conn.sendall(struct.pack("<I", len(reply)) + reply)
 
         def handle(self):
-            st = service.new_stream()
             conn = self.request
+            try:
+                st = service.new_stream()
+            except NotImplementedError as ex:  # a full-context encoder
+                self._error(conn, str(ex))
+                return
             chunk_bytes = None   # fixed by the first data frame
             tail_seen = False    # one smaller final data frame allowed
             while True:

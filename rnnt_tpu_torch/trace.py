@@ -19,8 +19,17 @@ Span names start with `rnnt.`; each sits where its work is launched:
 `rnnt.train.update`, `rnnt.train.data` (`train.loop.run_training`),
 `rnnt.lstm` and `rnnt.lstm.bwd` (`ops.lstm_cuda`'s training LSTM),
 `rnnt.loss` and `rnnt.loss.bwd` (the fused and banded losses),
-`rnnt.parallel.all_reduce` (`parallel.mesh.all_reduce_sum_`).  The
+`rnnt.parallel.all_reduce` (`parallel.mesh.all_reduce_sum_`),
+`rnnt.conformer.subsample`, `.ffn`, `.mhsa` and `.conv` (the Conformer
+encoder's modules, `models.conformer`) and each with `.bwd`.  The
 inference and export paths hold none.
+
+A module's backward runs on the autograd engine's thread, outside any
+function of the module: `module_span(name, fn, x, *args)` runs fn in
+`span(name)` and, while recording, passes fn's first input and its output
+through identity functions whose backward opens `span(name + ".bwd")` (at
+the output, where the module's backward starts) and closes it (at the
+input, where it ends), so the module's backward launches run inside it.
 """
 
 from __future__ import annotations
@@ -50,3 +59,57 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return inner
     return wrap
+
+
+class _Held:
+    """The backward span of one module call, open between its two ends."""
+
+    def __init__(self, name: str):
+        self.name, self.open = name, None
+
+
+class _OpenBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, held, x):
+        ctx.held = held
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        rf = span(ctx.held.name)
+        if rf is not _OFF:
+            rf.__enter__()
+            ctx.held.open = rf
+        return None, g
+
+
+class _CloseBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, held, x):
+        ctx.held = held
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        rf, ctx.held.open = ctx.held.open, None
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        return None, g
+
+
+def module_span(name: str, fn, x: torch.Tensor, *args, **kwargs):
+    """fn(x, *args, **kwargs) in span(name), its backward in
+    span(name + ".bwd") (module docstring).  `x` is the tensor whose
+    gradient the module's backward computes last: its input, or where the
+    input needs none, the weight of its first operation (fn then receives
+    it in that place)."""
+    if not torch._C._autograd._profiler_enabled():
+        return fn(x, *args, **kwargs)
+    held = _Held(name + ".bwd")
+    if x.requires_grad:
+        x = _CloseBackward.apply(held, x)
+    with span(name):
+        y = fn(x, *args, **kwargs)
+    if x.requires_grad and y.requires_grad:
+        y = _OpenBackward.apply(held, y)
+    return y

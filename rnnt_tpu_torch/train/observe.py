@@ -7,7 +7,6 @@ go to TensorBoard event files in that directory."""
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import time
@@ -42,7 +41,7 @@ class MetricsWriter:
         in its HPARAMS tab.  `tensorboard.summary.Writer` has no raw-summary
         hook, so the event goes through its underlying event writer, as the
         JAX package's writer does."""
-        d = dataclasses.asdict(cfg)
+        d = cfg.to_dict()
         with open(os.path.join(self.dir, "hparams.json"), "w") as f:
             json.dump(d, f, indent=2, sort_keys=True)
         if self._tb is None:

@@ -29,7 +29,7 @@ import torch
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.device import resolve_device
-from rnnt_tpu_torch.models.transducer import FP32_LEAVES, Transducer
+from rnnt_tpu_torch.models.transducer import Transducer, fp32_leaf
 from rnnt_tpu_torch.parallel import mesh as mesh_mod
 from rnnt_tpu_torch.train.checkpoint import flatten_order
 
@@ -47,7 +47,7 @@ def trainable_names(model: Transducer) -> List[str]:
     """Trainable parameter names in flatten order (all but the BatchNorm
     running statistics)."""
     return flatten_order(n for n, _ in model.named_parameters()
-                         if n not in FP32_LEAVES)
+                         if not fp32_leaf(n))
 
 
 def lr_schedule(cfg: RNNTConfig) -> Callable[[int], float]:
@@ -84,17 +84,24 @@ def has_schedule(cfg: RNNTConfig) -> bool:
     return cfg.warmup_steps > 0 or cfg.lr_schedule != "constant"
 
 
+def _square_sum(ts: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of squares of every element, in fp32: each tensor's norm in
+    one multi-tensor reduction, then their squares summed."""
+    norms = torch._foreach_norm(ts, 2, dtype=torch.float32)
+    return torch.stack(norms).square().sum()
+
+
 def global_norm(grads: Dict[str, torch.Tensor], tp=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element of named tensors, in
     fp32.  Under `tp` the vocab-sharded ones (`VOCAB_SHARDED`) are this
     rank's columns: their squares are summed over the model group, the
     replicated tensors' counted once."""
     shd = mesh_mod.VOCAB_SHARDED if tp is not None else {}
-    sq = sum(g.float().square().sum() for n, g in grads.items()
-             if n not in shd)
-    part = [g.float().square().sum() for n, g in grads.items() if n in shd]
+    rep = [g for n, g in grads.items() if n not in shd]
+    sq = _square_sum(rep) if rep else 0
+    part = [g for n, g in grads.items() if n in shd]
     if part:
-        part = torch.stack(part).sum()
+        part = _square_sum(part)
         mesh_mod.all_reduce_(part, tp.group)
         sq = sq + part
     return torch.sqrt(sq)
@@ -159,25 +166,13 @@ class Optimizer:
                                 * cfg.grad_clip_norm)
                  for n, t in g.items()}
         if cfg.optimizer == "adam":
-            count = opt_state["count"] + 1
-            c1 = 1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** count
-            c2 = 1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** count
-            upd = {}
-            for n in names:
-                mu = (1 - ADAM_B1) * g[n] + ADAM_B1 * opt_state["mu"][n]
-                nu = (1 - ADAM_B2) * g[n].square() + ADAM_B2 * opt_state["nu"][n]
-                mu_hat = mu / c1.to(mu.dtype)
-                nu_hat = nu / c2.to(nu.dtype)
-                upd[n] = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-                opt_state["mu"][n] = mu.float()
-                opt_state["nu"][n] = nu.to(opt_state["nu"][n].dtype)
-            opt_state["count"] = count
-        else:
-            upd = {}
-            for n in names:
-                m = g[n] + cfg.momentum * opt_state["trace"][n]
-                opt_state["trace"][n] = m.to(opt_state["trace"][n].dtype)
-                upd[n] = opt_state["trace"][n]
+            self._adam_(model, g, opt_state)
+            return
+        upd = {}
+        for n in names:
+            m = g[n] + cfg.momentum * opt_state["trace"][n]
+            opt_state["trace"][n] = m.to(opt_state["trace"][n].dtype)
+            upd[n] = opt_state["trace"][n]
         if "sched_count" in opt_state:
             scale = -self.schedule(opt_state["sched_count"])
             opt_state["sched_count"] += 1
@@ -188,6 +183,38 @@ class Optimizer:
             u = torch.tensor(scale, dtype=u.dtype, device=u.device) * u
             p = params[n]
             p.copy_((p + u).to(p.dtype))
+
+
+    def _adam_(self, model: Transducer, g: Dict[str, torch.Tensor],
+               opt_state: Dict) -> None:
+        """The Adam branch of `apply_` over every leaf at once, in place:
+        mu (fp32) and nu (the parameter dtype) are updated where they lie
+        and each parameter takes lr mu_hat / (sqrt(nu_hat) + eps), computed
+        in fp32 and rounded once, through a few multi-tensor operations
+        (`torch._foreach_*`) in place of ~15 launches a leaf."""
+        params = dict(model.named_parameters())
+        names = list(g)
+        count = opt_state["count"] + 1
+        c1 = float(1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** count)
+        c2 = float(1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** count)
+        gs = [g[n] for n in names]
+        mu = [opt_state["mu"][n] for n in names]
+        nu = [opt_state["nu"][n] for n in names]
+        torch._foreach_mul_(mu, ADAM_B1)
+        torch._foreach_add_(mu, gs, alpha=1 - ADAM_B1)
+        torch._foreach_mul_(nu, ADAM_B2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1 - ADAM_B2)
+        den = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, ADAM_EPS)
+        opt_state["count"] = count
+        if "sched_count" in opt_state:
+            scale = -self.schedule(opt_state["sched_count"])
+            opt_state["sched_count"] += 1
+        else:
+            scale = -self.cfg.learning_rate
+        torch._foreach_addcdiv_([params[n] for n in names], mu, den,
+                                value=scale / c1)
 
 
 def create_train_state(cfg: RNNTConfig, dtype=None, device="cuda",

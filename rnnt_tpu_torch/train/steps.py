@@ -10,8 +10,9 @@ upper bound on the exact NLL that equals it when the band covers U+1; "ref"
 and "pallas" materialise the [B, T', U+1, V] logits and run the loss with
 the plain lattice or kernel K7.  A training batch given a generator gets
 the configured input noise, then SpecAugment (`ops.specaug`), on its own
-device, before any loss path.  The train step threads the BatchNorm running
-statistics back into the parameters after the update.
+device, before any loss path.  The train step threads every BatchNorm's
+running statistics back into the parameters of their names after the
+update.
 
 Across the ranks of a `parallel.mesh.Mesh` the loss is the one weighted
 mean over the global batch: each rank backpropagates its local numerator
@@ -48,10 +49,11 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
     """Forward and RNN-T loss of one batch (tensors on the model's device:
     mel_specs [B, T, F], pred_inp [B, U+1], labels [B, U], spec_lengths and
     label_lengths [B], optionally loss_weight [B]).  Returns
-    (loss, (per-example nll, BatchNorm (mean, var))).  With a `mesh` that
-    reduces, the batch is this rank's rows of the global batch and `loss`
-    is this rank's share of the global loss: its numerator over the
-    global denominator (the shares sum to the global loss).  `tp`: the
+    (loss, (per-example nll, BatchNorm statistics by parameter name)).
+    With a `mesh` that reduces, the batch is this rank's rows of the
+    global batch and `loss` is this rank's share of the global loss: its
+    numerator over the global denominator (the shares sum to the global
+    loss).  `tp`: the
     model's W2 and b2 are this vocabulary shard's (fused and banded only;
     the data group is reduced only with `mesh`)."""
     if loss_impl not in LOSS_IMPLS:
@@ -81,7 +83,7 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
     if loss_impl in ("fused", "banded"):
         encoded, pred_out, bn_stats = model.encode_predict(
             mel, batch["pred_inp"], training=training, generator=generator,
-            mesh=mesh)
+            mesh=mesh, lengths=batch["spec_lengths"])
         args = (model.joint, encoded, pred_out, batch["labels"], enc_lengths,
                 batch["label_lengths"])
         if loss_impl == "banded":
@@ -103,7 +105,8 @@ def batch_loss(model, cfg: RNNTConfig, batch: Dict[str, torch.Tensor], *,
 
         logits, bn_stats = model.apply(mel, batch["pred_inp"],
                                        training=training, generator=generator,
-                                       mesh=mesh)
+                                       mesh=mesh,
+                                       lengths=batch["spec_lengths"])
         nll = rnnt_loss(logits, batch["labels"], enc_lengths,
                         batch["label_lengths"], impl=loss_impl)
     if mesh is not None and mesh.reduces:
@@ -148,7 +151,7 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
         for n in names:
             params[n].grad = None
         with span("rnnt.train.forward"):
-            loss, (_, (mean, var)) = batch_loss(
+            loss, (_, bn_stats) = batch_loss(
                 model, cfg, batch, training=True, generator=generator,
                 loss_impl=loss_impl, mesh=mesh, tp=tp)
         with span("rnnt.train.backward"):
@@ -171,8 +174,8 @@ def make_train_step(cfg: RNNTConfig, *, loss_impl: str = "fused",
         with span("rnnt.train.update"):
             opt.apply_(model, grads, state.opt_state)
             with torch.no_grad():
-                model.encoder.bn.mean.copy_(mean)
-                model.encoder.bn.var.copy_(var)
+                for n, v in bn_stats.items():
+                    params[n].copy_(v)
             for n in names:
                 params[n].grad = None
         state.step += 1

@@ -153,7 +153,7 @@ def test_tp_npz_has_one_process_layout_and_jax_reads_it(cli_run, tmp_path):
             assert a[k].shape == b[k].shape, k
     from rnnt_tpu.config import RNNTConfig as JConfig
 
-    jcfg = JConfig(**{k: v for k, v in cfg.__dict__.items()})
+    jcfg = JConfig(**cfg.to_dict())
     js = j_restore(path, jcfg)
     assert int(js.step) == 4
     assert js.params["joint"]["w2"].shape == (cfg.joint_size, 32)
