@@ -378,6 +378,8 @@ def zero_launches() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_design"):
             fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+        if hasattr(fn, "launches_by_cluster"):
+            fn.launches_by_cluster = dict.fromkeys(fn.launches_by_cluster, 0)
     joint_loss_fused.backward_launches_by_design.update(
         dict.fromkeys(joint_loss_fused.BACKWARD_DESIGNS, 0))
 
@@ -399,6 +401,13 @@ def read_designs() -> dict:
                             "beam_search", "joint_planes", "lattice_scan")}
     designs["loss_bwd"] = dict(joint_loss_fused.backward_launches_by_design)
     return designs
+
+
+def read_clusters() -> dict:
+    """K5's cluster-design launches by cluster size."""
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    return dict(lstm_cuda.lstm_bwd.launches_by_cluster)
 
 
 def require_resident_k2(name, launches) -> None:
@@ -1000,6 +1009,7 @@ def drive_path(name, fn, expect):
     log(f"path {name}: {time.perf_counter() - t0:.1f} s, launches "
         f"{json.dumps(launches)}, by design {json.dumps(designs)}")
     launches.update({f"{k}_by_design": v for k, v in designs.items()})
+    launches["lstm_bwd_by_cluster"] = read_clusters()
     for k in expect:
         require(launches[k] > 0, f"path {name}: {k} never launched")
     return out, launches
@@ -1545,10 +1555,19 @@ def require_train_launches(name, launches, steps, eval_batches, pallas):
     mma = launches["lstm_fwd_by_design"]["mma"]
     require(mma == want["lstm_fwd"], f"path {name}: {mma} of "
             f"{want['lstm_fwd']} K4 launches ran the MMA design")
+    require_cluster_k5(name, launches, want["lstm_bwd"])
     require_wgmma_k6(name, launches["joint_planes_by_design"],
                      want["joint_planes"])
     require_warp_k7(name, launches["lattice_scan_by_design"],
                     want["lattice_scan"])
+
+
+def require_cluster_k5(name, launches, n) -> None:
+    """All n K5 launches of a bf16 path at the parity width ran the
+    cluster design (split-K phase B) on an H100."""
+    d = launches["lstm_bwd_by_design"]
+    require(d["cluster"] == n and sum(d.values()) == n,
+            f"path {name}: K5 launches by design {d}, want {n} cluster")
 
 
 def require_wgmma_k6(name, by_design, n) -> None:
@@ -1745,7 +1764,7 @@ def check_lstm_designs(H, P, device="cuda"):
     """Which design each LSTM training kernel runs, and that it agrees:
     (a) the parity width with the grid capped at CAP_BLOCKS (as on an H100
     PCIe) at B=32 and 96, T=65: bf16 K4 must run its MMA design (18 units
-    a block) and bf16 K5 its FMA design (its MMA plan holds 16); (b) the
+    a block) and bf16 K5 its FMA design (its cluster plan holds 16); (b) the
     WIDE shapes at one block per SM, B=32, T=64: bf16 K5 at H=3072 must run
     FMA (24 units a block), and bf16 K4 at H=4096 too (its Wh slice alone
     would be 266 KB); K4 at H=3072 runs what its plan picks.  fp32 runs
@@ -1780,6 +1799,75 @@ def check_lstm_designs(H, P, device="cuda"):
             require(all(d[k] == v for k, v in must.items()),
                     f"designs at H={Hw}, P={Pw}, {name}: {d}")
     log("LSTM training kernels' designs " + json.dumps(seen))
+    return seen
+
+
+# K5's bf16 cases at the parity width: (block cap, B, T) and the design
+# and cluster size each must run on an H100 SXM.  30 clusters of 4 blocks
+# are co-resident there, so c = 4 would leave 18 units a block on 120
+# blocks: c = 2 runs 132 (or the cap's 128); at 114 blocks every c leaves
+# 18 units a block, and the FMA design runs.
+K5_CASES = tuple((0, B, T, ("cluster", 2)) for T in (65, 256)
+                 for B in (8, 20, 32, 40, 96, 160)) + tuple(
+    (128, B, 65, ("cluster", 2)) for B in (32, 96, 160)) + tuple(
+    (114, B, 65, ("fma", 0)) for B in (32, 96)) + ((132, 32, 65,
+                                                    ("cluster", 2)),)
+# (H, P, B, T, design and c) at other widths: the Conformer cell's
+# prediction LSTM, H = P = 640, B=64, T = U+1 = 73 (c = 4 on 120 blocks)
+K5_WIDTHS = ((640, 640, 64, 73, ("cluster", 4)),)
+
+
+def check_k5_designs(H, P, device="cuda"):
+    """bf16 K5 at K5_CASES (the parity width) and K5_WIDTHS: each case
+    against the plain version (relative error <= 2e-2, inputs untouched),
+    running the design and cluster size it names (the launch counters and
+    `lstm_cuda.bwd_plan` agree), and two launches bitwise equal.  Returns
+    {case: plan}."""
+    import torch
+
+    from rnnt_tpu_torch.ops import lstm_cuda
+
+    bwd, dt = lstm_cuda.lstm_bwd, torch.bfloat16
+    rand = lstm_rand(device, 11)
+    seen = {}
+    cases = [(H, P, *c) for c in K5_CASES] + [(h, p, 0, *rest)
+                                              for h, p, *rest in K5_WIDTHS]
+    for h, p, cap, B, T, (design, c) in cases:
+        fwd = (rand((T, B, 4 * h), 4.0).to(dt), rand((p, 4 * h), 0.05).to(dt),
+               rand((h, p), 0.1).to(dt), rand((4 * h,), 1.0).to(dt),
+               rand((B, p), 0.5).to(dt), rand((B, h), 0.5))
+        _, z, cs, _ = lstm_cuda.lstm_fwd_plain(*fwd)
+        args = (z, cs, fwd[5], rand((T, B, p), 1.0).to(dt),
+                fwd[1].t().contiguous(), fwd[2].t().contiguous())
+        kept = [a.clone() for a in args]
+        name = f"H={h} P={p} B={B} T={T} cap={cap or 'none'}"
+        lstm_cuda.set_block_cap(cap)
+        try:
+            plan = lstm_cuda.bwd_plan(B, h, p)
+            before = (dict(bwd.launches_by_design),
+                      dict(bwd.launches_by_cluster))
+            got = [bwd(*args) for _ in range(2)]
+            torch.cuda.synchronize()
+        finally:
+            lstm_cuda.set_block_cap(0)
+        ran = {d: n - before[0][d] for d, n in bwd.launches_by_design.items()}
+        by_c = {k: n - before[1][k] for k, n in bwd.launches_by_cluster.items()}
+        require(ran[design] == 2 and sum(ran.values()) == 2
+                and plan["design"] == design and plan["c"] == c
+                and by_c == {k: 2 if k == c else 0 for k in by_c},
+                f"K5 {name}: ran {ran}, clusters {by_c}, plan {plan}; want "
+                f"{design} c={c}")
+        require(all(torch.equal(a, b) for a, b in zip(args, kept)),
+                f"K5 {name} wrote into its inputs")
+        require(all(torch.equal(a, b) for a, b in zip(*got)),
+                f"K5 {name}: two launches differ")
+        want = lstm_cuda.lstm_bwd_plain(*args)
+        err = max(rel_err(a, b) for a, b in zip(got[0], want))
+        require(err <= 2e-2, f"K5 {name} disagrees: {err}")
+        seen[name] = dict(plan, rel_err=err)
+        log(f"K5 {name}: {design} c={c} on {plan['blocks']} blocks, "
+            f"{plan['smem_bytes']} B shared, rel err {err:.3e}, repeat "
+            "bitwise equal")
     return seen
 
 
@@ -2735,7 +2823,7 @@ def check_prep_and_specaug(paths, cfg, seed, smi, device="cuda"):
     trace = os.path.join(prof_dir, "run_rnnt_train.pt.trace.json")
     with open(trace) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    for sym in ("lstm_fwd_mma_kernel", "lstm_bwd_kernel_mma",
+    for sym in ("lstm_fwd_mma_kernel", "lstm_bwd_kernel_cluster",
                 "plane_kernel_wgmma"):
         require(any(sym in n for n in names), f"the trace names no {sym}")
     with open(os.path.join(run_dir, "tb", "metrics.jsonl")) as f:
@@ -2886,6 +2974,7 @@ def drive_bench_entry_points(paths, cfg, seed):
     for k in ("lstm_fwd", "lstm_bwd"):
         require(launches[k] == 10 * steps, f"path bench_train: {k} launched "
                 f"{launches[k]} times, want {10 * steps}")
+    require_cluster_k5("bench_train", launches, 10 * steps)
     require_wgmma_k6("bench_train", launches["joint_planes_by_design"],
                      launches["joint_planes"])
     require_warp_k7("bench_train", launches["lattice_scan_by_design"],
@@ -4795,11 +4884,13 @@ def main(argv=None) -> int:
             k45 = check_lstm_train(cfg.encoder_size, cfg.projection_size)
             designs = check_lstm_designs(cfg.encoder_size,
                                          cfg.projection_size)
+            k5_cases = check_k5_designs(cfg.encoder_size, cfg.projection_size)
             for k in k45:
                 k["designs_by_case"] = {case: d[k["name"]]
                                         for case, d in designs.items()
                                         if k["name"] in d}
             found["k4"], found["k5"] = k45
+            found["k5"]["cluster_cases"] = k5_cases
             k6, planes32 = check_planes(cfg)
             found["k8"], found["k9"] = check_loss_backward(cfg)
             t_banded = time.perf_counter()
@@ -4852,6 +4943,10 @@ def main(argv=None) -> int:
                     designs[d] = designs.get(d, 0) + n
             if designs:
                 k["launches_by_design"] = designs
+            if name == "lstm_bwd":
+                k["launches_by_cluster"] = {
+                    c: sum(counts.get("lstm_bwd_by_cluster", {}).get(c, 0)
+                           for counts in paths.values()) for c in (1, 2, 4)}
             log(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']}, "
                 f"bound {k['bound_ms']:.5f} by {k['bound_by']}, library "
                 f"{k['library_ms']}), launches {k['launches_by_path']}")

@@ -28,10 +28,14 @@ defaults to B=1 at T=512, 2 and 1, and B=32 at T=256).  A source may
 carry macro definitions, `new.cu:LAT_MAX_B=0` (built with
 `-DLAT_MAX_B=0`: the change without K2's LAT design), so one file can
 stand for several builds.  A build that exports `lstm_last_design()`
-reports the design it ran ("lat", "mma" or "fma"); one that exports `int
-k2_phases(unsigned long long* out, int reset)`, `k4_phases` or `k5_phases`
-(block-0 clock64 timers: for K2, `new.cu:LSTM_PHASE_TIMERS=1`; for K4 and
-K5, an edited copy) also reports its cycles a step by phase.  Prints one
+reports the design it ran ("lat", "mma", "fma" or, for K5, "cluster" with
+its cluster size); one that exports `int k2_phases(unsigned long long*
+out, int reset)`, `k4_phases` or `k5_phases` (block-0 clock64 timers: for
+K2 and K5's cluster design, `new.cu:LSTM_PHASE_TIMERS=1`; for K4, an
+edited copy) also reports its cycles a step by phase, under the names its
+`k5_phase_names()` gives where it exports one.  A K5 build that exports
+`lstm_bwd_plan` gets the dz scratch its plan asks for, and its bytes as
+the entry's last argument.  Prints one
 JSON line a shape, then the card's name and power limit.  The scratch
 buffers fit every exchange layout (the fp32 one of the FMA design, the
 padded bf16 one of the MMA design, K2's tagged words), so builds of any
@@ -103,7 +107,7 @@ ENTRY = {"infer": ("lstm_infer_bf16", 10, "k2_phases", K2_PHASES),
          "planes": (None, 0, "planes_phases", (
              "build", "w2_wait", "products", "logits_out", "fold",
              "barrier"))}
-DESIGNS = ("fma", "mma", "lat")
+DESIGNS = ("fma", "mma", "lat", "cluster")
 PLANES_J, PLANES_V = 640, 4096  # the parity joint
 INFER_SHAPES = ((1, 512), (1, 2), (1, 1), (32, 256))
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock
@@ -148,8 +152,30 @@ def _build_all(sources, kernel, ptxas=False):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (
             3 if kernel == "lattice" else 4) + [ctypes.c_void_p]
-        libs[src] = (lib, fn)
+        libs[src] = (lib, _BwdEntry(lib, fn) if kernel == "bwd" else fn)
     return libs
+
+
+class _BwdEntry:
+    """A K5 build's entry and the bytes of dz scratch its plan needs: what
+    `lstm_bwd_plan` says where the build exports it (such a build takes the
+    bytes after the stream), else the exchange's 4 bytes a padded value."""
+
+    def __init__(self, lib, fn):
+        self.fn = fn
+        self.plan = getattr(lib, "lstm_bwd_plan", None)
+        if self.plan is not None:
+            self.plan.restype = ctypes.c_int
+            self.plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = fn.argtypes + [ctypes.c_size_t]
+
+    def scratch_bytes(self, B):
+        if self.plan is None:
+            return 4 * B * _round16(4 * H)
+        out = (ctypes.c_longlong * 8)()
+        if self.plan(B, H, P, out) != 0:
+            raise RuntimeError("lstm_bwd_plan failed")
+        return out[5]
 
 
 def _launch_fwd(fn, args):
@@ -199,20 +225,24 @@ def _launch_infer(fn, args):
     return h_seq, c_fin
 
 
-def _launch_bwd(fn, args):
+def _launch_bwd(entry, args):
     z, c, c0, dout, whT, wpT = args
     T, B, H4 = z.shape
     dev, dt = z.device, whT.dtype
-    # 4 bytes a padded value: room for fp32 [B, P] and bf16 [B, ldp] alike
+    # 4 bytes a padded value: room for fp32 [B, P] and bf16 [B, ldp] alike;
+    # dz scratch as the build's plan asks
     dhtot = torch.empty((B * _round16(P),), dtype=torch.float32, device=dev)
-    dzbuf = torch.empty((B * _round16(H4),), dtype=torch.float32, device=dev)
+    dzbuf = torch.empty((-(-entry.scratch_bytes(B) // 4),),
+                        dtype=torch.float32, device=dev)
     outs = (torch.empty((T, B, H4), dtype=dt, device=dev),
             torch.empty((T, B, P), dtype=dt, device=dev),
             torch.empty((B, P), dtype=torch.float32, device=dev),
             torch.empty((B, H), dtype=torch.float32, device=dev))
     bar = torch.empty((1,), dtype=torch.int32, device=dev)
-    err = fn(*(a.data_ptr() for a in (*args, dhtot, dzbuf, *outs, bar)),
-             T, B, H, P, torch.cuda.current_stream(dev).cuda_stream)
+    err = entry.fn(*(a.data_ptr() for a in (*args, dhtot, dzbuf, *outs,
+                                            bar)),
+                   T, B, H, P, torch.cuda.current_stream(dev).cuda_stream,
+                   *([dzbuf.numel() * 4] if entry.plan is not None else []))
     if err != 0:
         raise RuntimeError(f"K5 launch failed with {err}")
     return outs
@@ -503,6 +533,8 @@ def main(argv=None) -> int:
             rel[s] = check(launch(fn, args))
             if hasattr(lib, "lstm_last_design"):
                 design[s] = DESIGNS[lib.lstm_last_design()]
+                if design[s] == "cluster":  # with its cluster size
+                    design[s] += str(lib.lstm_last_cluster())
             if hasattr(lib, "planes_last_design"):
                 design[s] = planes_cuda.DESIGNS[lib.planes_last_design()]
             if hasattr(lib, "lattice_last_design"):
@@ -533,7 +565,13 @@ def main(argv=None) -> int:
                 launch(fn, args)
                 torch.cuda.synchronize()
                 getattr(lib, phases_fn)(buf, 0)
-                phases[s] = {n: buf[i] / T for i, n in enumerate(names)}
+                own = getattr(lib, f"{phases_fn[:2]}_phase_names", None)
+                if own is not None:  # the build names its own phases
+                    own.restype = ctypes.c_char_p
+                    names_s = own().decode().split(",")
+                else:
+                    names_s = names
+                phases[s] = {n: buf[i] / T for i, n in enumerate(names_s)}
         shape = ({"U+1": a.labels, "dtype": "float32"} if a.kernel == "lattice"
                  else {"U+1": a.labels, "J": PLANES_J, "V": PLANES_V,
                        "dtype": "bfloat16"} if a.kernel == "planes"

@@ -14,25 +14,34 @@ Each launch runs a whole sequence: one persistent cooperative launch, one
 block per SM (at most H; fewer with `set_block_cap`), two grid-wide
 exchanges a step.  The steps are a sequential chain, so what sets the pace
 is the latency of a step: its products, its grid-wide exchange (h and hid
-in the forward, dh_total and dz in the backward), and the barriers.  Three
+in the forward, dh_total and dz in the backward), and the barriers.  Four
 designs fill that structure, and the launcher picks one from the shape's
 shared-memory plan before it launches, never after a failed launch:
 
+- CLUSTER (bf16 K5 where it fits; `bwd_plan` says what it picks): each
+  block keeps its weight slices in shared memory for the whole launch and
+  runs both step products on the tensor cores, as MMA does; the blocks
+  form thread-block clusters of c = 4, 2 or 1, phase B multiplies only
+  the dz columns of the block's own cluster, gathered from the cluster's
+  shared memory, and the clusters' fp32 partial sums of dh meet in a
+  global buffer that each block reduces for its own P columns in a fixed
+  order.  c is the largest whose co-resident clusters cover a grid of at
+  most 16 units a block: on an H100, 2 on 132 blocks at the parity width
+  and 4 on 120 at H = P = 640.  `lstm_bwd.launches_by_cluster` counts its
+  launches by c.
 - LAT (bf16 K2 at B <= 8, the serving batch, where its plan fits): the
   weight slices resident as in MMA, K of both products split over all 16
   warps with the batch rows as the MMA's N, and an exchange of tagged
   words (value and step tag in one 32-bit store) polled straight into the
   MMA fragments: no grid barrier.  The parity width fits on 114 to 132
   SMs; H=3072, P=768 does not (FMA).
-- MMA (bf16 K4 and K5, and bf16 K2 above LAT's batch, where the plan
-  fits): each block keeps its weight
-  slices in shared memory for the whole launch, runs both step products on
-  the tensor cores (mma.sync m16n8k16, fp32 accumulation, batch rows as M
-  in passes of up to 64) and streams the bf16 exchange through a cp.async
-  ring.  At the parity width on 132 SMs K4 holds 84 KB + 21 KB of weights,
-  K5 82 KB + 21 KB.  K4's plan takes any number of units a block within the
-  shared memory (so also 114 SMs at the parity width); K5's takes at most
-  16 units and 8 P columns a block (128 SMs or more at the parity width).
+- MMA (bf16 K4, and bf16 K2 above LAT's batch, where the plan fits): each
+  block keeps its weight slices in shared memory for the whole launch,
+  runs both step products on the tensor cores (mma.sync m16n8k16, fp32
+  accumulation, batch rows as M in passes of up to 64) and streams the
+  bf16 exchange through a cp.async ring.  At the parity width on 132 SMs
+  K4 holds 84 KB + 21 KB of weights.  K4's plan takes any number of units
+  a block within the shared memory (so also 114 SMs at the parity width).
 - FMA (fp32 K2, K4 and K5; bf16 outside the plans, e.g. H=3072, P=768):
   block_dots on the FMA units, the weights re-read from L2 every pass of 4
   batch rows (8 in bf16), an fp32 exchange.  fp32 stays here: TF32 tensor
@@ -42,7 +51,10 @@ shared-memory plan before it launches, never after a failed launch:
 `lstm_bwd.launches_by_design` count the launches of each design beside
 `launches`.  The scratch buffers hold 4 bytes a padded value (rows padded
 to a multiple of 16), which fits every design's exchange; K2's hid scratch
-also holds the h words of LAT's exchange, which the launcher zeroes.
+also holds the h words of LAT's exchange, which the launcher zeroes.  K5's
+dz scratch is as large as the library's plan says (fp32 dz [B, 4H] for
+FMA, the partial sums for CLUSTER), asked once a device, block cap and
+shape; the launcher refuses a buffer smaller than that.
 
 Inputs follow the TPU kernels: xp [T, B, 4H] in the weight dtype, Wh
 [P, 4H], Wp [H, P], bias [4H], h0 [B, P], c0 [B, H] (fp32).  On a CPU
@@ -155,14 +167,22 @@ def _lib(entry):
     n_ptr = {"lstm_infer": 10, "lstm_fwd": 12, "lstm_bwd": 13}[
         entry.rsplit("_", 1)[0]]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p] + ([ctypes.c_size_t] if entry.startswith(
+            "lstm_bwd") else [])
     lib.lstm_last_design.restype = ctypes.c_int
     lib.lstm_last_design.argtypes = []
+    if entry.startswith("lstm_bwd"):
+        lib.lstm_bwd_plan.restype = ctypes.c_int
+        lib.lstm_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lstm_last_cluster.restype = ctypes.c_int
+        lib.lstm_last_cluster.argtypes = []
     return lib, fn
 
 
-_DESIGNS = ("fma", "mma", "lat")  # lstm_last_design(): 0, 1, 2
+_DESIGNS = ("fma", "mma", "lat", "cluster")  # lstm_last_design(): 0..3
 _LIBS = ("lstm_infer", "lstm_bwd")
+_block_cap = 0  # set_block_cap's last cap
+_bwd_scratch = {}  # (device, cap, B, H, P): bf16 K5's dz scratch bytes
 
 
 def set_block_cap(cap: int) -> None:
@@ -171,17 +191,41 @@ def set_block_cap(cap: int) -> None:
     kernels as a card with fewer SMs would (e.g. 114 on an H100 PCIe)."""
     from rnnt_tpu_torch.kernels import build
 
+    global _block_cap
     for name in _LIBS:
         fn = build.load(name).lstm_set_block_cap
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int]
         fn(int(cap))
+    _block_cap = max(int(cap), 0)
 
 
 def _count(wrapper, lib):
-    """One launch of `wrapper`, under the design its launcher picked."""
+    """One launch of `wrapper`, under the design its launcher picked (and,
+    for K5's cluster design, under its cluster size)."""
     wrapper.launches += 1
-    wrapper.launches_by_design[_DESIGNS[lib.lstm_last_design()]] += 1
+    design = _DESIGNS[lib.lstm_last_design()]
+    wrapper.launches_by_design[design] += 1
+    if design == "cluster":
+        wrapper.launches_by_cluster[lib.lstm_last_cluster()] += 1
+
+
+def bwd_plan(B: int, H: int, P: int, device=None) -> dict:
+    """The plan of a bf16 K5 launch at (B, H, P) on a card (its current
+    block cap included): design, cluster size c (0 outside the cluster
+    design), blocks, ring chunk scale kq, shared memory a block, the bytes
+    of the scratch buffer the design needs, and the co-resident clusters the
+    launcher found at c = 4 and c = 2 (-1 where it did not ask)."""
+    from rnnt_tpu_torch.kernels import build
+
+    lib, _ = _lib("lstm_bwd_bf16")
+    out = (ctypes.c_longlong * 8)()
+    with torch.cuda.device(device):
+        err = lib.lstm_bwd_plan(B, H, P, out)
+    build.check(lib, err, "lstm_bwd_plan")
+    return {"design": _DESIGNS[out[0]], "c": out[1], "blocks": out[2],
+            "kq": out[3], "smem_bytes": out[4], "scratch_bytes": out[5],
+            "clusters_c4": out[6], "clusters_c2": out[7]}
 
 
 def _round16(n):
@@ -282,10 +326,16 @@ def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
                                      dout.to(dt), whT, wpT.to(dt))]
     if any(a.device != dev for a in args):
         raise ValueError("all LSTM inputs must be on one device")
-    # 4 bytes a padded value: fp32 [B, P] and [B, 4H] (FMA) or bf16 rows
-    # padded to 16 (MMA), whichever design the launcher picks
+    # dh_total: 4 bytes a padded value, fp32 [B, P] (FMA) or bf16 rows
+    # padded to 16; dzbuf: fp32 dz [B, 4H] (FMA), or as bf16 K5's plan says
     dhtot = torch.empty((B * _round16(P),), dtype=torch.float32, device=dev)
-    dzbuf = torch.empty((B * _round16(H4),), dtype=torch.float32, device=dev)
+    scratch = 4 * B * H4
+    if dt == torch.bfloat16:
+        key = (dev.index, _block_cap, B, H, P)
+        if key not in _bwd_scratch:
+            _bwd_scratch[key] = bwd_plan(B, H, P, dev)["scratch_bytes"]
+        scratch = _bwd_scratch[key]
+    dzbuf = torch.empty((-(-scratch // 4),), dtype=torch.float32, device=dev)
     dz_seq = torch.empty((T, B, H4), dtype=dt, device=dev)
     dht_seq = torch.empty((T, B, P), dtype=dt, device=dev)
     dh0 = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -296,14 +346,16 @@ def lstm_bwd(z_seq, c_seq, c0, dout, whT, wpT):
     with torch.cuda.device(dev):
         err = fn(*(a.data_ptr() for a in (*args, dhtot, dzbuf, dz_seq,
                                           dht_seq, dh0, dc0, bar)),
-                 T, B, H, P, torch.cuda.current_stream(dev).cuda_stream)
+                 T, B, H, P, torch.cuda.current_stream(dev).cuda_stream,
+                 dzbuf.numel() * 4)
     build.check(lib, err, entry)
     _count(lstm_bwd, lib)
     return dz_seq, dht_seq, dh0, dc0
 
 
 lstm_bwd.launches = 0
-lstm_bwd.launches_by_design = {"mma": 0, "fma": 0}
+lstm_bwd.launches_by_design = {"cluster": 0, "fma": 0}
+lstm_bwd.launches_by_cluster = {1: 0, 2: 0, 4: 0}
 
 
 class _LSTMSeq(torch.autograd.Function):
