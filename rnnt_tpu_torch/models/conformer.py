@@ -44,7 +44,7 @@ Each module runs in `trace.module_span`: `rnnt.conformer.subsample`,
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -364,12 +364,30 @@ class ConformerEncoder(nn.Module):
             out[f"encoder.blocks.{i}.conv.bn.var"] = b.conv.bn.var
         return out
 
-    def forward(self, mel: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None, *,
-                training: bool = False, generator=None, mesh=None
-                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    def encode(self, mel: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None, state=None):
         """mel [B, T, F] and lengths [B] (None: every frame) -> (encoded
-        [B, T', D], in training the updated BatchNorm running statistics
+        [B, T', D], None): no state is carried, and one given is refused."""
+        if state is not None:
+            from rnnt_tpu_torch.models.encoder import require_lstm_encoder
+
+            require_lstm_encoder(self.cfg, "encoding from a carried state")
+        return self._forward(mel, lengths, False, None, None)[0], None
+
+    def encode_train(self, mel: torch.Tensor,
+                     lengths: Optional[torch.Tensor] = None, generator=None,
+                     mesh=None):
+        """(encoded, the updated BatchNorm running statistics by name)."""
+        return self._forward(mel, lengths, True, generator, mesh)
+
+    @staticmethod
+    def encoded_length(cfg: RNNTConfig,
+                       spec_lengths: torch.Tensor) -> torch.Tensor:
+        """Valid encoder frames: the subsampling's by 4."""
+        return subsampled_length(spec_lengths)
+
+    def _forward(self, mel, lengths, training, generator, mesh):
+        """(encoded, in training the updated BatchNorm running statistics
         by name, else None)."""
         B, T, _ = mel.shape
         if lengths is None:

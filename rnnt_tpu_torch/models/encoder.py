@@ -6,11 +6,15 @@ The port of `rnnt_tpu.models.encoder`.  The per-layer LSTM state is carried
 in and out, as the JAX encoder threads it.  In training the BatchNorm uses
 the batch statistics and returns the updated running ones, and dropout
 draws from the caller's generator.
+
+`ENCODERS` maps the config's encoder type to the encoder class: this LSTM
+encoder or `models.conformer.ConformerEncoder`, which keep one contract, so
+`models.transducer.Transducer` and the train step never ask which it is.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ from torch import nn
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models import lstm as L
+from rnnt_tpu_torch.models.conformer import ConformerEncoder
 
 State = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -65,17 +70,35 @@ class Encoder(nn.Module):
     def zero_state(self, batch: int, dtype=None) -> State:
         return [layer.lstm.zero_state(batch, dtype) for layer in self.layers]
 
-    def forward(self, mel: torch.Tensor, state: Optional[State] = None):
+    def encode(self, mel: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None,
+               state: Optional[State] = None):
         """mel [B, T, feat] -> (encoded [B, T', P], new_state), with
-        T' = ceil(T / time_reduction_factor)."""
+        T' = ceil(T / time_reduction_factor); reads no `lengths`."""
         return self._layers(self.bn(mel), state, False, None)
 
-    def forward_train(self, mel: torch.Tensor, generator=None, mesh=None):
-        """The training forward from a zero state: (encoded, (new BatchNorm
-        mean, var)); with a data-parallel `mesh` the BatchNorm statistics
-        are the global batch's."""
-        x, bn_stats = self.bn.forward_train(mel, mesh)
-        return self._layers(x, None, True, generator)[0], bn_stats
+    def encode_train(self, mel: torch.Tensor,
+                     lengths: Optional[torch.Tensor] = None, generator=None,
+                     mesh=None):
+        """The training forward from a zero state: (encoded, the updated
+        BatchNorm running statistics by parameter name); with a
+        data-parallel `mesh` the statistics are the global batch's."""
+        x, (mean, var) = self.bn.forward_train(mel, mesh)
+        return (self._layers(x, None, True, generator)[0],
+                {"encoder.bn.mean": mean, "encoder.bn.var": var})
+
+    def running_stats(self) -> Dict[str, torch.Tensor]:
+        """The BatchNorm running statistics, by parameter name."""
+        return {"encoder.bn.mean": self.bn.mean, "encoder.bn.var": self.bn.var}
+
+    @staticmethod
+    def encoded_length(cfg: RNNTConfig,
+                       spec_lengths: torch.Tensor) -> torch.Tensor:
+        """Valid encoder frames for given input frame counts; a negative
+        time_reduction_index disables the reduction."""
+        if cfg.time_reduction_index < 0:
+            return spec_lengths
+        return L.reduced_length(spec_lengths, cfg.time_reduction_factor)
 
     def _layers(self, x, state, training, generator):
         new_state = []
@@ -100,14 +123,19 @@ def require_lstm_encoder(cfg: RNNTConfig, what: str) -> None:
             "Conformer is a full-context encoder")
 
 
-def encoded_length(cfg: RNNTConfig, spec_lengths: torch.Tensor) -> torch.Tensor:
-    """Valid encoder frames for given input frame counts; a negative
-    time_reduction_index disables the reduction; a Conformer subsamples
-    by 4."""
-    if cfg.encoder_type == "conformer":
-        from rnnt_tpu_torch.models.conformer import subsampled_length
+# The encoder classes' one contract: encode(mel, lengths, state) ->
+# (encoded, new_state or None); encode_train(mel, lengths, generator, mesh)
+# -> (encoded, BatchNorm statistics by name); running_stats();
+# encoded_length(cfg, spec_lengths); reset_(rng).
+ENCODERS = {"lstm": Encoder, "conformer": ConformerEncoder}
 
-        return subsampled_length(spec_lengths)
-    if cfg.time_reduction_index < 0:
-        return spec_lengths
-    return L.reduced_length(spec_lengths, cfg.time_reduction_factor)
+
+def encoder_class(cfg: RNNTConfig):
+    """The encoder class of `cfg.encoder_type` (`ENCODERS`)."""
+    return ENCODERS[cfg.encoder_type]
+
+
+def encoded_length(cfg: RNNTConfig, spec_lengths: torch.Tensor) -> torch.Tensor:
+    """Valid encoder frames for given input frame counts (the encoder
+    class's rule)."""
+    return encoder_class(cfg).encoded_length(cfg, spec_lengths)

@@ -7,10 +7,14 @@ other by name.  `load_params_` also takes the mixed trees of int8 execution
 (`ops.quantize.int8_exec_params`), whose int8 weights replace the
 parameters of their names as `ops.int8_exec.QuantWeight` modules.
 
-`cfg.encoder_type` "conformer" puts `models.conformer.ConformerEncoder` in
-the LSTM encoder's place (names `encoder.subsample.*`, `encoder.blocks.*`)
-and gives the joint a prediction-side `w1p`; it takes each utterance's
-length, holds a BatchNorm in every block, and carries no streaming state.
+The encoder is the class `models.encoder.ENCODERS` holds for the config's
+encoder type, reached only through the encoders' shared contract
+(`encode`, `encode_train`, `running_stats`, `encoded_length`): the LSTM
+encoder (`encoder.bn.*`, `encoder.layers.*`) or
+`models.conformer.ConformerEncoder` (`encoder.subsample.*`,
+`encoder.blocks.*`; the joint then has a prediction-side `w1p`), which
+reads each utterance's length, holds a BatchNorm in every block and
+carries no streaming state.
 """
 
 from __future__ import annotations
@@ -23,8 +27,7 @@ from torch import nn
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models import joint as joint_mod
-from rnnt_tpu_torch.models.conformer import ConformerEncoder
-from rnnt_tpu_torch.models.encoder import (Encoder, State, encoded_length,
+from rnnt_tpu_torch.models.encoder import (State, encoder_class,
                                            require_lstm_encoder)
 from rnnt_tpu_torch.models.prediction import Prediction
 from rnnt_tpu_torch.ops.int8_exec import is_quant
@@ -41,8 +44,7 @@ class Transducer(nn.Module):
     def __init__(self, cfg: RNNTConfig):
         super().__init__()
         self.cfg = cfg
-        self.encoder = (ConformerEncoder(cfg)
-                        if cfg.encoder_type == "conformer" else Encoder(cfg))
+        self.encoder = encoder_class(cfg)(cfg)
         self.prediction = Prediction(cfg)
         self.joint = joint_mod.Joint(cfg)
 
@@ -112,11 +114,10 @@ class Transducer(nn.Module):
 
     @property
     def dtype_param(self) -> torch.Tensor:
-        """An encoder weight (int8 weights live only in the prediction net
-        and the joint)."""
-        if self.cfg.encoder_type == "conformer":
-            return self.encoder.subsample.conv2_w
-        return self.encoder.layers[0].lstm.wh
+        """The encoder's first parameter in the parameter dtype (int8
+        weights live only in the prediction net and the joint)."""
+        return next(p for n, p in self.encoder.named_parameters("encoder")
+                    if not fp32_leaf(n))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -125,10 +126,7 @@ class Transducer(nn.Module):
 
     def running_stats(self):
         """The BatchNorm running statistics, by parameter name."""
-        if self.cfg.encoder_type == "conformer":
-            return self.encoder.running_stats()
-        return {"encoder.bn.mean": self.encoder.bn.mean,
-                "encoder.bn.var": self.encoder.bn.var}
+        return self.encoder.running_stats()
 
     def encode_predict(self, mel: torch.Tensor, pred_inp: torch.Tensor, *,
                        training: bool = False, generator=None, mesh=None,
@@ -139,18 +137,11 @@ class Transducer(nn.Module):
         global batch across a data-parallel `mesh`); otherwise the current
         ones.  `lengths` [B]: the valid input frames (the Conformer masks
         the rest; the LSTM encoder reads none)."""
-        if self.cfg.encoder_type == "conformer":
-            encoded, bn_stats = self.encoder(
-                mel, lengths, training=training, generator=generator,
-                mesh=mesh)
-            if not training:
-                bn_stats = self.running_stats()
-        elif training:
-            encoded, (mean, var) = self.encoder.forward_train(mel, generator,
-                                                              mesh)
-            bn_stats = {"encoder.bn.mean": mean, "encoder.bn.var": var}
+        if training:
+            encoded, bn_stats = self.encoder.encode_train(mel, lengths,
+                                                          generator, mesh)
         else:
-            encoded, _ = self.encoder(mel)
+            encoded, _ = self.encoder.encode(mel, lengths)
             bn_stats = self.running_stats()
         pred_out, _ = self.prediction(pred_inp, training=training,
                                       generator=generator)
@@ -170,11 +161,7 @@ class Transducer(nn.Module):
         """mel [B, T, feat] -> (encoded [B, T', P], new_state); a Conformer
         takes the valid frames' `lengths` (None: all) and no state, and
         returns None for it."""
-        if self.cfg.encoder_type == "conformer":
-            if state is not None:
-                require_lstm_encoder(self.cfg, "encoding from a carried state")
-            return self.encoder(mel, lengths)
-        return self.encoder(mel, state)
+        return self.encoder.encode(mel, lengths, state)
 
     def predict_step(self, tokens: torch.Tensor, state: State):
         """One prediction-net step: tokens [B] -> (out [B, P], new_state)."""
@@ -193,4 +180,4 @@ class Transducer(nn.Module):
         return joint_mod.joint_step(self.joint, enc_t, pred_u)
 
     def encoded_length(self, spec_lengths: torch.Tensor) -> torch.Tensor:
-        return encoded_length(self.cfg, spec_lengths)
+        return self.encoder.encoded_length(self.cfg, spec_lengths)

@@ -19,12 +19,12 @@ whose every path is pruned (its U_b / T_b slope too steep for the band)
 reports a loss of 1e9 and a zero gradient.
 
 The backward follows the JAX `_bwd`: occupancies from alpha and beta,
-gathered to the band, then per chunk of at most _BWD_CHUNK batch rows a
-recompute of the tanh tile, the logits and dlogits at the band's cells and
-the dh, dW2, df, dg, db1, db2 products with `torch.matmul` (the JAX
-package leaves them to XLA outside any kernel).  The band's gradient for
-g is summed into its label rows from dpre rounded to the weight dtype, as
-the JAX one-hot product does.
+gathered to the band, then the fused loss's plain chain over the band's
+cells (`joint_loss_fused.chunked_grads`: per batch chunk a recompute of the
+tanh tile, the logits and dlogits and the dh, dW2, df, db1, db2 products;
+the JAX package leaves them to XLA outside any kernel).  The band's
+gradient for g is summed into its label rows from dpre rounded to the
+weight dtype, as the JAX one-hot product does.
 
 Vocab tensor parallelism (`tp`) is the fused loss's: the band rows' labels
 shifted into the shard's columns, K6 over the local columns, the planes
@@ -38,17 +38,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
-from rnnt_tpu_torch.models.joint import pred_weight
 from rnnt_tpu_torch.ops import lattice_cuda, planes_cuda
-from rnnt_tpu_torch.ops.joint_loss_fused import (combine_planes, dlogits_,
-                                                 shift_labels)
-from rnnt_tpu_torch.ops.matmul import matmul_f32, mm_f32
+from rnnt_tpu_torch.ops.joint_loss_fused import (chunked_grads,
+                                                 combine_planes, grads_out,
+                                                 project, shift_labels)
 from rnnt_tpu_torch.ops.rnnt_loss_ref import NEG, occupancies, pad_labels
-from rnnt_tpu_torch.parallel import mesh as mesh_mod
 from rnnt_tpu_torch.trace import spanned
 
 _T_TILE = 8     # frames a band window covers (a plane-kernel row's T)
-_BWD_CHUNK = 8  # batch rows whose [chunk, T, W, V] tensors coexist
 PRUNED_LOSS = 1e9  # the loss of an utterance with every path pruned
 
 
@@ -138,30 +135,6 @@ def banded_planes(f, g, b1, w2, b2, labels, label_lengths, u0, band,
             _scatter_band(e_band, u0_full, U1), u0_full)
 
 
-def _chunk_grads(fc, gbc, b1, w2, b2, occ, gbl, gem, den, ybc, u0c, U1,
-                 blank_own):
-    """One batch chunk's (df, dg, db1, dW2, db2) from the band's recomputed
-    logits (the JAX `chunk_bwd`); df in fp32."""
-    c, T, W, J = gbc.shape
-    V = w2.shape[1]
-    pre = fc.float()[:, :, None, :] + gbc.float() + b1.float()
-    h = torch.tanh(pre)                                       # [c, T, W, J]
-    hb = h.to(w2.dtype)
-    logits = matmul_f32(hb, w2) + b2.float()
-    dlogits = dlogits_(logits, den, occ, gbl, gem, ybc, blank_own)
-    dlb = dlogits.to(w2.dtype)
-    dl2 = dlb.reshape(-1, V)
-    dh = mm_f32(dl2, w2.t()).reshape(h.shape)
-    dw2 = mm_f32(hb.reshape(-1, J).t(), dl2)
-    db2 = dlogits.sum((0, 1, 2))
-    dpre = dh * (1.0 - h * h)
-    # band -> label rows: dg[b, u] = sum over (t, w) with u0[b, t] + w = u
-    dg = torch.zeros((c, U1, J), dtype=torch.float32, device=fc.device)
-    idx = _band_index(u0c, W).reshape(c, T * W, 1).expand(c, T * W, J)
-    dg.scatter_add_(1, idx, dpre.to(w2.dtype).float().reshape(c, T * W, J))
-    return dpre.sum(2), dg, dpre.sum((0, 1, 2)), dw2, db2
-
-
 class _BandedLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, band, tp, f, g, b1, w2, b2, labels, logit_lengths,
@@ -186,8 +159,7 @@ class _BandedLoss(torch.autograd.Function):
     def backward(ctx, ct):
         (f, g, b1, w2, b2, denom, b, e, alpha, beta, ll, u0_full, labels,
          logit_lengths, label_lengths) = ctx.saved_tensors
-        B, T, _ = f.shape
-        U1, W = g.shape[1], denom.shape[-1]
+        T, (U1, J), W = f.shape[1], g.shape[1:], denom.shape[-1]
         alive = (ll > -PRUNED_LOSS / 2)[:, None, None]
         zero = torch.zeros((), device=f.device)
         idx = _band_index(u0_full, W)                            # [B, T, W]
@@ -197,28 +169,22 @@ class _BandedLoss(torch.autograd.Function):
                                  label_lengths, ct))
         tp = ctx.tp
         y_b = _gather_rows(shift_labels(pad_labels(labels), w2, tp), idx)
-        g_b = _gather_rows(g, idx)                            # [B, T, W, J]
-        chunk = next(c for c in range(min(B, _BWD_CHUNK), 0, -1)
-                     if B % c == 0)
-        df = torch.empty(f.shape, dtype=torch.float32, device=f.device)
-        dg = torch.zeros(g.shape, dtype=torch.float32, device=f.device)
-        db1 = torch.zeros(b1.shape, dtype=torch.float32, device=f.device)
-        dw2 = torch.zeros(w2.shape, dtype=torch.float32, device=f.device)
-        db2 = torch.zeros(b2.shape, dtype=torch.float32, device=f.device)
-        for r0 in range(0, B, chunk):
-            sl = slice(r0, r0 + chunk)
-            dfc, dgc, db1c, dw2c, db2c = _chunk_grads(
-                f[sl], g_b[sl], b1, w2, b2, occ[sl], g_blank[sl], g_emit[sl],
-                denom[sl], y_b[sl], u0_full[sl], U1,
-                tp is None or tp.index == 0)
-            df[sl], dg[sl] = dfc, dgc
-            db1 += db1c
-            dw2 += dw2c
-            db2 += db2c
-        if tp is not None:  # partial sums over this shard's columns
-            mesh_mod.all_reduce_sum_((df, dg, db1), None, tp.group)
-        return (None, None, df.to(f.dtype), dg.to(g.dtype), db1.to(b1.dtype),
-                dw2.to(w2.dtype), db2.to(b2.dtype), None, None, None)
+
+        def dg_of(dpre, rows):
+            # band -> label rows: dg[b, u] = sum over (t, w) with
+            # u0[b, t] + w = u, from dpre rounded to the weight dtype
+            c = dpre.shape[0]
+            dg = torch.zeros((c, U1, J), dtype=torch.float32,
+                             device=f.device)
+            dg.scatter_add_(1, idx[rows].reshape(c, T * W, 1).expand(
+                c, T * W, J), dpre.to(w2.dtype).float().reshape(c, T * W, J))
+            return dg
+
+        grads = chunked_grads(f, _gather_rows(g, idx), b1, w2, b2, occ,
+                              g_blank, g_emit, denom, y_b,
+                              tp is None or tp.index == 0, g.shape, dg_of)
+        return (None, None, *grads_out(grads, (f, g, b1, w2, b2), tp), None,
+                None, None)
 
 
 def rnnt_loss_banded(f, g, b1, w2, b2, labels, logit_lengths, label_lengths,
@@ -247,7 +213,6 @@ def transducer_loss_banded(joint, enc, pred, labels, enc_lengths,
     activations and the joint module (w1, b1, w2, b2; w1p where it has
     one), the banded twin of
     `joint_loss_fused.transducer_loss_fused`."""
-    f = matmul_f32(enc, joint.w1).to(enc.dtype)
-    g = matmul_f32(pred, pred_weight(joint)).to(pred.dtype)
+    f, g = project(joint, enc, pred)
     return rnnt_loss_banded(f, g, joint.b1, joint.w2, joint.b2, labels,
                             enc_lengths, label_lengths, band=band, tp=tp)

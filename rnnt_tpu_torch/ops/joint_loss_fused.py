@@ -16,7 +16,11 @@ WGMMA plan) it runs on kernels K8 and K9 around two cuBLAS products
 (`_kernel_grads`), from the packed W2 that the forward's K6 launch left;
 elsewhere (fp32, a wider joint, the CPU) as the plain chain `_chunk_grads`,
 chunks of at most _BWD_CHUNK rows (the JAX package leaves it to XLA outside
-any kernel).  `backward_launches_by_design` counts each chunk's path.
+any kernel).  `backward_launches_by_design` counts each chunk's path.  The
+banded loss (`ops.joint_loss_banded`) shares the plain chain and its chunk
+loop (`chunked_grads`), the backward's tail (`grads_out`) and the f/g
+projection (`project`): it differs in the cells it visits and in how dpre
+becomes dg.
 
 Rounding points kept: f and g are (x @ W1) rounded to the activation dtype;
 h is fp32 and rounded to W2's dtype before each product; logits, softmax
@@ -105,46 +109,57 @@ def dlogits_(logits, den, occ, gbl, gem, y, blank_own):
     return d
 
 
-def _chunk_grads(fc, gc, b1, w2, b2, occ, gbl, gem, den, yc, blank_own):
-    """One batch chunk's (df, dg, db1, dW2, db2) from its recomputed
-    logits (the JAX `chunk_bwd`); df and dg in fp32."""
+def _chunk_grads(fc, gcells, b1, w2, b2, occ, gbl, gem, den, y, blank_own):
+    """One batch chunk's fp32 (dpre = dh (1 - h^2), dW2, db2) from its
+    recomputed logits (the JAX `chunk_bwd`): g and the labels y come laid
+    out over the cells ([c, 1, U+1, J] for the lattice, [c, T, W, J] for a
+    band)."""
     V = w2.shape[1]
     J = fc.shape[-1]
-    pre = fc.float()[:, :, None, :] + gc.float()[:, None] + b1.float()
+    pre = fc.float()[:, :, None, :] + gcells.float() + b1.float()
     h = torch.tanh(pre)
     hb = h.to(w2.dtype)
     logits = matmul_f32(hb, w2) + b2.float()
-    dlogits = dlogits_(logits, den, occ, gbl, gem, yc[:, None, :], blank_own)
-    dlb = dlogits.to(w2.dtype)
-    dl2 = dlb.reshape(-1, V)
+    dlogits = dlogits_(logits, den, occ, gbl, gem, y, blank_own)
+    dl2 = dlogits.to(w2.dtype).reshape(-1, V)
     dh = mm_f32(dl2, w2.t()).reshape(h.shape)
     dw2 = mm_f32(hb.reshape(-1, J).t(), dl2)
     db2 = dlogits.sum((0, 1, 2))
-    dpre = dh * (1.0 - h * h)
-    return dpre.sum(2), dpre.sum(1), dpre.sum((0, 1, 2)), dw2, db2
+    return dh * (1.0 - h * h), dw2, db2
 
 
-def _plain_grads(f, g, b1, w2, b2, occ, gbl, gem, den, y, blank_own):
-    """(df, dg, db1, dW2, db2) in fp32 from the plain chain `_chunk_grads`,
-    in chunks of at most _BWD_CHUNK batch rows."""
+def chunked_grads(f, gcells, b1, w2, b2, occ, gbl, gem, den, y, blank_own,
+                  dg_shape, dg_of):
+    """(df, dg, db1, dW2, db2) in fp32 from `_chunk_grads` over chunks of
+    the largest divisor of B up to _BWD_CHUNK rows, each counted "plain";
+    dg_of(dpre, rows) turns a chunk's dpre into its rows of dg."""
     B = f.shape[0]
     chunk = next(c for c in range(min(B, _BWD_CHUNK), 0, -1) if B % c == 0)
-    df = torch.empty(f.shape, dtype=torch.float32, device=f.device)
-    dg = torch.empty(g.shape, dtype=torch.float32, device=f.device)
-    db1 = torch.zeros(b1.shape, dtype=torch.float32, device=f.device)
-    dw2 = torch.zeros(w2.shape, dtype=torch.float32, device=f.device)
-    db2 = torch.zeros(b2.shape, dtype=torch.float32, device=f.device)
+    dev, f32 = f.device, torch.float32
+    df = torch.empty(f.shape, dtype=f32, device=dev)
+    dg = torch.empty(dg_shape, dtype=f32, device=dev)
+    db1 = torch.zeros(b1.shape, dtype=f32, device=dev)
+    dw2 = torch.zeros(w2.shape, dtype=f32, device=dev)
+    db2 = torch.zeros(b2.shape, dtype=f32, device=dev)
     for r0 in range(0, B, chunk):
         sl = slice(r0, r0 + chunk)
-        dfc, dgc, db1c, dw2c, db2c = _chunk_grads(
-            f[sl], g[sl], b1, w2, b2, occ[sl], gbl[sl], gem[sl], den[sl],
-            y[sl], blank_own)
-        df[sl], dg[sl] = dfc, dgc
-        db1 += db1c
+        dpre, dw2c, db2c = _chunk_grads(
+            f[sl], gcells[sl], b1, w2, b2, occ[sl], gbl[sl], gem[sl],
+            den[sl], y[sl], blank_own)
+        df[sl], dg[sl] = dpre.sum(2), dg_of(dpre, sl)
+        db1 += dpre.sum((0, 1, 2))
         dw2 += dw2c
         db2 += db2c
         backward_launches_by_design["plain"] += 1
     return df, dg, db1, dw2, db2
+
+
+def _plain_grads(f, g, b1, w2, b2, occ, gbl, gem, den, y, blank_own):
+    """(df, dg, db1, dW2, db2) in fp32 from the plain chain over every
+    (t, u) cell."""
+    return chunked_grads(f, g[:, None], b1, w2, b2, occ, gbl, gem, den,
+                         y[:, None, :], blank_own, g.shape,
+                         lambda dpre, rows: dpre.sum(1))
 
 
 def _kernel_grads(f, g, b1, w2, b2, w2p, occ, gbl, gem, den, y, blank_own,
@@ -186,6 +201,23 @@ def _kernel_grads(f, g, b1, w2, b2, w2p, occ, gbl, gem, den, y, blank_own,
             db1p.sum((0, 1))[:J], dw2[:J], db2p.sum(0)[:V])
 
 
+def grads_out(grads, inputs, tp):
+    """The backward's tail: (df, dg, db1) all-reduced over the model group
+    under `tp` (partial sums over this shard's columns), then each of the
+    five fp32 gradients cast to its input's dtype."""
+    if tp is not None:
+        mesh_mod.all_reduce_sum_(grads[:3], None, tp.group)
+    return tuple(d.to(x.dtype) for d, x in zip(grads, inputs))
+
+
+def project(joint, enc, pred):
+    """(f, g): the joint's first Dense applied to each side (W(a + b) = Wa
+    + Wb; w1p on the prediction side where the joint has one), rounded to
+    the activation dtype."""
+    return (matmul_f32(enc, joint.w1).to(enc.dtype),
+            matmul_f32(pred, pred_weight(joint)).to(pred.dtype))
+
+
 class _FusedLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tp, f, g, b1, w2, b2, labels, logit_lengths,
@@ -215,16 +247,14 @@ class _FusedLoss(torch.autograd.Function):
         y = shift_labels(pad_labels(labels), w2, tp)
         blank_own = tp is None or tp.index == 0
         if ctx.w2p is not None:
-            df, dg, db1, dw2, db2 = _kernel_grads(
+            grads = _kernel_grads(
                 f, g, b1, w2, b2, ctx.w2p, occ, g_blank, g_emit, denom, y,
                 blank_own, loss_bwd_cuda.ctas(f.device))
         else:
-            df, dg, db1, dw2, db2 = _plain_grads(
-                f, g, b1, w2, b2, occ, g_blank, g_emit, denom, y, blank_own)
-        if tp is not None:  # partial sums over this shard's columns
-            mesh_mod.all_reduce_sum_((df, dg, db1), None, tp.group)
-        return (None, df.to(f.dtype), dg.to(g.dtype), db1.to(b1.dtype),
-                dw2.to(w2.dtype), db2.to(b2.dtype), None, None, None)
+            grads = _plain_grads(f, g, b1, w2, b2, occ, g_blank, g_emit,
+                                 denom, y, blank_own)
+        return (None, *grads_out(grads, (f, g, b1, w2, b2), tp), None, None,
+                None)
 
 
 def rnnt_loss_fused(f, g, b1, w2, b2, labels, logit_lengths, label_lengths,
@@ -242,11 +272,8 @@ def rnnt_loss_fused(f, g, b1, w2, b2, labels, logit_lengths, label_lengths,
 def transducer_loss_fused(joint, enc, pred, labels, enc_lengths,
                           label_lengths, tp=None):
     """The fused loss from encoder [B, T, P] and prediction [B, U+1, P]
-    activations and the joint module (w1, b1, w2, b2): the first Dense is
-    applied to each side (W(a + b) = Wa + Wb; w1p on the prediction side
-    where the joint has one), rounded to the activation dtype.  `tp`: w2
-    and b2 are vocab-sharded (`rnnt_loss_fused`)."""
-    f = matmul_f32(enc, joint.w1).to(enc.dtype)
-    g = matmul_f32(pred, pred_weight(joint)).to(pred.dtype)
+    activations and the joint module (w1, b1, w2, b2; `project`).  `tp`:
+    w2 and b2 are vocab-sharded (`rnnt_loss_fused`)."""
+    f, g = project(joint, enc, pred)
     return rnnt_loss_fused(f, g, joint.b1, joint.w2, joint.b2, labels,
                            enc_lengths, label_lengths, tp)

@@ -6,7 +6,9 @@ the fused loss, every parameter's gradient, one Adam step, the BatchNorm
 statistics threaded back after a step, and uneven lengths (each utterance
 alone through the reference against its rows of the padded batch).  An
 LSTM `config.json` still loads into the same model and names; the paths
-that need the LSTM encoder refuse the Conformer, naming `encoder_type`."""
+that need the LSTM encoder refuse the Conformer, naming `encoder_type`.  A
+toy encoder put in `models.encoder.ENCODERS` trains through the unchanged
+`Transducer` and train step: the encoder contract is the only seam."""
 
 import dataclasses
 import json
@@ -25,7 +27,9 @@ if BENCH not in sys.path:
 from benchlib.conformer_weights import make_weights  # noqa: E402
 from reference import conformer_transducer as ref  # noqa: E402
 from rnnt_tpu_torch.config import RNNTConfig, tiny_config  # noqa: E402
-from rnnt_tpu_torch.models import conformer  # noqa: E402
+from rnnt_tpu_torch.models import conformer, encoder  # noqa: E402
+from rnnt_tpu_torch.models import lstm as L  # noqa: E402
+from rnnt_tpu_torch.ops.matmul import dense  # noqa: E402
 from rnnt_tpu_torch.models.transducer import Transducer  # noqa: E402
 from rnnt_tpu_torch.train import state as state_mod  # noqa: E402
 from rnnt_tpu_torch.train.steps import (batch_loss,  # noqa: E402
@@ -217,6 +221,42 @@ def test_counter_counts_plain_attention_on_the_cpu():
     assert conformer.attention_launches_by_path["plain"] == \
         before["plain"] + CFG.encoder_layers
     assert conformer.attention_launches_by_path["sdpa"] == before["sdpa"]
+
+
+class _ToyEncoder(torch.nn.Module):
+    """One Dense [feat, P], no BatchNorm, every frame kept: the encoder
+    contract and nothing more."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.w = L.frozen_param((cfg.input_feat_size, cfg.projection_size))
+
+    def reset_(self, rng):
+        L.glorot_(self.w, rng)
+
+    def encode(self, mel, lengths=None, state=None):
+        return dense(mel.to(self.w.dtype), self.w), None
+
+    def encode_train(self, mel, lengths=None, generator=None, mesh=None):
+        return self.encode(mel)[0], {}
+
+    def running_stats(self):
+        return {}
+
+    @staticmethod
+    def encoded_length(cfg, spec_lengths):
+        return spec_lengths
+
+
+def test_a_new_encoder_trains_through_the_encoder_table(monkeypatch):
+    monkeypatch.setitem(encoder.ENCODERS, "lstm", _ToyEncoder)
+    cfg = tiny_config()
+    st = state_mod.create_train_state(cfg, torch.float32, "cpu", seed=3)
+    assert isinstance(st.model.encoder, _ToyEncoder)
+    before = st.model.encoder.w.detach().clone()
+    metrics = make_train_step(cfg, loss_impl="fused")(st, _batch())
+    assert np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(st.model.encoder.w.detach(), before)
 
 
 LSTM_NAMES = (["encoder.bn.bias", "encoder.bn.mean", "encoder.bn.scale",
