@@ -4,7 +4,7 @@
   python3 chip_smoke.py [--seed 0] [--phases all]
 
 --phases takes a comma list of the phases below (PHASES: serving, k1_k2,
-encoder_greedy, beam, stream_kernels, export, training,
+encoder_greedy, beam, stream_kernels, export, training, conformer,
 bench_entry_points, data_prep, int8_flac_oracle, k4_k7, bench_step,
 data_parallel, tensor_parallel); a phase brings the phases it reads from (PHASE_NEEDS),
 and the default runs every phase and every gate.  Each phase logs its
@@ -41,8 +41,17 @@ worst case.
    times each, the lattice (K7, every launch its warp design) once
    and, fused, the plane kernel (K6, every launch its WGMMA design) once,
    every chunk of the fused loss's backward on K8 and K9 (train_cli,
-   bench_train and the bench step);
-   it prints each request's latency
+   bench_train and the bench step); then the Conformer (`conformer`):
+   its convolution module's K10 and K11 against their plain versions in
+   bf16 at conformer-l.train-b64's shapes and at three shapes at the
+   kernels' edges (an odd kernel longer than the utterance, one partial
+   chunk of one channel tile, an odd kernel over two chunks), and the
+   module's path against its formula (`check_conv_module`), timed beside
+   their bound and the formula; and `train_conformer`, three steps of
+   make_train_step at conformer-l.train-b64's widths and batch (17 blocks
+   of 512, B=64, 1600 frames, uneven lengths, 72 pieces, Adam, fused
+   loss), with one K10 and one K11 launch a block a step and every module
+   call on the kernels (`conv_module_launches_by_path`); it prints each request's latency
    split into frontend, encoder and decode with its launches, and each
    stream chunk's reply latency (p50, p99, max); then the measurement
    entry points, each a path of its own, called in this process as
@@ -357,7 +366,8 @@ def plain_frontend():
 
 def kernel_wrappers():
     """Each kernel's wrapper by its name in the kernels line."""
-    from rnnt_tpu_torch.ops import (beam_cuda, features_cuda, lattice_cuda,
+    from rnnt_tpu_torch.ops import (beam_cuda, conv_module_cuda,
+                                    features_cuda, lattice_cuda,
                                     loss_bwd_cuda, lstm_cuda, planes_cuda)
 
     return {"log_mel_frontend": features_cuda.log_mel_frontend,
@@ -368,7 +378,9 @@ def kernel_wrappers():
             "joint_planes": planes_cuda.joint_planes,
             "lattice_scan": lattice_cuda.lattice_scan,
             "joint_dlogits": loss_bwd_cuda.joint_dlogits,
-            "tanh_grads": loss_bwd_cuda.tanh_grads}
+            "tanh_grads": loss_bwd_cuda.tanh_grads,
+            "conv_module_fwd": conv_module_cuda.conv_module_fwd,
+            "conv_module_bwd": conv_module_cuda.conv_module_bwd}
 
 
 def zero_launches() -> None:
@@ -2287,6 +2299,303 @@ def check_loss_backward(cfg, device="cuda"):
           "library_ms": None,
           "shape": f"dh [{C}, {Jp}] fp32 (B=32 T'=128 U+1=65)"}
     return k8, k9
+
+
+# conformer-l.train-b64's convolution module: B, T', D, K
+CONV_SHAPE = (64, 400, 512, 32)
+# the kernels' edges, each at B, T', D, K: an odd kernel longer than the
+# utterance (zeros on both sides of every frame); one partial chunk of one
+# channel tile at the cell's kernel; an odd kernel of 31 taps over two
+# chunks, the second partial
+CONV_EDGE_SHAPES = {"odd K=7, T'=5 < K": (3, 5, 64, 7),
+                    "one partial chunk, D=64": (2, 100, 64, 32),
+                    "odd K=31, two chunks": (2, 300, 128, 31)}
+# K10 / K11 against their plain versions, each bf16 result within one bf16
+# step (2^-8) of the largest value: the kernels' fused multiply-adds and
+# sums in their own order differ from the plain version's in fp32's last
+# bits, which can move one rounding to bf16 by a step
+CONV_BF16_TOL = 2.0 ** -8
+CONV_STATS_TOL = 1e-4  # the fp32 statistics: sums of 25600 frames reordered
+# the kernels against the module's formula in bf16 (PyTorch's ops), which
+# rounds GLU's output, the normalised values and the BatchNorm gradient to
+# bf16 where the kernels keep fp32: a few bf16 steps
+CONV_FORMULA_TOL = 0.05
+
+
+def conv_module_problem(B, T, D, K, device, seed):
+    """(u, valid, w, b, gamma, beta, mean, var, ds) at the module's scales:
+    u, ds normal bf16, the taps uniform at the module's init, uneven lengths
+    (the first full, the rest in [T / 2, T])."""
+    import torch
+
+    from rnnt_tpu_torch.models import conformer
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    bf = torch.bfloat16
+    lim = (6.0 / (2 * K)) ** 0.5
+    lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device=device)
+    lengths[0] = T
+    w = ((torch.rand(D, K, generator=g, device=device) * 2 - 1) * lim).to(bf)
+    return (rnd(B, T, 2 * D).to(bf), conformer.frame_mask(lengths, T), w,
+            (0.1 * rnd(D)).to(bf), (1 + 0.2 * rnd(D)).to(bf),
+            (0.2 * rnd(D)).to(bf), 0.1 * rnd(D),
+            0.5 + torch.rand(D, generator=g, device=device),
+            (0.1 * rnd(B, T, D)).to(bf))
+
+
+def conv_kernel_errs(B, T, D, K, device, seed):
+    """K10 and K11 against their plain versions at (B, T', D, K) with
+    uneven lengths: (relative errors of the bf16 results, of the fp32
+    statistics, the problem, K10's training outputs, K11's outputs), each
+    error already required within CONV_BF16_TOL / CONV_STATS_TOL, and the
+    plain versions' ms (one run each)."""
+    from rnnt_tpu_torch.models import conformer
+    from rnnt_tpu_torch.ops import conv_module_cuda as C
+
+    prob = conv_module_problem(B, T, D, K, device, seed)
+    u, valid, w, b, gamma, beta, mean, var, ds = prob
+    fwd_args = (u, valid, w, b, gamma, beta, mean, var, conformer.NORM_EPS)
+    got = C.conv_module_fwd(*fwd_args, True)
+    want, plain_fwd_ms = once_ms(lambda: C.conv_module_fwd_plain(*fwd_args,
+                                                                 True))
+    errs = {n: rel_err(got[i], want[i])
+            for i, n in ((0, "s"), (1, "y"))}
+    stats_errs = {n: rel_err(got[2][i], want[2][i]) for i, n in enumerate(
+        ("mean", "var", "rstd", "scale", "shift", "count"))}
+    stats_errs.update(new_mean=rel_err(got[3], want[3]),
+                      new_var=rel_err(got[4], want[4]))
+    bwd_args = (ds, u, valid, w, got[1], got[2], gamma)
+    gotb = C.conv_module_bwd(*bwd_args)
+    wantb, plain_bwd_ms = once_ms(lambda: C.conv_module_bwd_plain(*bwd_args))
+    errs.update({n: rel_err(a, e) for n, a, e in zip(
+        ("du", "dw", "db", "dgamma", "dbeta"), gotb, wantb)})
+    # the depthwise bias's gradient is zero but for rounding (BatchNorm
+    # subtracts the mean the bias shifts): held to the weight gradient's
+    # scale
+    errs["db"] = float((gotb[2] - wantb[2]).float().abs().max()
+                       / wantb[1].float().abs().max())
+    ev = C.conv_module_fwd(*fwd_args, False)[0]
+    errs["s eval"] = rel_err(ev, C.conv_module_fwd_plain(*fwd_args,
+                                                         False)[0])
+    log(f"conv module K10 + K11 at B={B}, T'={T}, D={D}, K={K} against "
+        "their plain versions, relative error "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + "; statistics " + ", ".join(f"{n} {e:.3e}"
+                                      for n, e in stats_errs.items()))
+    require(max(errs.values()) <= CONV_BF16_TOL,
+            f"conv module kernels at {(B, T, D, K)} disagree with their "
+            f"plain versions: {errs}")
+    require(max(stats_errs.values()) <= CONV_STATS_TOL,
+            f"conv module statistics at {(B, T, D, K)} disagree: "
+            f"{stats_errs}")
+    return errs, stats_errs, prob, got, gotb, (plain_fwd_ms, plain_bwd_ms)
+
+
+def check_conv_module(device="cuda"):
+    """K10 and K11 against their plain versions on the card in bf16 at
+    conformer-l.train-b64's module ([64, 400, 1024] -> [64, 400, 512],
+    K=32, uneven lengths) and at CONV_EDGE_SHAPES: K10's s, y, statistics
+    and running statistics (CONV_BF16_TOL, CONV_STATS_TOL), K11's du, dW,
+    db, dgamma and dbeta from the same y and statistics, the eval form;
+    two runs bit for bit at the cell's shape; the module's path through
+    both against its formula (PyTorch's ops, CONV_FORMULA_TOL) and its
+    routing: bf16 training and eval without gradients on the kernels, fp32
+    on the formula, a bf16 module the kernels do not take refused.
+    Returns the K10 and K11 entries of the kernels line: each timed
+    against its bound (bytes), its plain version and the parent's native
+    chain (the formula), forward and forward + backward."""
+    import torch
+
+    from rnnt_tpu_torch.models import conformer
+    from rnnt_tpu_torch.ops import conv_module_cuda as C
+
+    edge_errs = {}
+    for i, (name, shape) in enumerate(CONV_EDGE_SHAPES.items()):
+        e, se = conv_kernel_errs(*shape, device, 60 + i)[:2]
+        edge_errs[name] = max(max(e.values()), max(se.values()))
+    B, T, D, K = CONV_SHAPE
+    errs, stats_errs, prob, got, gotb, plain_ms = conv_kernel_errs(
+        B, T, D, K, device, 50)
+    u, valid, w, b, gamma, beta, mean, var, ds = prob
+    plain_fwd_ms, plain_bwd_ms = plain_ms
+    fwd_args = (u, valid, w, b, gamma, beta, mean, var, conformer.NORM_EPS)
+    bwd_args = (ds, u, valid, w, got[1], got[2], gamma)
+    again = C.conv_module_fwd(*fwd_args, True)
+    againb = C.conv_module_bwd(ds, u, valid, w, again[1], again[2], gamma)
+    require(all(torch.equal(a, e) for a, e in zip(
+        (*got, *gotb), (*again, *againb))),
+        "conv module: two runs of K10 + K11 differ")
+    log("conv module: two runs of K10 + K11 equal bit for bit")
+    # the module's path through the kernels against its formula, with
+    # autograd, and its routing
+    m = conformer.ConvModule(D, K).to(device)
+    with torch.no_grad():
+        for p, v in ((m.dw_w, w), (m.dw_b, b), (m.bn.scale, gamma),
+                     (m.bn.bias, beta), (m.bn.mean, mean), (m.bn.var, var)):
+            p.data = v.clone()
+    leaves = [m.dw_w, m.dw_b, m.bn.scale, m.bn.bias]
+    for p in leaves:
+        p.requires_grad_(True)
+    ul = u.clone().requires_grad_(True)
+    before = dict(conformer.conv_module_launches_by_path)
+    k_out, k_stats = m.glu_to_swish(ul, valid, True, None)
+    k_grads = torch.autograd.grad((k_out * ds).float().sum(), [ul, *leaves])
+    f_out, f_stats = m.formula(ul, valid, True, None)
+    f_grads = torch.autograd.grad((f_out * ds).float().sum(), [ul, *leaves])
+    ran = {p: n - before[p]
+           for p, n in conformer.conv_module_launches_by_path.items()}
+    require(ran == {"kernel": 1, "plain": 0},
+            f"conv module bf16 training path: {ran}, want one kernel call")
+    formula_errs = {n: rel_err(a, e) for n, a, e in zip(
+        ("s", "mean", "var", "du", "dw", "db", "dgamma", "dbeta"),
+        (k_out, *k_stats, *k_grads), (f_out, *f_stats, *f_grads))}
+    # the depthwise bias's gradient, zero but for rounding, as above
+    formula_errs["db"] = float((k_grads[2] - f_grads[2]).abs().max()
+                               / f_grads[1].abs().max())
+    log("conv module path against its formula (bf16), relative error "
+        + ", ".join(f"{n} {e:.3e}" for n, e in formula_errs.items()))
+    require(max(formula_errs.values()) <= CONV_FORMULA_TOL,
+            f"conv module path disagrees with its formula: {formula_errs}")
+    with torch.no_grad():
+        before = dict(conformer.conv_module_launches_by_path)
+        m.glu_to_swish(u, valid, False, None)
+        m32 = conformer.ConvModule(64, 8).to(device)
+        m32.glu_to_swish(u[:2, :16, :128].float(), valid[:2, :16], True,
+                         None)
+    ran = {p: n - before[p]
+           for p, n in conformer.conv_module_launches_by_path.items()}
+    require(ran == {"kernel": 1, "plain": 1},
+            f"conv module routes: bf16 eval and fp32 training ran {ran}")
+    with torch.no_grad():
+        m96 = conformer.ConvModule(96, 8).to(device).to(torch.bfloat16)
+        try:
+            m96.glu_to_swish(u[:2, :16, :192], valid[:2, :16], True, None)
+            refused = False
+        except ValueError:
+            refused = True
+    require(refused, "conv module: a bf16 module of D=96 on the card was "
+            "not refused")
+    # times: each kernel, its plain version's comparison run, and the
+    # formula (the parent's native chain) forward and forward + backward
+    k10_ms = cuda_ms(lambda: C.conv_module_fwd(*fwd_args, True), reps=20)
+    k10_eval_ms = cuda_ms(lambda: C.conv_module_fwd(*fwd_args, False),
+                          reps=20)
+    k11_ms = cuda_ms(lambda: C.conv_module_bwd(*bwd_args), reps=20)
+    for p in leaves:
+        p.requires_grad_(False)
+
+    def native_fwd():
+        with torch.no_grad():
+            m.formula(u, valid, True, None)
+
+    def native_fwd_bwd():
+        x = u.detach().requires_grad_(True)
+        out, _ = m.formula(x, valid, True, None)
+        out.backward(ds)
+
+    native_fwd_ms = cuda_ms(native_fwd, reps=10)
+    native_ms = cuda_ms(native_fwd_bwd, reps=10)
+    N = B * T
+    k10_bytes = 2 * N * (2 * D) + 3 * 2 * N * D + 2 * (D * K + 3 * D)
+    k11_bytes = 2 * (2 * 2 * N * D + N * 2 * D + N * 2 * D) + 2 * (
+        D * K + 4 * D)
+    shape = (f"u [{B}, {T}, {2 * D}] -> [{B}, {T}, {D}] bf16, K={K}, "
+             "uneven lengths")
+    source = "rnnt_tpu_torch/csrc/conv_module.cu"
+    replaces = ("none: the JAX package has no Conformer; ConvModule's "
+                "native chain (GLU, mask, depthwise Conv1d, masked "
+                "BatchNorm, Swish)")
+    k10 = {"name": "conv_module_fwd", "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": None,
+           "max_rel_err_by_case": {**errs, **stats_errs},
+           "max_rel_err_by_edge_shape": edge_errs,
+           "formula_rel_err": formula_errs, "ms": k10_ms,
+           "ms_eval": k10_eval_ms, "plain_ms": plain_fwd_ms,
+           "plain_ms_note": PLAIN_ONCE,
+           **bound_of(k10_bytes, 2.0 * N * D * K, PEAK_FP32_FLOPS),
+           "library_ms": native_fwd_ms,
+           "library": "the module's formula forward (PyTorch's GLU, "
+                      "masked_fill, pad, native depthwise conv1d, masked "
+                      "BatchNorm, silu)", "shape": shape}
+    k11 = {"name": "conv_module_bwd", "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": None,
+           "max_rel_err_by_case": {n: errs[n] for n in
+                                   ("du", "dw", "db", "dgamma", "dbeta")},
+           "ms": k11_ms, "plain_ms": plain_bwd_ms,
+           "plain_ms_note": PLAIN_ONCE,
+           **bound_of(k11_bytes, 4.0 * N * D * K, PEAK_FP32_FLOPS),
+           "library_ms": native_ms - native_fwd_ms,
+           "library": "the formula's forward + backward less its forward",
+           "library_fwd_bwd_ms": native_ms,
+           "kernels_fwd_bwd_ms": k10_ms + k11_ms, "shape": shape}
+    log(f"conv module: K10 {k10_ms:.4f} ms (eval {k10_eval_ms:.4f}; bound "
+        f"{k10['bound_ms']:.4f}; native {native_fwd_ms:.4f}), K11 "
+        f"{k11_ms:.4f} ms (bound {k11['bound_ms']:.4f}; native "
+        f"{native_ms - native_fwd_ms:.4f}); plain {plain_fwd_ms:.2f} / "
+        f"{plain_bwd_ms:.2f}")
+    return k10, k11
+
+
+CONFORMER_CONFIG = os.path.join(REPO, "benchmark", "configs",
+                                "conformer-l.json")
+# conformer-l.train-b64's batch: B, frames, labels; and the steps driven
+CONFORMER_BATCH, CONFORMER_STEPS = (64, 1600, 72), 3
+
+
+def run_conformer_steps(seed, device="cuda"):
+    """`train_conformer`: CONFORMER_STEPS steps of make_train_step (fused
+    loss, Adam) on the Conformer-Transducer of CONFORMER_CONFIG (random
+    weights from `seed`, bf16) at CONFORMER_BATCH with uneven frame lengths
+    (the first full, the rest in [T / 2, T]), one batch a step.  Returns
+    (the losses, the ms of each step after the first, the module calls by
+    path during the steps, the model's blocks)."""
+    import torch
+
+    from rnnt_tpu_torch.config import RNNTConfig
+    from rnnt_tpu_torch.models import conformer
+    from rnnt_tpu_torch.train.state import create_train_state
+    from rnnt_tpu_torch.train.steps import make_train_step
+
+    with open(CONFORMER_CONFIG) as f:
+        cfg = RNNTConfig(**json.load(f)["model"])
+    B, T, U = CONFORMER_BATCH
+    state = create_train_state(cfg, None, device, seed)
+    step = make_train_step(cfg, loss_impl="fused")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    by_path = conformer.conv_module_launches_by_path
+    by_path.update(dict.fromkeys(by_path, 0))
+    losses, ms = [], []
+    for k in range(CONFORMER_STEPS):
+        batch = random_batch(cfg, B, T, U, device, seed + k)
+        lengths = torch.randint(T // 2, T + 1, (B,), generator=gen,
+                                device=device)
+        lengths[0] = T
+        batch["spec_lengths"] = lengths
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch, gen)["loss"]))
+        if k:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    ran = dict(by_path)
+    del state, step
+    torch.cuda.empty_cache()
+    return losses, ms, ran, cfg.encoder_layers
+
+
+def require_conformer_launches(name, launches, ran, layers, steps) -> None:
+    """One K10 and one K11 launch a block a step, and every module call on
+    the kernels (`conv_module_launches_by_path`)."""
+    want = layers * steps
+    require(ran == {"kernel": want, "plain": 0},
+            f"path {name}: conv module calls by path {ran}, want {want} "
+            "kernel and 0 plain")
+    for k in ("conv_module_fwd", "conv_module_bwd"):
+        require(launches[k] == want,
+                f"path {name}: {launches[k]} {k} launches, want {want}")
 
 
 def check_lattice(planes32, device="cuda", seed=5):
@@ -4608,8 +4917,8 @@ def drive_tensor_parallel(paths, cfg, seed, smi, device="cuda"):
 
 
 PHASES = ("serving", "k1_k2", "encoder_greedy", "beam", "stream_kernels",
-          "export", "training", "bench_entry_points", "data_prep",
-          "int8_flac_oracle", "k4_k7", "bench_step", "data_parallel",
+          "export", "training", "conformer", "bench_entry_points",
+          "data_prep", "int8_flac_oracle", "k4_k7", "bench_step", "data_parallel",
           "tensor_parallel")
 # what a phase reads from an earlier one: the run directory and the server
 # (serving), the train_cli run and its shards (training), the bench's
@@ -4856,6 +5165,21 @@ def main(argv=None) -> int:
                 f"{time.perf_counter() - t_banded:.1f} s")
             end_phase("training")
 
+        if "conformer" in phases:
+            found["k10"], found["k11"] = check_conv_module()
+            (losses, step_ms, ran, layers), paths["train_conformer"] = \
+                drive_path("train_conformer",
+                           lambda: run_conformer_steps(args.seed),
+                           ("conv_module_fwd", "conv_module_bwd"))
+            log(f"path train_conformer: losses {losses}, step ms {step_ms}, "
+                f"conv module calls by path {ran}")
+            require(all(np.isfinite(losses)),
+                    f"train_conformer losses {losses}")
+            require_conformer_launches("train_conformer",
+                                       paths["train_conformer"], ran, layers,
+                                       CONFORMER_STEPS)
+            end_phase("conformer")
+
         if "bench_entry_points" in phases:
             timed, k3_decode = drive_bench_entry_points(paths, cfg, args.seed)
             end_phase("bench_entry_points")
@@ -4928,7 +5252,8 @@ def main(argv=None) -> int:
             k3["max_abs_err"] = max([k3["max_abs_err"]] + [
                 r["max_abs_err"] for r in k3_decode.values()])
         kernels = [found[k] for k in ("k1", "k2", "k3", "k4", "k5", "k6",
-                                      "k7", "k8", "k9") if k in found]
+                                      "k7", "k8", "k9", "k10", "k11")
+                   if k in found]
         for k in kernels:
             name = k["name"]
             k["launches"] = sum(p[name] for p in paths.values())

@@ -95,6 +95,17 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def check_operands(tensors, dtypes) -> None:
+    """Raise unless every operand is contiguous, of its dtype, on one
+    device."""
+    dev = tensors[0].device
+    for i, (a, dt) in enumerate(zip(tensors, dtypes)):
+        if a.device != dev or not a.is_contiguous() or a.dtype != dt:
+            raise ValueError(f"operand {i}: {a.dtype} on {a.device}, "
+                             f"contiguous {a.is_contiguous()}; want a "
+                             f"contiguous {dt} on {dev}")
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err != 0:

@@ -35,7 +35,17 @@ products are bf16 cuBLAS products with fp32 accumulation on the card
 On the card the attention runs in `scaled_dot_product_attention`'s
 memory-efficient kernel with the position term and the padding as its
 float mask; elsewhere the plain formula.  `attention_launches_by_path`
-counts each MHSA call's path ("sdpa" / "plain").
+counts each MHSA call's path ("sdpa" / "plain").  Between its two products
+the convolution module runs on the hand-written kernels K10 (forward: GLU,
+mask, depthwise convolution, BatchNorm statistics, normalisation and Swish)
+and K11 (their backward) of `ops.conv_module_cuda` when u and its
+parameters are bf16 on the card and the BatchNorm statistics are the
+rank's own (no mesh, or a data axis of 1) (`conv_module_cuda.fits`); on
+the CPU, in fp32 and under a data mesh of more than one row it keeps the
+formula below.  A bf16 module on the card that the kernels do not take (D
+not a multiple of 64, a kernel of more than 32 taps, eval with a gradient
+asked for) raises.  `conv_module_launches_by_path` counts each call's path
+("kernel" / "plain").
 
 Each module runs in `trace.module_span`: `rnnt.conformer.subsample`,
 `.ffn`, `.mhsa`, `.conv`, and `.bwd` for their backward.
@@ -53,12 +63,15 @@ from torch import nn
 
 from rnnt_tpu_torch.config import RNNTConfig
 from rnnt_tpu_torch.models import lstm as L
+from rnnt_tpu_torch.ops import conv_module_cuda
 from rnnt_tpu_torch.ops.matmul import dense
 from rnnt_tpu_torch.trace import module_span
 
 NORM_EPS = 1e-5
 ATTENTION_PATHS = ("sdpa", "plain")
 attention_launches_by_path = dict.fromkeys(ATTENTION_PATHS, 0)
+CONV_MODULE_PATHS = ("kernel", "plain")
+conv_module_launches_by_path = dict.fromkeys(CONV_MODULE_PATHS, 0)
 
 
 def subsampled_length(lengths: torch.Tensor) -> torch.Tensor:
@@ -253,9 +266,29 @@ class ConvModule(nn.Module):
     def forward(self, x, valid, training, mesh):
         """(y, (BatchNorm mean, var): the updated running statistics in
         training, else None)."""
+        s, stats = self.glu_to_swish(self.pw1(self.ln(x)), valid, training,
+                                     mesh)
+        return self.pw2(s), stats
+
+    def glu_to_swish(self, u, valid, training, mesh):
+        """pw1's output u [B, T, 2D] -> (pw2's input, the BatchNorm
+        statistics as `forward`): K10 and K11 where
+        `conv_module_cuda.fits`, else `formula`."""
+        bn = self.bn
+        if conv_module_cuda.fits(u, self.dw_w, self.dw_b, bn.scale, bn.bias,
+                                 mesh, training):
+            conv_module_launches_by_path["kernel"] += 1
+            return conv_module_cuda.conv_module(
+                u, valid, self.dw_w, self.dw_b, bn.scale, bn.bias, bn.mean,
+                bn.var, NORM_EPS, training)
+        conv_module_launches_by_path["plain"] += 1
+        return self.formula(u, valid, training, mesh)
+
+    def formula(self, u, valid, training, mesh):
+        """GLU, mask, depthwise Conv1d, BatchNorm and Swish in PyTorch's
+        ops (`glu_to_swish`)."""
         K = self.kernel
-        y = Fn.glu(self.pw1(self.ln(x)), dim=-1)
-        y = y.masked_fill(~valid[..., None], 0.0)
+        y = Fn.glu(u, dim=-1).masked_fill(~valid[..., None], 0.0)
         y = Fn.pad(y.transpose(1, 2), ((K - 1) // 2, K // 2))
         y = Fn.conv1d(y, self.dw_w.to(y.dtype)[:, None, :],
                       self.dw_b.to(y.dtype), groups=y.shape[1]).transpose(1, 2)
@@ -263,7 +296,7 @@ class ConvModule(nn.Module):
             y, stats = self.bn.forward_train(y, mesh, valid)
         else:
             y, stats = self.bn(y), None
-        return self.pw2(Fn.silu(y)), stats
+        return Fn.silu(y), stats
 
 
 class ConformerBlock(nn.Module):

@@ -152,17 +152,6 @@ def _lib():
     return bind(build.load("joint_loss_bwd"))
 
 
-def _check(tensors, dtypes):
-    """Raise unless every operand is contiguous, of its dtype, on one
-    device."""
-    dev = tensors[0].device
-    for i, (a, dt) in enumerate(zip(tensors, dtypes)):
-        if a.device != dev or not a.is_contiguous() or a.dtype != dt:
-            raise ValueError(f"operand {i}: {a.dtype} on {a.device}, "
-                             f"contiguous {a.is_contiguous()}; want a "
-                             f"contiguous {dt} on {dev}")
-
-
 def joint_dlogits(f, g, y, b1, w2, w2p, b2, den, occ, gbl, gem, db2p, V,
                   blank_own, ctas):
     """K8 on one batch chunk: f [B, T, Jp], g [B, U+1, Jp], b1 [Jp] bf16
@@ -180,8 +169,9 @@ def joint_dlogits(f, g, y, b1, w2, w2p, b2, den, occ, gbl, gem, db2p, V,
     B, T, Jp = f.shape
     U1, Vp = g.shape[1], b2.shape[0]
     bf, f32 = torch.bfloat16, torch.float32
-    _check((f, g, y, b1, w2p, b2, den, occ, gbl, gem, db2p),
-           (bf, bf, torch.int32, bf, bf, f32, f32, f32, f32, f32, f32))
+    build.check_operands(
+        (f, g, y, b1, w2p, b2, den, occ, gbl, gem, db2p),
+        (bf, bf, torch.int32, bf, bf, f32, f32, f32, f32, f32, f32))
     if (g.shape != (B, U1, Jp) or y.shape != (B, U1) or w2p.numel() != Jp * Vp
             or den.shape != (B, T, U1) or db2p.shape != (ctas * WARPS, Vp)):
         raise ValueError("K8 operands do not fit one joint chunk")
@@ -214,7 +204,8 @@ def tanh_grads(dh, f, g, b1, df, dg, db1p):
     from rnnt_tpu_torch.kernels import build
 
     bf, f32 = torch.bfloat16, torch.float32
-    _check((dh, f, g, b1, df, dg, db1p), (f32, bf, bf, bf, f32, f32, f32))
+    build.check_operands((dh, f, g, b1, df, dg, db1p),
+                         (f32, bf, bf, bf, f32, f32, f32))
     if (dh.shape != (B * T * U1, Jp) or dg.shape != (B, U1, Jp)
             or df.shape != (B, T, Jp) or db1p.shape != (B, -(-U1 // UG), Jp)):
         raise ValueError("K9 operands do not fit one joint chunk")
